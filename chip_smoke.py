@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``nonlinearsolve_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--log PATH]
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a); exits
 non-zero without one, and without the package beside it.  Each phase
-prints one JSON line; a failed check raises, so the script exits non-zero.
+prints one JSON line (``--log`` also appends every line to PATH); a failed
+check raises, so the script exits non-zero.
 
 1. device: the card's name, and its name and power limit as nvidia-smi
    gives them (on a line of their own);
-2. build: nvcc of every kernel source, timed;
+2. build: nvcc of every kernel source and g++ of ``csrc/sparsetools.cpp``,
+   all started together, each timed;
 3. kernels: K1 (brusselator_jvp) and K2 (brusselator_jvp_scaled, planar
    and interleaved) on the card against their plain PyTorch versions —
    N=512 and N=2048, f32 and f64, and a NaN that must come out of K2's
-   absmax.  Times are CUDA-event times per call over ≥ 200 calls replayed
-   from a CUDA graph (device time, no host gaps); the bound is the bytes
-   read once and written once over 3.35 TB/s, or the operations over the
-   peak rate, whichever is larger;
+   absmax.  Then K4 (dia_spmv) and K5's unit-data variant (gather_select)
+   on the DIA route's tables (the 512² Brusselator's 11 diagonals and its
+   assembly selection) with seeded data, f32 and f64, with pad slots of
+   inf that K4 must not read.  Times are CUDA-event times per call over
+   ≥ 200 calls replayed from a CUDA graph (device time, no host gaps); the
+   bound is the bytes read once and written once over 3.35 TB/s, or the
+   operations over the peak rate, whichever is larger; the library call
+   beside K4/K5 (cuSPARSE through ``torch.sparse_csr_tensor``,
+   ``torch.take``) is timed by its kernels' device time under
+   torch.profiler over eager calls (the kernel is timed that way too, for
+   a like-for-like pair);
 4. main path, with every launch counter set to 0 just before and read just
    after: the chained, normalised matvec of the throughput row
    (bench.py:92-108, K2) and the flagship solve at bench.py:134-140's
@@ -27,7 +36,24 @@ prints one JSON line; a failed check raises, so the script exits non-zero.
    the chain's steps.  Then the wall time of warm solves;
 5. f64 polish on the card from the f32 root (tools/golden_polish.py's
    settings); the f32 root must lie within rel-inf 1e-2 of the f64 root;
-6. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+6. sparse path (counters at 0 just before, read just after): the same
+   solver with a colored sparse-AD Jacobian (8 JVPs a step, assembled into
+   DIA by K5's selection, K4 in every GMRES product) on the flat 512²
+   Brusselator, f64, abstol 1e-4.  Checks: Success, |F|_inf ≤ 1e-4, 8
+   colors, 11 diagonals, selection launches = Jacobians, K4 launches =
+   Jacobian products, no K1 or CSR K5 launch, the root within rel-inf 1e-3
+   of phase 5's.  The one-time host plan is timed apart from the warm
+   solves; then the f32 variant at abstol 5.0 (reported, not required to
+   succeed: the JAX package stalls at |F| = 7.6 there);
+7. CSR route (counters at 0 just before, read just after): the 512²
+   Brusselator with its unknowns permuted by a seeded permutation (beyond
+   the DIA tier), the same solver, f64, abstol 1e-4.  Checks: Success,
+   K5 (gather_spmv) launches = Jacobian products, selection launches =
+   Jacobians, no K4 launch, and the root, permuted back, within rel-inf
+   1e-8 of phase 6's.  Then K5 and its selection are checked and timed on
+   this route's own tables (the permuted pattern, the Jacobian at the root
+   as data), f32 and f64;
+8. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -36,6 +62,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,       # H100 SXM, outside the tensor cores
@@ -49,10 +76,27 @@ REPLACES = {
 SOURCE = "nonlinearsolve_tpu_torch/csrc/stencil.cu"
 LIBRARY_NOTE = ("no single PyTorch call computes this fused stencil JVP "
                 "(a convolution covers the Laplacian only)")
+SPMV_SOURCE = "nonlinearsolve_tpu_torch/csrc/spmv.cu"
+SPMV_REPLACES = {
+    "dia_spmv": "nonlinearsolve_tpu/ops/pallas_stencil.py:228",
+    "gather_spmv": "nonlinearsolve_tpu/ops/pallas_spmv.py:391",
+    "gather_select": "nonlinearsolve_tpu/ops/pallas_spmv.py:391",
+}
+SPMV_LIBRARY = {
+    "dia_spmv": "cuSPARSE CSR matvec of the same matrix "
+                "(torch.sparse_csr_tensor @ x)",
+    "gather_spmv": "cuSPARSE CSR matvec (torch.sparse_csr_tensor @ x)",
+    "gather_select": "torch.take of the zero-extended values",
+}
+LOG = {"path": None}
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG["path"]:
+        with open(LOG["path"], "a") as fh:
+            fh.write(line + "\n")
 
 
 def graph_time_ms(torch, fn, calls=50, replays=4):
@@ -81,6 +125,89 @@ def graph_time_ms(torch, fn, calls=50, replays=4):
     return start.elapsed_time(end) / (calls * replays)
 
 
+def event_time_ms(torch, fn, calls=100):
+    """Device time per call of ``fn`` issued eagerly: CUDA events around
+    ``calls`` back-to-back calls (after three warm-up calls)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def profiled_ms(torch, fn, calls=20):
+    """Device time per call of ``fn`` issued eagerly: the kernels' own time
+    under torch.profiler (every kernel the call launches, summed), so the
+    host's launch cost does not count.  For a library call that a CUDA
+    graph may not capture."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0)) or 0
+    return total / 1e3 / calls if total > 0 else None
+
+
+def roofline_ms(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def profile_device(torch, run):
+    """Run ``run()`` once under torch.profiler: its wall time, the device's
+    busy time (summed kernel time) and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) or 0
+        if dt > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
+    busy_ms = sum(kernels.values())
+    return {"profiled_solve_s": wall,
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "device_idle_share": (1.0 - busy_ms / (wall * 1e3)
+                                  if busy_ms > 0 else "not measured"),
+            "top_device_ms": sorted(kernels.items(),
+                                    key=lambda kv: -kv[1])[:12]}
+
+
+def warm_walls(torch, run, count=3):
+    walls = []
+    for _ in range(count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
 def bound_ms(name, N, dtype, itemsize):
     # inputs read once + outputs written once: U and T (or four planes),
     # p, and out (N, N, 2); K2 also reads inv_scale, writes the max
@@ -99,9 +226,211 @@ def rel_err(got, ref):
     return err, err / scale
 
 
-def main():
+def spmv_case(torch, name, tables, dname, kern, plain, library, cost, shape,
+              exact=False, extra_check=None):
+    """One K4/K5 case: the kernel against its plain version (bit for bit
+    when ``exact``, else at TOL), then its times, its bound from ``cost`` =
+    (bytes, flops), and the library call's time.  Emits and returns the
+    record; raises if the kernel disagrees."""
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, ref)
+    ok = bool(torch.equal(got, ref)) if exact else rel <= TOL[dname]
+    extra = extra_check(got) if extra_check else {}
+    ok = ok and all(extra.values())
+    # the library call is a yardstick, not a check: a refusal is
+    # recorded, not raised
+    try:
+        lib_err = rel_err(library(), ref)[1]
+        library_ms = profiled_ms(torch, library)
+        library_eager = event_time_ms(torch, library)
+    except RuntimeError as exc:
+        lib_err = f"refused: {exc}"[:300]
+        library_ms = library_eager = None
+    ms = graph_time_ms(torch, kern)
+    ms_profiled = profiled_ms(torch, kern)
+    ms_eager = event_time_ms(torch, kern)
+    plain_ms = graph_time_ms(torch, plain, calls=10, replays=20)
+    bms, by = roofline_ms(cost[0], cost[1], dname)
+    rec = {"phase": "kernel_check", "case": name, "tables": tables,
+           "dtype": dname, "shape": shape, "max_abs_err": abs_err,
+           "rel_err": rel, "tolerance": 0.0 if exact else TOL[dname],
+           "ms": ms, "ms_profiled": ms_profiled, "ms_eager_events": ms_eager,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_ms_eager_events": library_eager,
+           "library": SPMV_LIBRARY[name], "library_rel_err": lib_err,
+           "bound_ms": bms, "bound_by": by, "bound_bytes": cost[0],
+           "share_of_bound": bms / ms, "ok": ok, **extra}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{name} {dname} disagrees with its plain "
+                             f"version: {rec}")
+    return rec
+
+
+def selection_case(torch, spmv, sel, tables, dtype, dev, rng):
+    """K5's unit-data variant on a static selection's own table, with
+    seeded values (every pad slot must come out 0)."""
+    import numpy as np
+    dname = str(dtype).split(".")[-1]
+    item = torch.finfo(dtype).bits // 8
+    src = sel.table(dev)
+    src_long = src.long()
+    n_read = int(np.count_nonzero(sel.src < sel.n_src))
+    values = torch.as_tensor(rng.standard_normal(sel.n_src), dtype=dtype,
+                             device=dev)
+    values_ext = torch.cat([values, values.new_zeros(1)])
+    return spmv_case(
+        torch, "gather_select", tables, dname,
+        lambda: spmv.gather_select(src, values),
+        lambda: spmv.gather_select_plain(src, values),
+        lambda: torch.take(values_ext, src_long),
+        (sel.n_out * 4 + n_read * item + sel.n_out * item, 0),
+        [sel.n_out, sel.n_src], exact=True)
+
+
+def sparse_kernel_checks(torch, dev, spmv, brusselator, plan_sparse):
+    """K4 and K5's selection on the 512² Brusselator's own tables (the DIA
+    route's: the assembly-direct selection and the 11 diagonals), seeded
+    data, f32 and f64, against their plain versions.  Returns the f64
+    records by kernel."""
+    import numpy as np
+
+    N = 512
+    n = 2 * N * N
+    pat = brusselator.sparsity_pattern(N)
+    plan = plan_sparse(None, n, n, sparsity=pat)
+    dplan = plan.dia_plan
+    indptr, indices = pat.device_tables(dev)
+    in_band = sum(n - abs(o) for o in dplan.offsets)
+    out_band = torch.zeros((dplan.ndiag, n), dtype=torch.bool)
+    for d, off in enumerate(dplan.offsets):
+        if off > 0:
+            out_band[d, n - off:] = True
+        elif off < 0:
+            out_band[d, :-off] = True
+    out_band = out_band.to(dev)
+    rng = np.random.default_rng(0)
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        sel_rec = selection_case(torch, spmv, plan.dia_selection,
+                                 "dia_assembly_512", dtype, dev, rng)
+        data = torch.as_tensor(rng.standard_normal(pat.nnz), dtype=dtype,
+                               device=dev)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        dd = dplan.pack(data)
+        csr_lib = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
+        dd_inf = dd.clone()
+        dd_inf[out_band] = float("inf")
+
+        def inf_pads(got):
+            # inf in every out-of-band slot: K4 must not read them
+            y_inf = spmv.dia_spmv(dd_inf, dplan.offsets, x)
+            torch.cuda.synchronize()
+            return {"inf_pads_finite": bool(torch.isfinite(y_inf).all()),
+                    "inf_pads_equal": bool(torch.equal(y_inf, got))}
+
+        dia_rec = spmv_case(
+            torch, "dia_spmv", "dia_512", dname,
+            lambda: spmv.dia_spmv(dd, dplan.offsets, x),
+            lambda: spmv.dia_spmv_plain(dd, dplan.offsets, x),
+            lambda: csr_lib @ x,
+            (in_band * item + 2 * n * item, 2 * in_band), [dplan.ndiag, n],
+            extra_check=inf_pads)
+        if dtype == torch.float64:
+            records = {"gather_select": sel_rec, "dia_spmv": dia_rec}
+        del data, x, dd, dd_inf, csr_lib
+    return records
+
+
+def csr_kernel_checks(torch, dev, spmv, cplan, jac_data):
+    """K5 on the CSR route's own tables (the permuted pattern, its
+    assembled Jacobian as data, a seeded x) and its selection on that
+    route's assembly table, f32 and f64.  Returns the f64 records."""
+    import numpy as np
+
+    pat = cplan.pattern
+    n = pat.shape[0]
+    indptr, indices = pat.device_tables(dev)
+    rng = np.random.default_rng(1)
+    x64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        data = jac_data.to(dtype).contiguous()
+        x = x64.to(dtype)
+        csr_lib = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
+        rec = spmv_case(
+            torch, "gather_spmv", "csr_route_512_permuted", dname,
+            lambda: spmv.gather_spmv(indptr, indices, data, x),
+            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
+            lambda: csr_lib @ x,
+            (pat.nnz * (item + 4) + (n + 1) * 4 + 2 * n * item, 2 * pat.nnz),
+            [n, n, pat.nnz])
+        sel_rec = selection_case(torch, spmv, cplan._select,
+                                 "csr_assembly_512_permuted", dtype, dev,
+                                 rng)
+        if dtype == torch.float64:
+            records = {"gather_spmv": rec, "gather_select_csr": sel_rec}
+        del data, x, csr_lib
+    return records
+
+
+def flat_problem(nls, brusselator, N, dtype, dev, perm=None):
+    """The flat Brusselator (u0.reshape(-1), the residual on flat vectors)
+    with its sparsity pattern; with ``perm``, its unknowns permuted:
+    w = u[perm], G(w) = F(w[pinv])[perm], pattern (pinv[rows], pinv[cols])."""
+    import numpy as np
+    import torch
+    pat = brusselator.sparsity_pattern(N)
+    u0 = brusselator.init_u0(N, dtype, device=dev).reshape(-1)
+    p = brusselator.default_p(N, dtype, device=dev)
+    if perm is None:
+        def residual(u, p_):
+            return brusselator.brusselator_2d(u.reshape(N, N, 2),
+                                              p_).reshape(-1)
+        return nls.NonlinearProblem(
+            nls.NonlinearFunction(f=residual, sparsity=pat), u0, p)
+    pinv = np.argsort(perm)
+    perm_t = torch.as_tensor(perm, device=dev)
+    pinv_t = torch.as_tensor(pinv, device=dev)
+
+    def permuted(w, p_):
+        return brusselator.brusselator_2d(w[pinv_t].reshape(N, N, 2),
+                                          p_).reshape(-1)[perm_t]
+    coo = (pinv[pat.row_ids], pinv[pat.indices])
+    return nls.NonlinearProblem(
+        nls.NonlinearFunction(f=permuted, sparsity=coo), u0[perm_t], p)
+
+
+def sparse_alg(nls, fft_poisson_preconditioner, N, perm=None, dev=None):
+    """NewtonRaphson with the colored sparse-AD Jacobian, GMRES(8) + the FFT
+    Poisson preconditioner (conjugated by ``perm``), η = 0.1."""
+    import numpy as np
+    import torch
+    M = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
+                                   shift=3.0, n_components=2)
+    if perm is not None:
+        perm_t = torch.as_tensor(perm, device=dev)
+        pinv_t = torch.as_tensor(np.argsort(perm), device=dev)
+        M = (lambda v, M0=M: M0(v[pinv_t])[perm_t])
+    return nls.NewtonRaphson(
+        autodiff=nls.JacobianPolicy(mode="sparse"),
+        linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                  krylov_maxiter=100, precond_fn=M),
+        forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+
+
+def main(argv):
     import torch
 
+    if "--log" in argv:
+        LOG["path"] = argv[argv.index("--log") + 1]
+        os.makedirs(os.path.dirname(os.path.abspath(LOG["path"])),
+                    exist_ok=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -109,9 +438,9 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import nonlinearsolve_tpu_torch as nls
-    from nonlinearsolve_tpu_torch import _backend
+    from nonlinearsolve_tpu_torch import _backend, native
     from nonlinearsolve_tpu_torch.models import brusselator
-    from nonlinearsolve_tpu_torch.ops import stencil
+    from nonlinearsolve_tpu_torch.ops import spmv, stencil
     from nonlinearsolve_tpu_torch.ops.preconditioners import (
         fft_poisson_preconditioner)
 
@@ -132,15 +461,29 @@ def main():
           "capability": list(torch.cuda.get_device_capability(0)),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # --- 2. build ----------------------------------------------------------
+    # --- 2. build: one compiler per source, all started together ------------
+    def timed_build(build):
+        t = time.perf_counter()
+        so = build()
+        return so, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    so = _backend.build("stencil")
+    builds = {"stencil": lambda: _backend.build("stencil"),
+              "spmv": lambda: _backend.build("spmv"),
+              "sparsetools": native.build}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {k: pool.submit(timed_build, b) for k, b in builds.items()}
+        built = {k: f.result() for k, f in futures.items()}
     stencil._lib()
+    spmv._lib()
+    native.get_lib()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _backend.BUILD_LOGS.get("stencil", "")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "library": so.name,
-          "ptxas": ptxas})
+    for name, (so, secs) in built.items():
+        ptxas = [ln.strip() for ln in _backend.BUILD_LOGS.get(name, "")
+                 .splitlines() if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "source": name, "seconds": secs,
+              "library": so.name, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s})
 
     # --- 3. kernels against their plain versions ---------------------------
     gen = torch.Generator().manual_seed(0)
@@ -219,6 +562,10 @@ def main():
                 raise AssertionError("K2's absmax dropped a NaN")
             del U, T, p, planes, Tn
 
+    from nonlinearsolve_tpu_torch.ops.sparse_jac import plan_sparse_jacobian
+    spmv_summary = sparse_kernel_checks(torch, dev, spmv, brusselator,
+                                        plan_sparse_jacobian)
+
     # --- 4. main path ------------------------------------------------------
     N = 512
     f32 = torch.float32
@@ -288,34 +635,14 @@ def main():
         raise AssertionError(f"main path failed: {failed}")
 
     # warm solves, host clock between two synchronizes
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def warm_solve():
         warm = nls.solve(prob, alg, abstol=5.0, maxiters=30)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
         if warm.retcode != nls.ReturnCode.Success:
             raise AssertionError(f"warm solve: {warm.retcode.name}")
+
+    walls = warm_walls(torch, warm_solve)
     # device busy time of one warm solve, from the profiler
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        nls.solve(prob, alg, abstol=5.0, maxiters=30)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    kernels = {}
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0)) or 0
-        if dt > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
-    busy_ms = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    prof = profile_device(torch, warm_solve)
     carry = {"c": torch.ones_like(prob.u0),
              "s": torch.ones((), dtype=f32, device=dev)}
 
@@ -326,12 +653,7 @@ def main():
 
     chain_graph_ms = graph_time_ms(torch, chain_step, calls=100, replays=4)
     emit({"phase": "main_path_timing", "warm_solve_s": walls,
-          "warm_solve_s_median": sorted(walls)[1],
-          "profiled_solve_s": prof_wall,
-          "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
-          "device_idle_share": (1.0 - busy_ms / (prof_wall * 1e3)
-                                if busy_ms > 0 else "not measured"),
-          "top_device_ms": top,
+          "warm_solve_s_median": sorted(walls)[1], **prof,
           "chain_step_ms_eager": chain_wall_ms,
           "chain_step_ms_graph": chain_graph_ms,
           "chain_gnnz_per_s_graph": 12 * N * N / chain_graph_ms / 1e6,
@@ -363,7 +685,160 @@ def main():
         raise AssertionError(f"f64 polish: {sol64.retcode.name}, "
                              f"distance {dist}")
 
-    # --- 6. summary --------------------------------------------------------
+    # --- 6. sparse path: colored AD into DIA, f64 N=512 ---------------------
+    import numpy as np
+    from nonlinearsolve_tpu_torch.core import solve as solve_mod
+    from nonlinearsolve_tpu_torch.ops import spmv_dia
+    f64 = torch.float64
+    n = 2 * N * N
+    # time the one-time host plan from an empty cache (phase 3 filled it)
+    spmv_dia._DIA_PLAN_CACHE.clear()
+    t0 = time.perf_counter()
+    pat = brusselator.sparsity_pattern(N)
+    t_pattern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_plan = plan_sparse_jacobian(None, n, n, sparsity=pat)
+    t_coloring = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_plan.dia_plan
+    t_dia_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_plan.dia_selection.table(dev)
+    torch.cuda.synchronize()
+    t_tables = time.perf_counter() - t0
+    emit({"phase": "sparse_plan", "N": N, "pattern_s": t_pattern,
+          "coloring_s": t_coloring, "dia_plan_s": t_dia_plan,
+          "selection_tables_s": t_tables,
+          "host_plan_s": t_pattern + t_coloring + t_dia_plan + t_tables,
+          "nnz": pat.nnz, "n_colors": host_plan.n_colors,
+          "ndiag": host_plan.dia_plan.ndiag,
+          "offsets": list(host_plan.dia_plan.offsets)})
+    del host_plan
+
+    sprob = flat_problem(nls, brusselator, N, f64, dev)
+    salg = sparse_alg(nls, fft_poisson_preconditioner, N)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    ssol = nls.solve(sprob, salg, abstol=1e-4, maxiters=30)
+    torch.cuda.synchronize()
+    sparse_first_s = time.perf_counter() - t0
+    sparse_launches = dict(_backend.LAUNCHES)
+    splan, = solve_mod._SPARSE_PLANS[sprob.f].values()
+    s_resid = float(ssol.resid.abs().max())
+    s_dist = (float((ssol.u.reshape(N, N, 2) - u64).abs().max())
+              / max(float(u64.abs().max()), 1.0))
+    rec = {"phase": "sparse_path", "N": N, "dtype": "float64",
+           "retcode": ssol.retcode.name, "resid_inf": s_resid,
+           "abstol": 1e-4, "stats": vars(ssol.stats),
+           "krylov_iters": ssol.counters["krylov_iters"],
+           "jac_products": ssol.counters["jvp"],
+           "n_colors": splan.n_colors, "ndiag": splan.dia_plan.ndiag,
+           "launches": sparse_launches,
+           "host_syncs": ssol.counters["host_syncs"],
+           "root_rel_inf_to_f64_polish": s_dist, "limit": 1e-3,
+           "first_solve_s_with_plan": sparse_first_s}
+    emit(rec)
+    checks = {
+        "retcode Success": ssol.retcode == nls.ReturnCode.Success,
+        "|F|_inf <= 1e-4": s_resid <= 1e-4,
+        "8 colors": splan.n_colors == 8,
+        "11 diagonals": splan.dia_plan.ndiag == 11,
+        "K5 selection launches == Jacobians":
+            sparse_launches["gather_select"] == ssol.stats.njacs > 0,
+        "K4 launches == Jacobian products":
+            sparse_launches["dia_spmv"] == ssol.counters["jvp"] > 0,
+        "no K1 launch": sparse_launches["brusselator_jvp"] == 0,
+        "no CSR K5 launch": sparse_launches["gather_spmv"] == 0,
+        "root within 1e-3 of the f64 polish": s_dist <= 1e-3,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"sparse path failed: {failed}")
+
+    def warm_sparse():
+        warm = nls.solve(sprob, salg, abstol=1e-4, maxiters=30)
+        if warm.retcode != nls.ReturnCode.Success:
+            raise AssertionError(f"warm sparse solve: {warm.retcode.name}")
+
+    s_walls = warm_walls(torch, warm_sparse)
+    emit({"phase": "sparse_path_timing", "warm_solve_s": s_walls,
+          "warm_solve_s_median": sorted(s_walls)[1],
+          **profile_device(torch, warm_sparse), "card": card})
+
+    # the f32 variant at the flagship's abstol: reported, not required
+    sprob32 = flat_problem(nls, brusselator, N, f32, dev)
+    t0 = time.perf_counter()
+    ssol32 = nls.solve(sprob32, salg, abstol=5.0, maxiters=30)
+    torch.cuda.synchronize()
+    emit({"phase": "sparse_path_f32", "retcode": ssol32.retcode.name,
+          "resid_inf": float(ssol32.resid.abs().max()), "abstol": 5.0,
+          "stats": vars(ssol32.stats),
+          "krylov_iters": ssol32.counters["krylov_iters"],
+          "seconds": time.perf_counter() - t0,
+          "note": "the JAX package ends in MaxIters at |F|_inf 7.6 here"})
+    del sprob32, ssol32
+
+    # --- 7. CSR route: the permuted Brusselator, f64 N=512 -------------------
+    perm = np.random.default_rng(42).permutation(n)
+    pinv_t = torch.as_tensor(np.argsort(perm), device=dev)
+    t0 = time.perf_counter()
+    cprob = flat_problem(nls, brusselator, N, f64, dev, perm=perm)
+    calg = sparse_alg(nls, fft_poisson_preconditioner, N, perm=perm,
+                      dev=dev)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    csol = nls.solve(cprob, calg, abstol=1e-4, maxiters=30)
+    torch.cuda.synchronize()
+    csr_first_s = time.perf_counter() - t0
+    csr_launches = dict(_backend.LAUNCHES)
+    cplan, = solve_mod._SPARSE_PLANS[cprob.f].values()
+    c_resid = float(csol.resid.abs().max())
+    back = csol.u[pinv_t]
+    c_dist = (float((back - ssol.u).abs().max())
+              / max(float(ssol.u.abs().max()), 1.0))
+    emit({"phase": "csr_route", "N": N, "dtype": "float64",
+          "retcode": csol.retcode.name, "resid_inf": c_resid,
+          "abstol": 1e-4, "stats": vars(csol.stats),
+          "krylov_iters": csol.counters["krylov_iters"],
+          "jac_products": csol.counters["jvp"], "nnz": cplan.pattern.nnz,
+          "n_colors": cplan.n_colors, "dia_tier": cplan.dia_plan is not None,
+          "launches": csr_launches,
+          "host_syncs": csol.counters["host_syncs"],
+          "root_rel_inf_to_sparse_path": c_dist, "limit": 1e-8,
+          "first_solve_s_with_plan": csr_first_s})
+    checks = {
+        "retcode Success": csol.retcode == nls.ReturnCode.Success,
+        "|F|_inf <= 1e-4": c_resid <= 1e-4,
+        "CSR tier": cplan.dia_plan is None,
+        "K5 launches == Jacobian products":
+            csr_launches["gather_spmv"] == csol.counters["jvp"] > 0,
+        "K5 selection launches == Jacobians":
+            csr_launches["gather_select"] == csol.stats.njacs > 0,
+        "no K4 launch": csr_launches["dia_spmv"] == 0,
+        "root within 1e-8 of the sparse path's":
+            c_dist <= 1e-8,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"CSR route failed: {failed}")
+
+    def warm_csr():
+        warm = nls.solve(cprob, calg, abstol=1e-4, maxiters=30)
+        if warm.retcode != nls.ReturnCode.Success:
+            raise AssertionError(f"warm CSR solve: {warm.retcode.name}")
+
+    c_walls = warm_walls(torch, warm_csr)
+    emit({"phase": "csr_route_timing", "warm_solve_s": c_walls,
+          "warm_solve_s_median": sorted(c_walls)[1],
+          **profile_device(torch, warm_csr), "card": card})
+    # K5 and its selection on this route's own tables, the Jacobian at the
+    # root as data (outside the counted run)
+    jac = cplan(lambda u: cprob.f.f(u, cprob.p), csol.u)
+    csr_summary = csr_kernel_checks(torch, dev, spmv, cplan, jac.data)
+    del jac, cprob, csol, back
+
+    # --- 8. summary --------------------------------------------------------
     out = []
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
         r = summary[name]
@@ -376,6 +851,25 @@ def main():
                     "share_of_bound": r["share_of_bound"],
                     "shape": [N, N, 2], "dtype": "float32",
                     "note": "operands of 6 MiB are L2-resident at N=512"})
+    path_launches = {"dia_spmv": sparse_launches["dia_spmv"],
+                     "gather_select": sparse_launches["gather_select"],
+                     "gather_spmv": csr_launches["gather_spmv"]}
+    spmv_summary["gather_spmv"] = csr_summary["gather_spmv"]
+    for name in ("dia_spmv", "gather_spmv", "gather_select"):
+        r = spmv_summary[name]
+        out.append({"name": name, "route": "cuda", "source": SPMV_SOURCE,
+                    "replaces": SPMV_REPLACES[name],
+                    "launches": path_launches[name],
+                    "launches_in": ("csr_route" if name == "gather_spmv"
+                                    else "sparse_path"),
+                    "tables": r["tables"],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"],
+                    "library_note": r["library"],
+                    "share_of_bound": r["share_of_bound"],
+                    "shape": r["shape"], "dtype": "float64"})
     emit({"kernels": out})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})
@@ -386,4 +880,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,9 +6,12 @@ the JAX package had Pallas kernels.  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``; ``solve`` runs on the device of
 ``prob.u0``.  This package imports neither JAX nor ``nonlinearsolve_tpu``.
 
-Ported so far (slice 1): matrix-free Newton–GMRES with the FFT Poisson
-preconditioner and Eisenstat–Walker forcing on the 2D Brusselator, with
-the fused stencil JVP kernels.  See ROADMAP.md for what is still to come.
+Ported so far: Newton–GMRES with the FFT Poisson preconditioner and
+Eisenstat–Walker forcing on the 2D Brusselator, matrix-free (the fused
+stencil JVP kernels K1, K2) or on a colored sparse-AD Jacobian assembled
+into DIA or CSR (the SpMV kernels K4, K5; ``JacobianPolicy(mode="sparse")``
+with ``NonlinearFunction(sparsity=...)`` on a flat state).  See ROADMAP.md
+for what is still to come.
 """
 
 from .core.autodiff import JacobianPolicy

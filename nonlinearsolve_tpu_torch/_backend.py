@@ -8,9 +8,12 @@ version.
 
 Kernel build: the CUDA sources under ``csrc/`` are compiled at first use by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-(loaded with ``ctypes``), in ``csrc/build/``.  The library's name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  A build failure raises; nothing falls back.
+(loaded with ``ctypes``), in ``csrc/build/``.  The host toolkit
+(``native.py``: the repo's ``csrc/sparsetools.cpp``) goes through the same
+``compile_shared`` with ``g++``.  A library's name carries a hash of the
+source and the command, so an edited source is rebuilt and a stale library
+is never loaded.  A build failure raises with the compiler's output;
+nothing falls back.
 
 Counters: ``LAUNCHES`` counts kernel launches per kernel (each wrapper adds
 one where it launches its kernel, and nowhere else); ``HOST_SYNCS`` counts
@@ -36,7 +39,8 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-LAUNCHES: dict = {"brusselator_jvp": 0, "brusselator_jvp_scaled": 0}
+LAUNCHES: dict = {"brusselator_jvp": 0, "brusselator_jvp_scaled": 0,
+                  "dia_spmv": 0, "gather_spmv": 0, "gather_select": 0}
 HOST_SYNCS: dict = {"n": 0}
 
 
@@ -135,28 +139,42 @@ def _find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+def _shared_path(src: Path, stem: str, cmd_prefix) -> Path:
+    digest = hashlib.sha256(Path(src).read_bytes()
+                            + " ".join(cmd_prefix).encode()).hexdigest()
+    return BUILD_DIR / f"lib{stem}_{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this source exists."""
-    so = library_path(name)
+def compile_shared(src: Path, stem: str, label: str, tool: str,
+                   flags) -> Path:
+    """Compile ``src`` with ``[tool, *flags, "-o", out, src]`` into
+    ``BUILD_DIR/lib<stem>_<hash>.so`` unless that library exists; the hash
+    covers the source and the flags.  Raises with the compiler's output
+    (``label`` names the compiler) when the build fails."""
+    so = _shared_path(src, stem, flags)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    proc = subprocess.run([tool, *flags, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    BUILD_LOGS[stem] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(rc {proc.returncode}):\n{BUILD_LOGS[name]}")
+        raise RuntimeError(f"{label} failed for {src} "
+                           f"(rc {proc.returncode}):\n{BUILD_LOGS[stem]}")
     os.replace(tmp, so)
     return so
+
+
+def library_path(name: str) -> Path:
+    return _shared_path(CSRC / f"{name}.cu", name, NVCC_FLAGS)
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` with nvcc unless its library exists."""
+    return compile_shared(CSRC / f"{name}.cu", name, "nvcc", _find_nvcc(),
+                          NVCC_FLAGS)
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

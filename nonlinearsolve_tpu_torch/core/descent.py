@@ -1,7 +1,8 @@
 """Descent directions (the port of ``core/descent.py``): ``NewtonDescent``
-with the Krylov route of ``_newton_solve``.  The dense route is ROADMAP
-A.32 and the damped / dogleg / geodesic descents are ROADMAP A.13
-(slice 2)."""
+with the Krylov route of ``_newton_solve``, on the matrix-free operator or
+a sparse Jacobian (CSR, DIA), and the built-in Jacobi preconditioner.  The
+dense route is ROADMAP A.32, the sparse direct route A.23 and the damped /
+dogleg / geodesic descents A.13."""
 
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ class DescentResult:
     nsolve: int = 1
     nfactors: int = 1
     krylov_iters: int = 0
+    njvp: int = 0               # products with J in the linear solve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,34 +51,73 @@ def descent_init(cfg, ctx: DescentCtx, J, fu, u):
     if isinstance(cfg, NewtonDescent):
         return None
     raise NotImplementedError(
-        f"descent {type(cfg).__name__} is ROADMAP A.13 (slice 2)")
+        f"descent {type(cfg).__name__} is ROADMAP A.13")
+
+
+def _matrix_precond(cfg: LinearSolver, J):
+    """Built-in preconditioners for materialized Jacobians: 'jacobi'
+    scales by the diagonal (none for the matrix-free operator, as in the
+    JAX package); 'device_lu' is ROADMAP A.23."""
+    if cfg.precond == "device_lu":
+        raise NotImplementedError(
+            "precond='device_lu' (the device-applied sparse LU) is ROADMAP "
+            "A.23")
+    if cfg.precond != "jacobi" or isinstance(J, StatefulJacobianOperator):
+        return None
+    diag = J.diagonal()
+    safe = torch.where(diag == 0, torch.ones_like(diag), diag)
+    return lambda x: x / safe
 
 
 def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
                   krylov_rtol=None, u=None):
-    """Krylov route: solve J δu = -fu matrix-free.  Returns
-    ``(δu, ok, krylov_iterations)`` with ``ok`` a 0-d device bool."""
+    """Krylov route: solve J δu = -fu with J a matrix-free operator or a
+    sparse container.  Returns ``(δu, ok, krylov_iterations, products)``
+    with ``ok`` a 0-d device bool and ``products`` the number of products
+    with J."""
     from ..ops.krylov import solve_krylov
+    from ..ops.sparse import CSR, DIA
 
     is_operator = isinstance(J, StatefulJacobianOperator)
     if not (cfg.linsolve.is_krylov or is_operator):
+        if isinstance(J, (CSR, DIA)):
+            raise NotImplementedError(
+                f"linear solver {cfg.linsolve.method!r} on a sparse Jacobian "
+                f"(the sparse direct route) is ROADMAP A.23; use "
+                f"LinearSolver(method='gmres')")
         raise NotImplementedError(
             f"linear solver {cfg.linsolve.method!r} on a concrete Jacobian "
-            f"is ROADMAP A.32 (slice 2)")
+            f"is ROADMAP A.32")
     if not ctx.square:
         raise NotImplementedError(
             "non-square systems (normal-form Krylov least squares) are "
-            "ROADMAP A.33 (slice 2)")
+            "ROADMAP A.33")
+    if isinstance(J, (CSR, DIA)) and u is not None and u.dim() > 1:
+        raise NotImplementedError(
+            "a sparse Jacobian with a Krylov solver needs a flat state "
+            "(u0.reshape(-1), and a residual on flat vectors): on a state of "
+            f"shape {tuple(u.shape)} the JAX package fails as well (ROADMAP "
+            "C)")
     method = cfg.linsolve.method if cfg.linsolve.is_krylov else "gmres"
-    matvec = J if is_operator else as_matvec(J)
+    if is_operator:
+        base = J
+    elif isinstance(J, CSR):
+        base = J.matvec_fn()        # staged: any repack runs once per step
+    else:
+        base = as_matvec(J)
+    products = [0]
+
+    def matvec(v):
+        products[0] += 1
+        return base(v)
+
     npdt = np_dtype(fu.dtype)
     rtol = (krylov_rtol if krylov_rtol is not None
             else float(np.sqrt(np.finfo(npdt).eps)))
     if cfg.linsolve.precond_fn is not None:
         if getattr(cfg.linsolve.precond_fn, "wants_residual", False):
             raise NotImplementedError(
-                "residual-aware preconditioner factories are ROADMAP A.24 "
-                "(slice 3)")
+                "residual-aware preconditioner factories are ROADMAP A.24")
         # Contract: precond_fn(u) -> (v -> M⁻¹v); a plain v -> M⁻¹v
         # callable (u-independent) is accepted too.  As in the JAX package,
         # the factory is always called first: a plain callable then returns
@@ -86,25 +127,22 @@ def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
         M = cfg.linsolve.precond_fn(u)
         if not callable(M):
             M = cfg.linsolve.precond_fn
-    elif cfg.linsolve.precond != "none":
-        raise NotImplementedError(
-            f"precond={cfg.linsolve.precond!r} needs a concrete Jacobian: "
-            f"ROADMAP A.32 / A.23")
     else:
-        M = None
+        M = _matrix_precond(cfg.linsolve, J)
     if cfg.linsolve.krylov_basis_dtype:
         raise NotImplementedError(
             "krylov_basis_dtype is ROADMAP B.3, with the bf16 stencil kernel")
     res = solve_krylov(method, matvec, fu, restart=cfg.linsolve.restart,
                        maxiter=cfg.linsolve.krylov_maxiter, rtol=rtol, M=M)
-    return -res.x, torch.isfinite(res.x).all(), res.iterations
+    return -res.x, torch.isfinite(res.x).all(), res.iterations, products[0]
 
 
 def descent_solve(cfg, state, ctx: DescentCtx, J, fu, u, krylov_rtol=None):
     """Compute δu.  Returns (DescentResult, new_state)."""
     if isinstance(cfg, NewtonDescent):
-        du, ok, iters = _newton_solve(cfg, ctx, J, fu, krylov_rtol, u)
+        du, ok, iters, products = _newton_solve(cfg, ctx, J, fu,
+                                                krylov_rtol, u)
         return DescentResult(du=du, success=ok, linsolve_success=ok,
-                             krylov_iters=iters), state
+                             krylov_iters=iters, njvp=products), state
     raise NotImplementedError(
-        f"descent {type(cfg).__name__} is ROADMAP A.13 (slice 2)")
+        f"descent {type(cfg).__name__} is ROADMAP A.13")

@@ -11,20 +11,29 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 
-@dataclasses.dataclass(frozen=True, eq=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class NonlinearFunction:
     """Residual function plus optional analytic derivative information.
+    Compared and hashed by identity: the sparse Jacobian plan is cached
+    per function object (``core/solve.py``).
 
     - ``f(u, p) -> resid``
     - ``jac(u, p) -> J``
     - ``jvp(v, u, p) -> J @ v``
     - ``vjp(v, u, p) -> J.T @ v``
+    - ``sparsity`` / ``jac_prototype``: the Jacobian's sparsity pattern (a
+      ``CSR`` pattern, a COO ``(rows, cols)`` tuple or a dense mask), for
+      colored sparse-AD Jacobians
+    - ``colorvec``: a precomputed column coloring of that pattern
     """
 
     f: Callable
     jac: Optional[Callable] = None
     jvp: Optional[Callable] = None
     vjp: Optional[Callable] = None
+    jac_prototype: Any = None
+    sparsity: Any = None
+    colorvec: Any = None
 
     def __call__(self, u, p=None):
         return self.f(u, p)

@@ -4,20 +4,28 @@
 kwargs and runs ``solve_nonlinear``.  The port runs the shaped path only:
 the iterate is ``u0`` itself, one tensor of any shape (≥ 1-d), never
 flattened.  The engine runs under ``torch.no_grad()`` on the device that
-``u0`` is on.  Options whose machinery is not ported raise
+``u0`` is on.  When the algorithm takes the colored sparse-AD path, the
+host-side plan (pattern, coloring, DIA tier) is built once before the loop
+and cached.  Options whose machinery is not ported raise
 ``NotImplementedError`` naming the ROADMAP item that brings it.
+
+``NonlinearSolution.counters``: ``jvp`` (products with the Jacobian in the
+linear solves), ``krylov_iters`` and ``host_syncs``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import difflib
+import weakref
 
 import torch
 
 from .. import _backend
 from ..utils.norms import get_tolerance
 from .descent import DescentCtx
-from .jacobian import JacobianSpec
+from ..ops.sparse_jac import plan_sparse_jacobian
+from .jacobian import JacobianSpec, wants_sparse
 from .problems import NonlinearProblem
 from .returncode import ReturnCode
 from .solution import NonlinearSolution
@@ -66,10 +74,10 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
             f"wrap the problem in an EnsembleProblem to use them")
     if alg is None:
         raise NotImplementedError(
-            "the default polyalgorithm is ROADMAP A.15 (slice 2); pass an "
+            "the default polyalgorithm is ROADMAP A.15; pass an "
             "algorithm, e.g. NewtonRaphson(linsolve=LinearSolver('gmres'))")
     if merged.pop("maxtime", None) is not None:
-        raise NotImplementedError("maxtime is ROADMAP A.18 (slice 2)")
+        raise NotImplementedError("maxtime is ROADMAP A.18")
     return solve_nonlinear(prob, alg, **merged)
 
 
@@ -77,7 +85,27 @@ def _refuse_unported(**opts) -> None:
     for name, value in opts.items():
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"solve option {name!r} is ROADMAP A.18 (slice 2)")
+                f"solve option {name!r} is ROADMAP A.18")
+
+
+# NonlinearFunction -> {(shape, dtype): ColoredJacobian}; a plan (and the
+# device tables it holds) goes when its function does.
+_SPARSE_PLANS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _maybe_sparse_plan(f, alg, spec, ctx, u0):
+    """The host-side sparse Jacobian plan (pattern, coloring), built once
+    before the loop when ``alg`` takes the colored sparse-AD path, and
+    cached per (function, shape, dtype) so repeated solves reuse it."""
+    if not wants_sparse(alg, spec):
+        return None
+    plans = _SPARSE_PLANS.setdefault(f, {})
+    key = (tuple(u0.shape), u0.dtype)
+    if key not in plans:
+        plans[key] = plan_sparse_jacobian(
+            ctx.f_flat, ctx.n_in, ctx.n_out, sparsity=spec.sparsity,
+            colorvec=spec.colorvec)
+    return plans[key]
 
 
 def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
@@ -95,12 +123,12 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
                      time_phases=time_phases, precondition=precondition,
                      postcondition=postcondition)
     if prob.lb is not None or prob.ub is not None:
-        raise NotImplementedError("bounds (lb/ub) are ROADMAP A.18 (slice 2)")
+        raise NotImplementedError("bounds (lb/ub) are ROADMAP A.18")
     u0, p = prob.u0, prob.p
     if not isinstance(u0, torch.Tensor) or u0.dim() == 0:
         raise NotImplementedError(
             "u0 must be one tensor of ≥ 1 dimension: pytree and scalar "
-            "states (the flat path) are ROADMAP A.33 (slice 2)")
+            "states (the flat path) are ROADMAP A.33")
     for name, t in (("u0", u0), ("p", p)):
         if isinstance(t, torch.Tensor) and t.requires_grad:
             raise NotImplementedError(
@@ -124,10 +152,16 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
         if not isinstance(fu0, torch.Tensor):
             raise NotImplementedError(
                 "the residual must return one tensor; pytree residuals are "
-                "ROADMAP A.33 (slice 2)")
+                "ROADMAP A.33")
         ctx = DescentCtx(f_flat=f_flat, n_in=u0.numel(), n_out=fu0.numel())
-        spec = JacobianSpec(analytic_jvp=(None if f.jvp is None
-                                          else (lambda v, u: f.jvp(v, u, p))))
+        sparsity = (f.sparsity if f.sparsity is not None
+                    else f.jac_prototype)
+        spec = JacobianSpec(
+            analytic_jvp=(None if f.jvp is None
+                          else (lambda v, u: f.jvp(v, u, p))),
+            sparsity=sparsity, colorvec=f.colorvec)
+        spec = dataclasses.replace(
+            spec, sparse_plan=_maybe_sparse_plan(f, alg, spec, ctx, u0))
         from ..solvers.dispatch import run_algorithm
         syncs0 = _backend.HOST_SYNCS["n"]
         carry = run_algorithm(alg, ctx, termination_condition, spec, u0,

@@ -1,7 +1,7 @@
 """Termination conditions (the port of ``core/termination.py``): the
 absolute-norm family — ``abs_norm``, ``abs_norm_safe`` and
 ``abs_norm_safe_best`` (the default, with ``max_stalled_steps=32``).  The
-relative and element-wise modes are ROADMAP A.33 (slice 2).
+relative and element-wise modes are ROADMAP A.33.
 
 A check needs two norms of device tensors — the objective ‖fu‖ and, for
 the stall test, ‖u - u_prev‖.  ``termination_norms`` gives them as 0-d
@@ -46,7 +46,7 @@ class TerminationCondition:
             raise ValueError(f"unknown termination mode {self.mode!r}")
         if self.mode not in ABS_NORM_MODES:
             raise NotImplementedError(
-                f"termination mode {self.mode!r} is ROADMAP A.33 (slice 2); "
+                f"termination mode {self.mode!r} is ROADMAP A.33; "
                 f"the port has {ABS_NORM_MODES}")
 
     @property

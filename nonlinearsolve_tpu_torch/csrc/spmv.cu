@@ -1,0 +1,188 @@
+// Sparse matrix-vector kernels for Hopper (sm_90a), with a plain C interface
+// loaded by ctypes (nonlinearsolve_tpu_torch/ops/spmv.py holds the wrappers).
+// f32 and f64 values, int32 indices.
+//
+// K4  dia_spmv       replaces nonlinearsolve_tpu/ops/pallas_stencil.py
+//                    _dia_kernel_factory (dia_spmv_pallas), whose function is
+//                    also DIA.matvec / DiaPlan.matvec_packed
+//                    (ops/sparse.py, ops/spmv_dia.py):
+//
+//                      y[i] = sum_d data[d, i] * x[i + off_d]
+//
+//                    summed in ascending-offset order, over 0 <= i + off_d < n
+//                    only: a slot whose column falls outside [0, n) is never
+//                    read, so an inf or NaN in a pad slot cannot reach y.
+//
+// K5  csr_spmv       replaces nonlinearsolve_tpu/ops/pallas_spmv.py
+//                    _ell_spmv_call (ell_spmv_pallas, csr_spmv_pallas,
+//                    csr_spmv_staged):  y[r] = sum_k data[k] * x[indices[k]]
+//                    over indptr[r] <= k < indptr[r+1], summed in CSR order.
+//     csr_select     K5's unit-data variant, the static selection of
+//                    ops/selection.py (which rides _ell_spmv_packed with its
+//                    validity table as data): each output row has at most one
+//                    source, y[i] = values[src[i]], and a pad row
+//                    (src[i] == n_src) gives 0.
+//
+// Bound on the H100: bytes, for all three.  At the 512^2 Brusselator
+// (n = 524,288, 11 diagonals, 3,145,728 nonzeros) in f64, reading every input
+// once and writing y once:
+//   K4  in-band data (44.9 MB) + x + y (8.4 MB)                ~ 16 us
+//   K5  data (25.2 MB) + indices (12.6 MB) + indptr (2.1 MB)
+//       + x + y (8.4 MB)                                        ~ 14 us
+//   selection: src (23.1 MB) + the 3.1M values it reads (25.2 MB)
+//       + y (46.1 MB)                                           ~ 28 us
+// at 3.35 TB/s, against at most two flops per nonzero (a few us of f64
+// arithmetic at 34 TFLOP/s).  The TPU kernels were shaped by the lack of
+// scalar gathers (windowed slot-major ELL, register gathers inside an (8, 128)
+// tile); Hopper gathers through L1/L2, so the port keeps the CSR and DIA
+// layouts as they are and lets the caches serve x.
+//
+// Design: one thread per output row, 256 threads a block.  K4 walks the
+// diagonals in a loop; the offsets (at most 48, as DiaPlan allows) travel by
+// value in the kernel's parameters, so every thread of a warp reads data and
+// x at consecutive addresses (coalesced) for each diagonal.  K5 walks its
+// row's nonzeros; neighbouring threads read neighbouring CSR segments, which
+// L1 merges into lines.  x is read through the read-only path (const
+// __restrict__).  No shared-memory tiling, no warp-per-row split, no vector
+// loads: making these fast is later work.  a*b + c is contracted into an FMA,
+// so the sums differ from the plain versions' in the last bits.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxOffsets = 48;
+
+struct DiaOffsets {
+  int ndiag;
+  int off[kMaxOffsets];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                T* __restrict__ y, int n, DiaOffsets offs) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  T acc = T(0);
+  for (int d = 0; d < offs.ndiag; ++d) {
+    const long long j = static_cast<long long>(i) + offs.off[d];
+    if (j >= 0 && j < n) {
+      acc += data[static_cast<size_t>(d) * n + i] * x[j];
+    }
+  }
+  y[i] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+csr_spmv_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                const T* __restrict__ data, const T* __restrict__ x,
+                T* __restrict__ y, int n_rows) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rows) return;
+  const int k1 = indptr[r + 1];
+  T acc = T(0);
+  for (int k = indptr[r]; k < k1; ++k) {
+    acc += data[k] * x[indices[k]];
+  }
+  y[r] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+csr_select_kernel(const int* __restrict__ src, const T* __restrict__ values,
+                  T* __restrict__ y, int n_out, int n_src) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_out) return;
+  const int s = src[i];
+  y[i] = (s >= 0 && s < n_src) ? values[s] : T(0);
+}
+
+inline unsigned blocks_of(int n) {
+  return static_cast<unsigned>((static_cast<long long>(n) + kThreads - 1) / kThreads);
+}
+
+template <typename T>
+int launch_dia(const void* data, const void* x, void* y, int n,
+               const int* offsets, int ndiag, void* stream) {
+  if (n < 0 || ndiag < 0 || ndiag > kMaxOffsets) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  DiaOffsets offs;
+  offs.ndiag = ndiag;
+  for (int d = 0; d < kMaxOffsets; ++d) offs.off[d] = d < ndiag ? offsets[d] : 0;
+  dia_spmv_kernel<T><<<blocks_of(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const T*>(x),
+      static_cast<T*>(y), n, offs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_csr(const void* indptr, const void* indices, const void* data,
+               const void* x, void* y, int n_rows, void* stream) {
+  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0) return 0;
+  csr_spmv_kernel<T><<<blocks_of(n_rows), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(indices),
+      static_cast<const T*>(data), static_cast<const T*>(x),
+      static_cast<T*>(y), n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_select(const void* src, const void* values, void* y, int n_out,
+                  int n_src, void* stream) {
+  if (n_out < 0 || n_src < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_out == 0) return 0;
+  csr_select_kernel<T><<<blocks_of(n_out), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(src), static_cast<const T*>(values),
+      static_cast<T*>(y), n_out, n_src);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* nls_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int dia_spmv_f32(const void* data, const void* x, void* y, int n,
+                 const int* offsets, int ndiag, void* stream) {
+  return launch_dia<float>(data, x, y, n, offsets, ndiag, stream);
+}
+
+int dia_spmv_f64(const void* data, const void* x, void* y, int n,
+                 const int* offsets, int ndiag, void* stream) {
+  return launch_dia<double>(data, x, y, n, offsets, ndiag, stream);
+}
+
+int csr_spmv_f32(const void* indptr, const void* indices, const void* data,
+                 const void* x, void* y, int n_rows, void* stream) {
+  return launch_csr<float>(indptr, indices, data, x, y, n_rows, stream);
+}
+
+int csr_spmv_f64(const void* indptr, const void* indices, const void* data,
+                 const void* x, void* y, int n_rows, void* stream) {
+  return launch_csr<double>(indptr, indices, data, x, y, n_rows, stream);
+}
+
+int csr_select_f32(const void* src, const void* values, void* y, int n_out,
+                   int n_src, void* stream) {
+  return launch_select<float>(src, values, y, n_out, n_src, stream);
+}
+
+int csr_select_f64(const void* src, const void* values, void* y, int n_out,
+                   int n_src, void* stream) {
+  return launch_select<double>(src, values, y, n_out, n_src, stream);
+}
+
+}  // extern "C"

@@ -21,6 +21,7 @@ import torch
 
 from .. import _backend
 from ..core.problems import NonlinearFunction, NonlinearProblem
+from ..ops.sparse import CSR
 
 
 def grid(N: int, dtype=torch.float64) -> np.ndarray:
@@ -100,16 +101,40 @@ def problem(u0: torch.Tensor, p: torch.Tensor,
     return NonlinearProblem(f, u0, p)
 
 
+def sparsity_pattern(N: int) -> CSR:
+    """The Jacobian's sparsity (the periodic 5-point stencil plus the local
+    u↔v coupling, 12 nonzeros per grid point) in the flattened (i, j, comp)
+    C order, as a CSR pattern: the ``jac_prototype`` of the sparse path."""
+    idx = np.arange(N * N * 2).reshape(N, N, 2)
+    rows_list = []
+    cols_list = []
+
+    def add(r, c):
+        rows_list.append(r.ravel())
+        cols_list.append(c.ravel())
+
+    for comp in range(2):
+        r = idx[:, :, comp]
+        add(r, r)                               # self
+        add(r, idx[:, :, 1 - comp])             # the other component
+        for shift, axis in ((1, 0), (-1, 0), (1, 1), (-1, 1)):
+            add(r, np.roll(idx[:, :, comp], shift, axis=axis))
+    return CSR.from_pattern(np.concatenate(rows_list),
+                            np.concatenate(cols_list), (N * N * 2, N * N * 2))
+
+
 def make_problem(N: int = 32, dtype=torch.float64, *,
                  kernel_jvp: bool = False, with_sparsity: bool = False,
                  device=None) -> NonlinearProblem:
     """Build the steady-state problem on ``device`` (the card by default).
     ``kernel_jvp=True`` is the counterpart of the JAX package's
-    ``pallas_jvp=True``."""
-    if with_sparsity:
-        raise NotImplementedError(
-            "with_sparsity (the analytic sparsity pattern and the colored "
-            "sparse Jacobian) is ROADMAP A.20, slice 3")
+    ``pallas_jvp=True``; ``with_sparsity=True`` attaches
+    ``sparsity_pattern(N)`` (the problem stays shaped (N, N, 2), as in the
+    JAX package; the sparse Krylov path needs the flat formulation)."""
     dev = _backend.resolve_device(device)
-    return problem(init_u0(N, dtype, device=dev),
-                   default_p(N, dtype, device=dev), kernel_jvp)
+    u0, p = init_u0(N, dtype, device=dev), default_p(N, dtype, device=dev)
+    if with_sparsity:
+        return NonlinearProblem(
+            NonlinearFunction(f=brusselator_2d, sparsity=sparsity_pattern(N)),
+            u0, p)
+    return problem(u0, p, kernel_jvp)

@@ -1,0 +1,77 @@
+"""Loader for the repo's native sparse toolkit, ``csrc/sparsetools.cpp``
+(the port's own copy of ``native.py``'s loader).
+
+The source is compiled as it is, with ``g++``, at first use into
+``nonlinearsolve_tpu_torch/csrc/build/`` (through
+``_backend.compile_shared``: the library's name carries a hash of the
+source and the flags) and bound with ``ctypes``.  Only
+``greedy_column_coloring`` is bound for now.  A failed build raises with
+the compiler's output: the port never falls back to the Python coloring
+on its own.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from . import _backend
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "sparsetools.cpp"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def build() -> Path:
+    """Compile ``csrc/sparsetools.cpp`` unless its library exists."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: csrc/sparsetools.cpp "
+                           "cannot be built")
+    return _backend.compile_shared(SOURCE, "sparsetools", "g++", gxx,
+                                   GXX_FLAGS)
+
+
+def get_lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.greedy_column_coloring.restype = ctypes.c_int32
+            lib.greedy_column_coloring.argtypes = [
+                i32p, i32p, ctypes.c_int32, ctypes.c_int32, i32p]
+            _lib = lib
+    return _lib
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def greedy_column_coloring(indptr, indices, n_rows, n_cols) -> np.ndarray:
+    """Native distance-2 greedy column coloring (columns conflict iff they
+    share a row); returns int32 colors in [0, n_colors)."""
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    # a malformed pattern must fail here, not scatter out of bounds in C
+    if indptr.shape != (n_rows + 1,) or indptr[-1] != indices.size:
+        raise ValueError("indptr does not describe the indices")
+    if indices.size and (indices.min() < 0 or indices.max() >= n_cols):
+        raise ValueError(
+            f"sparsity pattern column index out of range [0, {n_cols}): "
+            f"min={indices.min()}, max={indices.max()}")
+    colors = np.empty(n_cols, np.int32)
+    n = get_lib().greedy_column_coloring(
+        _ptr(indptr), _ptr(indices), np.int32(n_rows), np.int32(n_cols),
+        _ptr(colors))
+    if n < 0:
+        raise ValueError(f"greedy_column_coloring refused the pattern "
+                         f"(rc {n})")
+    return colors

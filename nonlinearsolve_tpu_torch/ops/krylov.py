@@ -61,7 +61,7 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             "a narrowed Krylov basis (basis_dtype) is ROADMAP B.3, with the "
             "bf16 stencil kernel")
     if b.is_complex():
-        raise NotImplementedError("complex GMRES is ROADMAP A.33 (slice 2)")
+        raise NotImplementedError("complex GMRES is ROADMAP A.33")
     n = b.numel()
     shape = b.shape
     npdt = np_dtype(b.dtype)
@@ -158,5 +158,5 @@ def solve_krylov(method: str, matvec, b, x0=None, **kw) -> KrylovResult:
         return gmres(matvec, b, x0, **kw)
     if method in ("bicgstab", "cg", "minres"):
         raise NotImplementedError(
-            f"Krylov method {method!r} is ROADMAP A.33 (slice 2)")
+            f"Krylov method {method!r} is ROADMAP A.33")
     raise ValueError(f"unknown Krylov method {method!r}")

@@ -1,6 +1,6 @@
 """Linear-solver selection (the port of ``ops/linear_solve.py``'s
 ``LinearSolver`` config).  Only the Krylov route is ported; the dense
-LU / QR routes are ROADMAP A.32 (slice 2)."""
+LU / QR routes are ROADMAP A.32."""
 
 from __future__ import annotations
 

@@ -4,9 +4,8 @@
 analytic ``jvp`` of the problem when it has one (on the main path, kernel
 K1), else ``torch.func.jvp`` of the residual.  The transposed products
 (VJP) come with the solvers that need them (ROADMAP A.13).  A
-``StatefulJacobianOperator`` is one bound at a linearisation point; it
-counts the products it makes (``njvp``), so a solve can show how many
-times the Jacobian was applied.
+``StatefulJacobianOperator`` is one bound at a linearisation point.
+``as_matvec`` also takes the sparse containers of ``ops/sparse.py``.
 """
 
 from __future__ import annotations
@@ -39,10 +38,8 @@ class StatefulJacobianOperator:
     def __init__(self, op: JacobianOperator, u):
         self.op = op
         self.u = u
-        self.njvp = 0
 
     def __call__(self, v):
-        self.njvp += 1
         return self.op.jvp(self.u, v)
 
 
@@ -53,16 +50,21 @@ def JacVecOperator(f_flat: Callable, u=None, *, analytic_jvp=None):
 
 
 def as_matvec(A) -> Callable:
-    """Normalize a dense matrix or an operator to ``v -> A@v``."""
+    """Normalize a dense matrix, a sparse container (CSR, DIA) or an
+    operator to ``v -> A@v``."""
     if callable(A) and not isinstance(A, torch.Tensor):
         return A
     return lambda v: mv(A, v)
 
 
 def mv(A, v):
-    """``A @ v`` for a dense matrix (with a shaped ``v``) or an operator."""
+    """``A @ v`` for a dense matrix (with a shaped ``v``), a sparse container
+    (flat ``v``) or an operator."""
+    from .sparse import CSR, DIA
     if isinstance(A, StatefulJacobianOperator):
         return A(v)
+    if isinstance(A, (CSR, DIA)):
+        return A.matvec(v)
     if v.dim() != 1:
         return (A @ v.reshape(-1)).reshape(v.shape)
     return A @ v

@@ -39,7 +39,7 @@ def fft_poisson_preconditioner(grid_shape: Sequence[int], alpha, h, *,
     (flat or shaped)."""
     if component_axis != -1:
         raise NotImplementedError(
-            "component_axis other than -1 is ROADMAP A.24 (slice 3)")
+            "component_axis other than -1 is ROADMAP A.24")
     grid_shape = tuple(int(s) for s in grid_shape)
     last = grid_shape[-1]
     grid_axes = tuple(range(len(grid_shape)))

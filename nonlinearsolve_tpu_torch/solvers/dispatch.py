@@ -1,6 +1,6 @@
 """Run one algorithm (the port of ``solvers/dispatch.py``): the first-order
 engine.  Quasi-Newton, spectral and Anderson engines are ROADMAP A.14,
-polyalgorithms A.15 and the simple solvers A.17 (slice 2)."""
+polyalgorithms A.15 and the simple solvers A.17."""
 
 from __future__ import annotations
 
@@ -15,4 +15,4 @@ def run_algorithm(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
                                reltol, maxiters)
     raise NotImplementedError(
         f"cannot dispatch {type(alg).__name__}: the port runs the first-order "
-        f"engine only; the others are ROADMAP A.14, A.15 and A.17 (slice 2)")
+        f"engine only; the others are ROADMAP A.14, A.15 and A.17")

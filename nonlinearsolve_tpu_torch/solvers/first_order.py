@@ -1,7 +1,7 @@
 """GeneralizedFirstOrderAlgorithm — the Newton-family engine (the port of
 ``solvers/first_order.py``): ``NewtonRaphson`` with Eisenstat–Walker
 forcing and no globalization.  Line-search and trust-region branches are
-ROADMAP A.12 / A.13 (slice 2).
+ROADMAP A.12 / A.13.
 
 The JAX engine's ``lax.while_loop`` becomes a Python loop over device
 tensors.  Each step reads the device once for its own decisions (the
@@ -108,7 +108,7 @@ def init_first_order(alg: GeneralizedFirstOrderAlgorithm, ctx: dsc.DescentCtx,
     if alg.globalization != "none":
         item = "A.12" if alg.globalization == "linesearch" else "A.13"
         raise NotImplementedError(
-            f"{alg.globalization} globalization is ROADMAP {item} (slice 2)")
+            f"{alg.globalization} globalization is ROADMAP {item}")
     fu0 = ctx.f_flat(u0)
     wanted = trm.termination_norms(term_cfg, fu0)
     if alg.forcing is not None:
@@ -201,7 +201,7 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
         u=u_new, fu=fu_new, nsteps=carry.nsteps + 1,
         force_stop=stop or not linsolve_ok, retcode=retcode, stats=stats, term=term, descent_state=descent_state,
         forcing_state=forcing_state,
-        njvp=carry.njvp + getattr(J, "njvp", 0),
+        njvp=carry.njvp + result.njvp,
         krylov_iters=carry.krylov_iters + result.krylov_iters)
 
 

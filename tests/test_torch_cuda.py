@@ -123,3 +123,139 @@ def test_solve_on_card_matches_cpu(cuda):
     assert sols[0].stats == sols[1].stats
     np.testing.assert_allclose(sols[0].u.cpu().numpy(), sols[1].u.numpy(),
                                rtol=0, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# K4 (dia_spmv) and K5 (gather_spmv, gather_select): exact selections; the
+# products at rel-inf 1e-12 (f64) / 1e-5 (f32) of max|y| (FMA contraction
+# and, for K5 against index_add_, the summation order)
+# ---------------------------------------------------------------------------
+
+def _bru_csr(N, dtype, seed, device):
+    from nonlinearsolve_tpu_torch.models.brusselator import sparsity_pattern
+    pat = sparsity_pattern(N)
+    gen = torch.Generator().manual_seed(seed)
+    data = torch.randn(pat.nnz, generator=gen, dtype=TORCH_DT[dtype])
+    x = torch.randn(pat.shape[0], generator=gen, dtype=TORCH_DT[dtype])
+    return pat.with_data(data.to(device)), x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N", [16, 512])
+def test_spmv_kernels_match_plain_on_card(cuda, N, dtype):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    A, x = _bru_csr(N, dtype, N, cuda)
+    tier, plan = spmv.select_spmv_plan(A.indptr, A.indices, *A.shape)
+    assert tier == "dia" and plan.ndiag == 11
+    launches = dict(_backend.LAUNCHES)
+    src = plan.sel.table(cuda)
+    dd = spmv.gather_select(src, A.data)
+    assert torch.equal(dd, spmv.gather_select_plain(src, A.data))
+    dd = dd.reshape(plan.ndiag, -1)
+    _close(spmv.dia_spmv(dd, plan.offsets, x),
+           spmv.dia_spmv_plain(dd, plan.offsets, x), dtype)
+    indptr, indices = A.device_tables(cuda)
+    _close(spmv.gather_spmv(indptr, indices, A.data, x),
+           spmv.gather_spmv_plain(indptr, indices, A.data, x), dtype)
+    for name in ("gather_select", "dia_spmv", "gather_spmv"):
+        assert _backend.LAUNCHES[name] == launches[name] + 1
+
+
+@pytest.mark.cuda
+def test_dia_spmv_pad_slots_are_not_read_on_card(cuda):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    n, offsets = 4096, (-1024, -1, 0, 2, 1024)
+    gen = torch.Generator().manual_seed(5)
+    dd = torch.randn((len(offsets), n), generator=gen, dtype=torch.float64)
+    x = torch.randn(n, generator=gen, dtype=torch.float64)
+    clean = dd.clone()
+    for d, off in enumerate(offsets):
+        if off > 0:
+            dd[d, n - off:] = float("inf")
+            clean[d, n - off:] = 0.0
+        elif off < 0:
+            dd[d, :-off] = float("nan")
+            clean[d, :-off] = 0.0
+    y = spmv.dia_spmv(dd.to(cuda), offsets, x.to(cuda))
+    assert bool(torch.isfinite(y).all())
+    _close(y, spmv.dia_spmv_plain(clean, offsets, x), "float64")
+
+
+@pytest.mark.cuda
+def test_gather_spmv_on_an_unstructured_pattern_on_card(cuda):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    from nonlinearsolve_tpu_torch.ops.sparse import CSR
+    rng = np.random.default_rng(3)
+    n, m = 5000, 4000
+    counts = rng.integers(0, 13, size=n)
+    rows = np.repeat(np.arange(n), counts)
+    cols = rng.integers(0, m, size=rows.size)
+    A = CSR.from_pattern(rows, cols, (n, m),
+                         data=torch.tensor(rng.standard_normal(rows.size)))
+    A = A.with_data(A.data.to(cuda))
+    x = torch.tensor(rng.standard_normal(m), device=cuda)
+    assert spmv.select_spmv_plan(A.indptr, A.indices, n, m)[0] == "csr"
+    indptr, indices = A.device_tables(cuda)
+    _close(A.matvec(x), spmv.gather_spmv_plain(indptr, indices, A.data, x),
+           "float64")
+
+
+@pytest.mark.cuda
+def test_spmv_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    x = torch.ones(8, dtype=torch.float64, device=cuda)
+    dd = torch.ones((2, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        spmv.dia_spmv(dd.float(), (0, 1), x)
+    with pytest.raises(ValueError):
+        spmv.dia_spmv(dd, (0, 1, 2), x)
+    with pytest.raises(ValueError):
+        spmv.dia_spmv(torch.ones((49, 8), dtype=torch.float64, device=cuda),
+                      tuple(range(49)), x)
+    with pytest.raises(ValueError):
+        spmv.gather_select(torch.zeros(3, dtype=torch.int32), x)
+    with pytest.raises(TypeError):
+        spmv.gather_select(torch.zeros(3, dtype=torch.int64, device=cuda), x)
+
+
+@pytest.mark.cuda
+def test_sparse_solve_on_card_matches_cpu(cuda):
+    """The flat f64 N=16 sparse path (DIA route): K5's selection once per
+    Jacobian and K4 in every product on the card, the plain versions on
+    the CPU; the same retcode and stats, u atol 1e-9."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.ops.preconditioners import \
+        fft_poisson_preconditioner
+
+    N = 16
+
+    def flat(u, p):
+        return tbru.brusselator_2d(u.reshape(N, N, 2), p).reshape(-1)
+
+    alg = tnls.NewtonRaphson(
+        autodiff=tnls.JacobianPolicy(mode="sparse"),
+        linsolve=tnls.LinearSolver(
+            method="gmres", restart=8, krylov_maxiter=100,
+            precond_fn=fft_poisson_preconditioner(
+                (N, N), alpha=10.0, h=1.0 / (N - 1), shift=3.0,
+                n_components=2)),
+        forcing=tnls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+    f = tnls.NonlinearFunction(f=flat, sparsity=tbru.sparsity_pattern(N))
+    sols = []
+    for d in (cuda, "cpu"):
+        prob = tnls.NonlinearProblem(
+            f, tbru.init_u0(N, device=d).reshape(-1),
+            tbru.default_p(N, device=d))
+        _backend.reset_counters()
+        sols.append((tnls.solve(prob, alg, abstol=1e-8, maxiters=30),
+                     dict(_backend.LAUNCHES)))
+    (gpu, lg), (cpu, lc) = sols
+    assert gpu.retcode == cpu.retcode == tnls.ReturnCode.Success
+    assert gpu.stats == cpu.stats
+    np.testing.assert_allclose(gpu.u.cpu().numpy(), cpu.u.numpy(), rtol=0,
+                               atol=1e-9)
+    assert lg["gather_select"] == gpu.stats.njacs
+    assert lg["dia_spmv"] == gpu.counters["jvp"] > 0
+    assert lg["gather_spmv"] == lg["brusselator_jvp"] == 0
+    assert not any(lc.values())

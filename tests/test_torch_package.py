@@ -34,9 +34,16 @@ def _import_in_subprocess(code):
 def test_port_imports_no_jax():
     code = ("import sys, nonlinearsolve_tpu_torch, "
             "nonlinearsolve_tpu_torch.interop, "
+            "nonlinearsolve_tpu_torch.native, "
             "nonlinearsolve_tpu_torch.models.brusselator, "
             "nonlinearsolve_tpu_torch.ops.stencil, "
-            "nonlinearsolve_tpu_torch.ops.preconditioners\n"
+            "nonlinearsolve_tpu_torch.ops.preconditioners, "
+            "nonlinearsolve_tpu_torch.ops.sparse, "
+            "nonlinearsolve_tpu_torch.ops.spmv, "
+            "nonlinearsolve_tpu_torch.ops.spmv_dia, "
+            "nonlinearsolve_tpu_torch.ops.selection, "
+            "nonlinearsolve_tpu_torch.ops.coloring, "
+            "nonlinearsolve_tpu_torch.ops.sparse_jac\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'nonlinearsolve_tpu'"
             " or m.startswith('nonlinearsolve_tpu.'))\n"
@@ -125,8 +132,14 @@ def test_unported_routes_raise():
         tnls.solve(prob, tnls.NewtonRaphson())      # dense LU route
     with pytest.raises(NotImplementedError, match="A.15"):
         tnls.solve(prob)                            # default polyalgorithm
-    with pytest.raises(NotImplementedError, match="A.20"):
-        tbru.make_problem(8, device="cpu", with_sparsity=True)
+    shaped_sparse = tbru.make_problem(8, device="cpu", with_sparsity=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        tnls.solve(shaped_sparse, tnls.NewtonRaphson(
+            autodiff=tnls.JacobianPolicy(mode="sparse"),
+            linsolve=tnls.LinearSolver(method="gmres")))
+    with pytest.raises(NotImplementedError, match="A.23"):
+        tnls.solve(shaped_sparse, tnls.NewtonRaphson(
+            autodiff=tnls.JacobianPolicy(mode="sparse")))
     with pytest.raises(NotImplementedError, match="A.33"):
         tnls.TerminationCondition(mode="rel_norm_safe_best")
     grad_u0 = prob.u0.clone().requires_grad_(True)
