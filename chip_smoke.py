@@ -53,7 +53,30 @@ check raises, so the script exits non-zero.
    1e-8 of phase 6's.  Then K5 and its selection are checked and timed on
    this route's own tables (the permuted pattern, the Jacobian at the root
    as data), f32 and f64;
-8. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+8. 3D kernels: K9 (rd3d_jvp_blocked: bz 4 and 8, double_buffer off and
+   on) and K10 (rd3d_jvp_scaled: bz 4 and 8) on the card against their
+   plain versions — 256³ and (40, 72, 100) (ny, nx not multiples of a
+   warp), f32 and f64, seeded on the card by a torch.Generator, and a NaN
+   that must come out of K10's absmax; the 256³ cases timed as above, in
+   the configurations the 3D path runs (K9 bz=4 double-buffered, K10 bz=8);
+9. 3D chain (counters at 0 just before, read just after): the chained,
+   normalised matvec of examples/07_3d_reaction_diffusion_tpu.py:82-117 at
+   256³ f32 (K10, the scale kept on the device), K10 launches = steps;
+   its step time by CUDA events, from a CUDA graph and by the chain-length
+   slope (``utils.profiling.slope_time``), as 8·N³ nnz per step;
+10. 3D solve (counters at 0 just before, read just after): the example's
+   operating point, 256³ f32 through ``reaction_diffusion.make_problem(256,
+   kernel_jvp=True)`` (NewtonRaphson + GMRES(8), krylov_maxiter 200, the
+   FFT Poisson preconditioner on (N, N, N), shift −0.9, η = 0.1, abstol
+   1e-5·N, maxiters 30).  Checks: Success, |F|_inf ≤ 2.56e-3, K9 launches
+   = Jacobian products, no K1, K2, K4, K5 or K10 launch; the NLStats beside
+   the JAX package's on the CPU (6 steps, nf 8, njacs 6).  Then warm wall
+   times, the device time by kernel group and the idle share under
+   torch.profiler, and the chained time to solve
+   (``utils.profiling.chained_solve_time``);
+11. 3D f64 polish on the card from the f32 root (abstol 1e-10, K9 in f64):
+   the f32 root must lie within rel-inf 1e-4 of it;
+12. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -68,14 +91,23 @@ HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,       # H100 SXM, outside the tensor cores
               "float64": 34e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}   # rel-inf of max|out|
-FLOPS_PER_POINT = {"brusselator_jvp": 27, "brusselator_jvp_scaled": 31}
+FLOPS_PER_POINT = {"brusselator_jvp": 27, "brusselator_jvp_scaled": 31,
+                   "rd3d_jvp": 13, "rd3d_jvp_scaled": 15}
 REPLACES = {
     "brusselator_jvp": "nonlinearsolve_tpu/ops/pallas_stencil.py:104",
     "brusselator_jvp_scaled": "nonlinearsolve_tpu/ops/pallas_stencil.py:170",
+    "rd3d_jvp": "nonlinearsolve_tpu/ops/pallas_stencil3d.py:299",
+    "rd3d_jvp_scaled": "nonlinearsolve_tpu/ops/pallas_stencil3d.py:174",
 }
 SOURCE = "nonlinearsolve_tpu_torch/csrc/stencil.cu"
+SOURCE_3D = "nonlinearsolve_tpu_torch/csrc/stencil3d.cu"
 LIBRARY_NOTE = ("no single PyTorch call computes this fused stencil JVP "
                 "(a convolution covers the Laplacian only)")
+RD3D_SHAPES = ((256, 256, 256), (40, 72, 100))
+DEVICE_GROUPS = {"K9 rd3d_jvp": ("rd3d_kernel",), "cuFFT": ("fft",),
+                 "reductions": ("reduce_kernel", "dot_kernel"),
+                 "gemm/gemv": ("gemm", "gemv"),
+                 "elementwise": ("elementwise",)}
 SPMV_SOURCE = "nonlinearsolve_tpu_torch/csrc/spmv.cu"
 SPMV_REPLACES = {
     "dia_spmv": "nonlinearsolve_tpu/ops/pallas_stencil.py:228",
@@ -171,7 +203,9 @@ def roofline_ms(nbytes, flops, dtype):
 
 def profile_device(torch, run):
     """Run ``run()`` once under torch.profiler: its wall time, the device's
-    busy time (summed kernel time) and the top kernels by device time."""
+    busy time (summed kernel time), the device time by DEVICE_GROUPS (a
+    kernel goes to the first group one of whose substrings its name holds,
+    else to "other") and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -189,7 +223,13 @@ def profile_device(torch, run):
         if dt > 0:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
     busy_ms = sum(kernels.values())
+    by_group = {}
+    for key, ms in kernels.items():
+        name = next((g for g, subs in DEVICE_GROUPS.items()
+                     if any(sub in key.lower() for sub in subs)), "other")
+        by_group[name] = by_group.get(name, 0.0) + ms
     return {"profiled_solve_s": wall,
+            "device_ms_by_group": by_group,
             "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
             "device_idle_share": (1.0 - busy_ms / (wall * 1e3)
                                   if busy_ms > 0 else "not measured"),
@@ -218,6 +258,14 @@ def bound_ms(name, N, dtype, itemsize):
     t_ops = FLOPS_PER_POINT[name] * N * N / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rd3d_bound_ms(name, numel, dtype, itemsize):
+    # u, t and out once each, D (K10 also inv_scale and the max)
+    nbytes = 3 * numel * itemsize + itemsize
+    if name == "rd3d_jvp_scaled":
+        nbytes += 2 * itemsize
+    return roofline_ms(nbytes, FLOPS_PER_POINT[name] * numel, dtype)
 
 
 def rel_err(got, ref):
@@ -379,6 +427,81 @@ def csr_kernel_checks(torch, dev, spmv, cplan, jac_data):
     return records
 
 
+def rd3d_kernel_checks(torch, dev, stencil3d):
+    """K9 and K10 against their plain versions at RD3D_SHAPES, f32 and f64,
+    every bz / double_buffer the wrappers take on the 3D paths, and a NaN
+    in the tangent; the 256³ cases timed.  Returns the 256³ f32 records
+    by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    summary = {}
+    for shape in RD3D_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            u = 0.1 + 0.5 * torch.randn(shape, generator=gen, dtype=dtype,
+                                        device=dev)
+            t = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+            D = torch.tensor(0.01, dtype=dtype, device=dev)
+            inv = torch.tensor(0.5, dtype=dtype, device=dev)
+            ref = stencil3d.rd3d_jvp_blocked_plain(u, t, D)
+            ref_s, m_ref = stencil3d.rd3d_jvp_scaled_plain(u, t, D, inv)
+            errs = {}
+            for bz in (4, 8):
+                for db in (False, True):
+                    errs[f"rd3d_jvp bz={bz} db={db}"] = rel_err(
+                        stencil3d.rd3d_jvp_blocked(u, t, D, bz=bz,
+                                                   double_buffer=db), ref)
+                out, m = stencil3d.rd3d_jvp_scaled(u, t, D, inv, bz=bz)
+                errs[f"rd3d_jvp_scaled bz={bz}"] = rel_err(out, ref_s)
+                errs[f"rd3d_jvp_scaled bz={bz} absmax"] = rel_err(m, m_ref)
+            tn = t.clone()
+            tn[shape[0] // 2, 7, 11] = float("nan")
+            m_nan = stencil3d.rd3d_jvp_scaled(u, tn, D, inv, bz=4)[1]
+            torch.cuda.synchronize()
+            nan_ok = bool(torch.isnan(m_nan))
+            ok = nan_ok and all(e[1] <= TOL[dname] for e in errs.values())
+            rec = {"phase": "kernel_check_3d", "shape": list(shape),
+                   "dtype": dname, "tolerance": TOL[dname],
+                   "rel_err": {k: e[1] for k, e in errs.items()},
+                   "max_abs_err": max(e[0] for e in errs.values()),
+                   "nan_absmax": float(m_nan), "ok": ok}
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"K9/K10 {shape} {dname} disagree with "
+                                     f"their plain versions: {rec}")
+            if shape != RD3D_SHAPES[0]:
+                continue
+            cases = {
+                "rd3d_jvp": (
+                    "bz=4 double_buffer=True (the 3D solve's)",
+                    lambda: stencil3d.rd3d_jvp_blocked(u, t, D, bz=4,
+                                                       double_buffer=True),
+                    lambda: stencil3d.rd3d_jvp_blocked_plain(u, t, D)),
+                "rd3d_jvp_scaled": (
+                    "bz=8 (the 3D chain's)",
+                    lambda: stencil3d.rd3d_jvp_scaled(u, t, D, inv, bz=8),
+                    lambda: stencil3d.rd3d_jvp_scaled_plain(u, t, D, inv)),
+            }
+            for name, (config, kern, plain) in cases.items():
+                ms = graph_time_ms(torch, kern)
+                plain_ms = graph_time_ms(torch, plain, calls=5, replays=10)
+                bms, by = rd3d_bound_ms(name, u.numel(), dname,
+                                        u.element_size())
+                abs_err = max(e[0] for k, e in errs.items()
+                              if k.startswith(name + " "))
+                timing = {"phase": "kernel_time_3d", "case": name,
+                          "config": config, "shape": list(shape),
+                          "dtype": dname, "max_abs_err": abs_err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bms,
+                          "bound_by": by, "share_of_bound": bms / ms,
+                          "gb_per_s": 3 * u.numel() * u.element_size()
+                          / ms / 1e6}
+                emit(timing)
+                if dtype == torch.float32:
+                    summary[name] = timing
+            del u, t, ref, ref_s, tn
+    return summary
+
+
 def flat_problem(nls, brusselator, N, dtype, dev, perm=None):
     """The flat Brusselator (u0.reshape(-1), the residual on flat vectors)
     with its sparsity pattern; with ``perm``, its unknowns permuted:
@@ -439,10 +562,11 @@ def main(argv):
     sys.path.insert(0, here)
     import nonlinearsolve_tpu_torch as nls
     from nonlinearsolve_tpu_torch import _backend, native
-    from nonlinearsolve_tpu_torch.models import brusselator
-    from nonlinearsolve_tpu_torch.ops import spmv, stencil
+    from nonlinearsolve_tpu_torch.models import brusselator, reaction_diffusion
+    from nonlinearsolve_tpu_torch.ops import spmv, stencil, stencil3d
     from nonlinearsolve_tpu_torch.ops.preconditioners import (
         fft_poisson_preconditioner)
+    from nonlinearsolve_tpu_torch.utils import profiling
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -470,12 +594,14 @@ def main(argv):
     t0 = time.perf_counter()
     builds = {"stencil": lambda: _backend.build("stencil"),
               "spmv": lambda: _backend.build("spmv"),
+              "stencil3d": lambda: _backend.build("stencil3d"),
               "sparsetools": native.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(timed_build, b) for k, b in builds.items()}
         built = {k: f.result() for k, f in futures.items()}
     stencil._lib()
     spmv._lib()
+    stencil3d._lib()
     native.get_lib()
     build_s = time.perf_counter() - t0
     for name, (so, secs) in built.items():
@@ -838,7 +964,168 @@ def main(argv):
     csr_summary = csr_kernel_checks(torch, dev, spmv, cplan, jac.data)
     del jac, cprob, csol, back
 
-    # --- 8. summary --------------------------------------------------------
+    # --- 8. 3D kernels against their plain versions -------------------------
+    rd3d_summary = rd3d_kernel_checks(torch, dev, stencil3d)
+
+    # --- 9. 3D chain: the example's chained normalised matvec, 256³ f32 -----
+    N3 = 256
+    prob3 = reaction_diffusion.make_problem(N3, dtype=f32, kernel_jvp=True)
+    u3, D3 = prob3.u0, prob3.p[0]
+    chain3_steps = 200
+
+    def chain3(steps):
+        # examples/07_…:82-117: the absmax (clamped at 1) scales the next
+        # step's output; the scale never leaves the device
+        c = torch.ones_like(u3)
+        s = torch.ones((), dtype=f32, device=dev)
+        for _ in range(steps):
+            c, m = stencil3d.rd3d_jvp_scaled(u3, c, D3, 1.0 / s, bz=8)
+            s = torch.clamp(m, min=1.0)
+        return c, s
+
+    chain3(2)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    c3, s3 = chain3(chain3_steps)
+    ev1.record()
+    torch.cuda.synchronize()
+    chain3_wall_ms = (time.perf_counter() - t0) * 1e3 / chain3_steps
+    chain3_launches = dict(_backend.LAUNCHES)
+    chain3_event_ms = ev0.elapsed_time(ev1) / chain3_steps
+    chain3_ok = bool(torch.isfinite(c3).all()) and bool(torch.isfinite(s3))
+    carry3 = {"c": torch.ones_like(u3),
+              "s": torch.ones((), dtype=f32, device=dev)}
+
+    def chain3_step():
+        carry3["c"], m = stencil3d.rd3d_jvp_scaled(
+            u3, carry3["c"], D3, 1.0 / carry3["s"], bz=8)
+        carry3["s"] = torch.clamp(m, min=1.0)
+
+    chain3_graph_ms = graph_time_ms(torch, chain3_step, calls=100, replays=4)
+    # the example's own timing: chain-length slope between 10 and 110
+    # steps, each chain ended by a scalar fetch
+    chain3_slope_ms = 1e3 * profiling.slope_time(
+        lambda: float(chain3(10)[0].abs().sum()),
+        lambda: float(chain3(110)[0].abs().sum()), span=100, rounds=3)
+    nnz3 = 8 * N3 ** 3
+    rec = {"phase": "rd3d_chain", "N": N3, "dtype": "float32", "bz": 8,
+           "steps": chain3_steps, "launches": chain3_launches,
+           "finite": chain3_ok, "final_scale": float(s3),
+           "step_ms_wall": chain3_wall_ms, "step_ms_events": chain3_event_ms,
+           "step_ms_graph": chain3_graph_ms, "step_ms_slope": chain3_slope_ms,
+           "nnz_per_step": nnz3,
+           "tnnz_per_s_graph": nnz3 / chain3_graph_ms / 1e9,
+           "tnnz_per_s_events": nnz3 / chain3_event_ms / 1e9,
+           "tnnz_per_s_slope": nnz3 / max(chain3_slope_ms, 1e-9) / 1e9,
+           "card": card}
+    emit(rec)
+    checks = {
+        "K10 launches == chain steps":
+            chain3_launches["rd3d_jvp_scaled"] == chain3_steps,
+        "no K9 launch": chain3_launches["rd3d_jvp"] == 0,
+        "chain finite": chain3_ok,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"3D chain failed: {failed}")
+    del c3, carry3
+
+    # --- 10. 3D solve at the example's operating point, 256³ f32 ------------
+    pm3 = fft_poisson_preconditioner((N3, N3, N3), 0.01, 1.0 / N3,
+                                     shift=-0.9)
+    alg3 = nls.NewtonRaphson(
+        linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                  krylov_maxiter=200, precond_fn=pm3),
+        forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+    abstol3 = 1e-5 * N3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    sol3 = nls.solve(prob3, alg3, abstol=abstol3, maxiters=30)
+    torch.cuda.synchronize()
+    solve3_first_s = time.perf_counter() - t0
+    launches3 = dict(_backend.LAUNCHES)
+    resid3 = float(sol3.resid.abs().max())
+    jax_stats = {"nsteps": 6, "nf": 8, "njacs": 6}
+    stats3 = {k: getattr(sol3.stats, k) for k in jax_stats}
+    emit({"phase": "rd3d_solve", "N": N3, "dtype": "float32",
+          "retcode": sol3.retcode.name, "resid_inf": resid3,
+          "abstol": abstol3, "stats": vars(sol3.stats),
+          "stats_jax_cpu": jax_stats, "stats_equal_jax": stats3 == jax_stats,
+          "krylov_iters": sol3.counters["krylov_iters"],
+          "jac_products": sol3.counters["jvp"], "launches": launches3,
+          "host_syncs": sol3.counters["host_syncs"],
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "first_solve_s": solve3_first_s})
+    checks = {
+        "retcode Success": sol3.retcode == nls.ReturnCode.Success,
+        "|F|_inf <= 1e-5 N": resid3 <= abstol3,
+        "K9 launches == Jacobian products":
+            launches3["rd3d_jvp"] == sol3.counters["jvp"] > 0,
+        "no K1, K2, K4, K5 or K10 launch": not any(
+            launches3[k] for k in ("brusselator_jvp",
+                                   "brusselator_jvp_scaled", "dia_spmv",
+                                   "gather_spmv", "gather_select",
+                                   "rd3d_jvp_scaled")),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"3D solve failed: {failed}")
+
+    def warm_rd3d():
+        warm = nls.solve(prob3, alg3, abstol=abstol3, maxiters=30)
+        if warm.retcode != nls.ReturnCode.Success:
+            raise AssertionError(f"warm 3D solve: {warm.retcode.name}")
+
+    r_walls = warm_walls(torch, warm_rd3d)
+    r_prof = profile_device(torch, warm_rd3d)
+    chained3_s = profiling.chained_solve_time(prob3, alg3, k=3, reps=3,
+                                              abstol=abstol3, maxiters=30)
+    emit({"phase": "rd3d_solve_timing", "warm_solve_s": r_walls,
+          "warm_solve_s_median": sorted(r_walls)[1], **r_prof,
+          "chained_solve_s": chained3_s,
+          "mdof_per_s_chained": N3 ** 3 / max(chained3_s, 1e-9) / 1e6,
+          "card": card})
+
+    # --- 11. 3D f64 polish on the card ---------------------------------------
+    prob3_64 = reaction_diffusion.make_problem(
+        N3, dtype=torch.float64, kernel_jvp=True).remake(u0=sol3.u.double())
+    pm3_64 = fft_poisson_preconditioner((N3, N3, N3), 0.01, 1.0 / N3,
+                                        shift=-0.9)
+    alg3_64 = nls.NewtonRaphson(
+        linsolve=nls.LinearSolver(method="gmres", restart=16,
+                                  krylov_maxiter=200, precond_fn=pm3_64),
+        forcing=nls.EisenstatWalkerForcing(eta_0=1e-4, eta_max=1e-4))
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    sol3_64 = nls.solve(prob3_64, alg3_64, abstol=1e-10, maxiters=10)
+    torch.cuda.synchronize()
+    polish3_s = time.perf_counter() - t0
+    polish3_launches = dict(_backend.LAUNCHES)
+    u3_64 = sol3_64.u
+    dist3 = (float((sol3.u.double() - u3_64).abs().max())
+             / max(float(u3_64.abs().max()), 1.0))
+    emit({"phase": "rd3d_f64_polish", "retcode": sol3_64.retcode.name,
+          "stats": vars(sol3_64.stats),
+          "krylov_iters": sol3_64.counters["krylov_iters"],
+          "resid_inf": float(sol3_64.resid.abs().max()), "abstol": 1e-10,
+          "launches": polish3_launches,
+          "f32_root_rel_inf_distance": dist3, "limit": 1e-4,
+          "seconds": polish3_s})
+    if (sol3_64.retcode != nls.ReturnCode.Success or not dist3 <= 1e-4
+            or polish3_launches["rd3d_jvp"] != sol3_64.counters["jvp"]):
+        raise AssertionError(f"3D f64 polish: {sol3_64.retcode.name}, "
+                             f"distance {dist3}, launches "
+                             f"{polish3_launches}")
+    del prob3_64, sol3_64, u3_64
+
+    # --- 12. summary -------------------------------------------------------
     out = []
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
         r = summary[name]
@@ -870,6 +1157,20 @@ def main(argv):
                     "library_note": r["library"],
                     "share_of_bound": r["share_of_bound"],
                     "shape": r["shape"], "dtype": "float64"})
+    for name, path_launches_3d, where in (
+            ("rd3d_jvp", launches3["rd3d_jvp"], "rd3d_solve"),
+            ("rd3d_jvp_scaled", chain3_launches["rd3d_jvp_scaled"],
+             "rd3d_chain")):
+        r = rd3d_summary[name]
+        out.append({"name": name, "route": "cuda", "source": SOURCE_3D,
+                    "replaces": REPLACES[name], "launches": path_launches_3d,
+                    "launches_in": where, "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": None, "library_note": LIBRARY_NOTE,
+                    "share_of_bound": r["share_of_bound"],
+                    "shape": r["shape"], "dtype": "float32",
+                    "config": r["config"]})
     emit({"kernels": out})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})

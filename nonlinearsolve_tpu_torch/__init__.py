@@ -10,8 +10,10 @@ Ported so far: Newton–GMRES with the FFT Poisson preconditioner and
 Eisenstat–Walker forcing on the 2D Brusselator, matrix-free (the fused
 stencil JVP kernels K1, K2) or on a colored sparse-AD Jacobian assembled
 into DIA or CSR (the SpMV kernels K4, K5; ``JacobianPolicy(mode="sparse")``
-with ``NonlinearFunction(sparsity=...)`` on a flat state).  See ROADMAP.md
-for what is still to come.
+with ``NonlinearFunction(sparsity=...)`` on a flat state); and on the 3D
+reaction–diffusion steady state (``models.reaction_diffusion``), matrix-free
+on the 3D stencil JVP kernels K9, K10.  See ROADMAP.md for what is still to
+come.
 """
 
 from .core.autodiff import JacobianPolicy

@@ -1,12 +1,14 @@
 """Carry a run's state across from the JAX package, through numpy.
 
-This system has no weights: what defines a run is the problem data
-``(u0, p)`` — the JAX package's ``models.brusselator.init_u0`` /
-``default_p`` output — and the preconditioner's
-``(grid_shape, alpha, h, shift)``, which are plain numbers and pass as they
-are.  ``problem_from_numpy`` builds the port's problem from the arrays;
-``solution_to_numpy`` returns a solution as numpy arrays and ints, for
-comparison with the JAX package's.
+This system has no weights: what defines a run is the problem data — the
+Brusselator's ``(u0, p)`` (the JAX package's ``models.brusselator.init_u0`` /
+``default_p`` output), the 3D reaction–diffusion problem's ``(u0, D, g)``
+(``models.reaction_diffusion.make_problem``'s ``u0`` and ``p``) — and the
+preconditioner's ``(grid_shape, alpha, h, shift)``, which are plain numbers
+and pass as they are.  ``problem_from_numpy`` and
+``reaction_diffusion_problem_from_numpy`` build the port's problems from the
+arrays; ``solution_to_numpy`` returns a solution as numpy arrays and ints,
+for comparison with the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from . import _backend
 from .core.problems import NonlinearProblem
 from .core.solution import NonlinearSolution
-from .models import brusselator
+from .models import brusselator, reaction_diffusion
 
 
 def problem_from_numpy(u0, p, *, kernel_jvp: bool = False, device=None,
@@ -34,6 +36,25 @@ def problem_from_numpy(u0, p, *, kernel_jvp: bool = False, device=None,
     U = torch.as_tensor(u0.astype(npdt), device=dev)      # a copy
     P = torch.as_tensor(np.asarray(p).astype(npdt), device=dev)
     return brusselator.problem(U, P, kernel_jvp=kernel_jvp)
+
+
+def reaction_diffusion_problem_from_numpy(u0, D, g, *,
+                                          kernel_jvp: bool = False,
+                                          device=None,
+                                          dtype=None) -> NonlinearProblem:
+    """The 3D reaction–diffusion problem at state ``u0`` (N, N, N) with
+    diffusion ``D`` (a number or a 0-d array) and forcing ``g`` (N, N, N),
+    on ``device`` (the card by default), in ``dtype`` (``u0``'s by
+    default); ``kernel_jvp`` is ``make_problem``'s."""
+    dev = _backend.resolve_device(device)
+    u0 = np.asarray(u0)
+    dt = _backend.resolve_dtype(u0.dtype if dtype is None else dtype)
+    npdt = _backend.np_dtype(dt)
+    p = tuple(torch.as_tensor(np.asarray(a).astype(npdt), device=dev)
+              for a in (D, g))
+    return reaction_diffusion.problem(
+        torch.as_tensor(u0.astype(npdt), device=dev), p,
+        kernel_jvp=kernel_jvp)
 
 
 def solution_to_numpy(sol: NonlinearSolution) -> dict:

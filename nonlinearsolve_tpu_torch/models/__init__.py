@@ -1,1 +1,1 @@
-from . import brusselator  # noqa: F401
+from . import brusselator, reaction_diffusion  # noqa: F401

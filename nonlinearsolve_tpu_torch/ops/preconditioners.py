@@ -15,11 +15,15 @@ from typing import Sequence
 
 import torch
 
+from .. import _backend
+
 
 def fft_poisson_symbol(shape: Sequence[int], alpha, h, shift=1.0,
                        dtype=torch.float64, device=None) -> torch.Tensor:
     """Eigenvalues of ``alpha·Δ_h - shift`` on a periodic grid:
-    ``(α/h²)·Σ_d (2cos(2πk_d/N_d) - 2) - shift``."""
+    ``(α/h²)·Σ_d (2cos(2πk_d/N_d) - 2) - shift``, on ``device`` (the card by
+    default)."""
+    device = _backend.resolve_device(device)
     sym = None
     for d, Nd in enumerate(shape):
         k = torch.arange(Nd, dtype=dtype, device=device)

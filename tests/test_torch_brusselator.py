@@ -94,8 +94,19 @@ def test_fft_symbol_matches_jax(N):
     ref = np.asarray(jpre.fft_poisson_symbol((N, N), 10.0, 1.0 / (N - 1),
                                              3.0, jnp.float64))
     got = tpre.fft_poisson_symbol((N, N), 10.0, 1.0 / (N - 1), 3.0,
-                                  torch.float64).numpy()
+                                  torch.float64, device="cpu").numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-12)
+
+
+def test_fft_symbol_defaults_to_the_card():
+    """device=None means the card, as for every entry point: without CUDA
+    it raises instead of building the symbol on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpre.fft_poisson_symbol((8, 8), 10.0, 1.0 / 7, 3.0, torch.float64)
+    assert tpre.fft_poisson_symbol((8, 8), 10.0, 1.0 / 7,
+                                   device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("shaped", [True, False])

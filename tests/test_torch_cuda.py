@@ -259,3 +259,113 @@ def test_sparse_solve_on_card_matches_cpu(cuda):
     assert lg["dia_spmv"] == gpu.counters["jvp"] > 0
     assert lg["gather_spmv"] == lg["brusselator_jvp"] == 0
     assert not any(lc.values())
+
+
+# ---------------------------------------------------------------------------
+# K9 (rd3d_jvp_blocked) and K10 (rd3d_jvp_scaled): rel-inf 1e-12 (f64) /
+# 1e-5 (f32) of max|out| (FMA contraction); the absmax as K2's
+# ---------------------------------------------------------------------------
+
+def _rd3d_inputs(shape, dtype, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    dt = TORCH_DT[dtype]
+    u = 0.1 + 0.5 * torch.randn(shape, generator=gen, dtype=dt)
+    t = torch.randn(shape, generator=gen, dtype=dt)
+    return u.to(device), t.to(device), torch.tensor(0.01, dtype=dt,
+                                                    device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape", [(64, 64, 64), (24, 40, 36)])
+def test_rd3d_kernels_match_plain_on_card(cuda, shape, dtype):
+    from nonlinearsolve_tpu_torch.ops import stencil3d as t3
+    u, t, D = _rd3d_inputs(shape, dtype, 7, cuda)
+    launches = dict(_backend.LAUNCHES)
+    ref = t3.rd3d_jvp_blocked_plain(u, t, D)
+    for bz in (4, 8):
+        for db in (False, True):
+            _close(t3.rd3d_jvp_blocked(u, t, D, bz=bz, double_buffer=db),
+                   ref, dtype)
+        # D as a Python number: D/h² formed in double, as the JAX wrapper
+        _close(t3.rd3d_jvp_blocked(u, t, 0.01, bz=bz),
+               t3.rd3d_jvp_blocked_plain(u, t, 0.01), dtype)
+        out, m = t3.rd3d_jvp_scaled(u, t, D, 0.5, bz=bz)
+        ref_s, m_r = t3.rd3d_jvp_scaled_plain(u, t, D, 0.5)
+        _close(out, ref_s, dtype)
+        assert m.dtype == u.dtype
+        np.testing.assert_allclose(float(m), float(m_r),
+                                   rtol=MAX_RTOL[dtype])
+    assert _backend.LAUNCHES["rd3d_jvp"] == launches["rd3d_jvp"] + 6
+    assert _backend.LAUNCHES["rd3d_jvp_scaled"] == \
+        launches["rd3d_jvp_scaled"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_rd3d_scaled_absmax_nan_on_card(cuda, dtype):
+    from nonlinearsolve_tpu_torch.ops import stencil3d as t3
+    u, t, D = _rd3d_inputs((16, 24, 40), dtype, 8, cuda)
+    t[9, 3, 33] = float("nan")
+    inv = torch.tensor(0.5, dtype=TORCH_DT[dtype], device=cuda)
+    _, m = t3.rd3d_jvp_scaled(u, t, D, inv, bz=4)
+    assert torch.isnan(m)
+
+
+@pytest.mark.cuda
+def test_rd3d_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from nonlinearsolve_tpu_torch.ops import stencil3d as t3
+    u, t, D = _rd3d_inputs((16, 16, 16), "float32", 9, cuda)
+    with pytest.raises(ValueError, match="must divide"):
+        t3.rd3d_jvp_blocked(u, t, D, bz=5)
+    with pytest.raises(ValueError, match="must divide"):
+        t3.rd3d_jvp_scaled(u, t, D, 1.0, bz=32)
+    with pytest.raises(TypeError):
+        t3.rd3d_jvp_blocked(u, t.double(), D, bz=4)
+    with pytest.raises(TypeError):
+        t3.rd3d_jvp_blocked(u.half(), t.half(), D, bz=4)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_blocked(u, t.cpu(), D, bz=4)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_blocked(u, t, D.cpu(), bz=4)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_blocked(u, t.transpose(1, 2), D, bz=4)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_blocked(u[:8], t, D, bz=4)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_blocked(u[0], t[0], D, bz=1)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_scaled(u, t, D, torch.ones(2, device=cuda), bz=4)
+
+
+@pytest.mark.cuda
+def test_rd3d_solve_on_card_matches_cpu(cuda):
+    """The 64³ f64 solve at the example's algorithm (GMRES(8), shift −0.9,
+    η = 0.1): K9 in every product on the card, the plain version on the
+    CPU; the same retcode and stats, u within rel-inf 1e-8."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.models import reaction_diffusion as trd
+    from nonlinearsolve_tpu_torch.ops.preconditioners import \
+        fft_poisson_preconditioner
+
+    N = 64
+    alg = tnls.NewtonRaphson(
+        linsolve=tnls.LinearSolver(
+            method="gmres", restart=8, krylov_maxiter=200,
+            precond_fn=fft_poisson_preconditioner((N, N, N), 0.01, 1.0 / N,
+                                                  shift=-0.9)),
+        forcing=tnls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+    sols = []
+    for d in (cuda, "cpu"):
+        _backend.reset_counters()
+        sols.append((tnls.solve(trd.make_problem(N, kernel_jvp=True,
+                                                 device=d),
+                                alg, abstol=1e-5 * N, maxiters=30),
+                     dict(_backend.LAUNCHES)))
+    (gpu, lg), (cpu, lc) = sols
+    assert gpu.retcode == cpu.retcode == tnls.ReturnCode.Success
+    assert gpu.stats == cpu.stats
+    scale = float(cpu.u.abs().max())
+    assert float((gpu.u.cpu() - cpu.u).abs().max()) <= 1e-8 * scale
+    assert lg["rd3d_jvp"] == gpu.counters["jvp"] > 0
+    assert not any(lc.values())

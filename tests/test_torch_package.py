@@ -43,7 +43,10 @@ def test_port_imports_no_jax():
             "nonlinearsolve_tpu_torch.ops.spmv_dia, "
             "nonlinearsolve_tpu_torch.ops.selection, "
             "nonlinearsolve_tpu_torch.ops.coloring, "
-            "nonlinearsolve_tpu_torch.ops.sparse_jac\n"
+            "nonlinearsolve_tpu_torch.ops.sparse_jac, "
+            "nonlinearsolve_tpu_torch.ops.stencil3d, "
+            "nonlinearsolve_tpu_torch.models.reaction_diffusion, "
+            "nonlinearsolve_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'nonlinearsolve_tpu'"
             " or m.startswith('nonlinearsolve_tpu.'))\n"
