@@ -47,8 +47,9 @@ check raises, so the script exits non-zero.
    succeed: the JAX package stalls at |F| = 7.6 there);
 7. CSR route (counters at 0 just before, read just after): the 512²
    Brusselator with its unknowns permuted by a seeded permutation (beyond
-   the DIA tier), the same solver, f64, abstol 1e-4.  Checks: Success,
-   K5 (gather_spmv) launches = Jacobian products, selection launches =
+   the DIA tier: the JAX package's "resident" tier, after RCM), the same
+   solver, f64, abstol 1e-4.  Checks: Success, the resident tier, K5
+   (gather_spmv) launches = Jacobian products, selection launches =
    Jacobians, no K4 launch, and the root, permuted back, within rel-inf
    1e-8 of phase 6's.  Then K5 and its selection are checked and timed on
    this route's own tables (the permuted pattern, the Jacobian at the root
@@ -76,7 +77,35 @@ check raises, so the script exits non-zero.
    (``utils.profiling.chained_solve_time``);
 11. 3D f64 polish on the card from the f32 root (abstol 1e-10, K9 in f64):
    the f32 root must lie within rel-inf 1e-4 of it;
-12. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+12. band route (counters at 0 just before, read just after): the 3D solve
+   of phase 10 at 256³ f32 with a colored sparse-AD Jacobian on the flat
+   state (``JacobianPolicy(mode="sparse")``, the periodic 7-point pattern
+   built with numpy), which the JAX package's tier selection sends to its
+   "stream" tier: K7 (band_spmv) in every GMRES product.  The host plan is
+   timed by step (pattern, coloring, band plan, the rest of the tier
+   selection, the pack tables).  Checks: tier "stream", no reorder, w 11,
+   5 bands; Success, |F|_inf ≤ 1e-5·N, nsteps within 1 of phase 10's, K7
+   launches = Jacobian products, selection launches = 2 × Jacobians
+   (decompression and pack), no K4, CSR K5, K8 or K9 launch, the root
+   within rel-inf 1e-4 of phase 11's.  Then warm walls, the device time by
+   kernel group, the idle share and peak memory; K7 against its plain
+   version on the route's own tables (the Jacobian at the root), f32 and
+   f64, with inf in every pad slot (y bit-equal), timed beside K5 on the
+   same matrix and cuSPARSE;
+13. scatter route (counters at 0 just before, read just after): the same
+   problem at 96³ f32 with its unknowns numbered by
+   ``np.random.default_rng(42).permutation``, which the JAX package sends
+   to its "scatter" tier (3 column parts, one R plan each): K8
+   (scatter_expand, scatter_regroup) in every product.  Checks: the tier
+   and parts; Success; expand launches = 3 × products, regroup launches =
+   the chain lengths' sum × products, selection launches = 2 × Jacobians,
+   no K4, CSR K5, K7 or K9 launch; the root, permuted back, within rel-inf
+   1e-4 of the natural-order solve at 96³ in the same phase (the DIA tier,
+   K4).  Then warm walls and the device profile; K8 against its plain
+   versions on the route's own tables, f32 and f64, timed (expand and
+   regroup launches of one product, and the whole product) beside K5 on
+   the same matrix and cuSPARSE;
+14. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -104,7 +133,13 @@ SOURCE_3D = "nonlinearsolve_tpu_torch/csrc/stencil3d.cu"
 LIBRARY_NOTE = ("no single PyTorch call computes this fused stencil JVP "
                 "(a convolution covers the Laplacian only)")
 RD3D_SHAPES = ((256, 256, 256), (40, 72, 100))
-DEVICE_GROUPS = {"K9 rd3d_jvp": ("rd3d_kernel",), "cuFFT": ("fft",),
+DEVICE_GROUPS = {"K9 rd3d_jvp": ("rd3d_kernel",),
+                 "K7 band_spmv": ("band_spmv",),
+                 "K8 scatter_expand": ("scatter_expand",),
+                 "K8 scatter_regroup": ("scatter_regroup",),
+                 "K4 dia_spmv": ("dia_spmv",),
+                 "K5 gather_spmv": ("csr_spmv",),
+                 "K5 selection": ("csr_select",), "cuFFT": ("fft",),
                  "reductions": ("reduce_kernel", "dot_kernel"),
                  "gemm/gemv": ("gemm", "gemv"),
                  "elementwise": ("elementwise",)}
@@ -113,12 +148,23 @@ SPMV_REPLACES = {
     "dia_spmv": "nonlinearsolve_tpu/ops/pallas_stencil.py:228",
     "gather_spmv": "nonlinearsolve_tpu/ops/pallas_spmv.py:391",
     "gather_select": "nonlinearsolve_tpu/ops/pallas_spmv.py:391",
+    "band_spmv": "nonlinearsolve_tpu/ops/pallas_spmv_stream.py:339",
+    "scatter_expand": "nonlinearsolve_tpu/ops/pallas_spmv_scatter.py:409",
+    "scatter_regroup": "nonlinearsolve_tpu/ops/pallas_spmv_scatter.py:409",
 }
 SPMV_LIBRARY = {
     "dia_spmv": "cuSPARSE CSR matvec of the same matrix "
                 "(torch.sparse_csr_tensor @ x)",
     "gather_spmv": "cuSPARSE CSR matvec (torch.sparse_csr_tensor @ x)",
     "gather_select": "torch.take of the zero-extended values",
+    "band_spmv": "cuSPARSE CSR matvec of the same matrix "
+                 "(torch.sparse_csr_tensor @ x)",
+    "scatter_expand": "cuSPARSE CSR matvec of each part's G (one nonzero a "
+                      "row, A's data), summed over the parts",
+    "scatter_regroup": "cuSPARSE CSR matvec of each part's R chain (unit "
+                       "data), summed over the parts",
+    "scatter_spmv": "cuSPARSE CSR matvec of the same matrix "
+                    "(torch.sparse_csr_tensor @ x)",
 }
 LOG = {"path": None}
 
@@ -274,13 +320,19 @@ def rel_err(got, ref):
     return err, err / scale
 
 
+def flat(torch, out):
+    """A kernel's output, or a list of them (one a part) end to end."""
+    return torch.cat(out) if isinstance(out, list) else out
+
+
 def spmv_case(torch, name, tables, dname, kern, plain, library, cost, shape,
               exact=False, extra_check=None):
-    """One K4/K5 case: the kernel against its plain version (bit for bit
-    when ``exact``, else at TOL), then its times, its bound from ``cost`` =
-    (bytes, flops), and the library call's time.  Emits and returns the
-    record; raises if the kernel disagrees."""
-    got, ref = kern(), plain()
+    """One SpMV case: the kernel (or a list of launches, one a part, whose
+    outputs are compared end to end) against its plain version (bit for
+    bit when ``exact``, else at TOL), then its times, its bound from
+    ``cost`` = (bytes, flops), and the library call's time.  Emits and
+    returns the record; raises if the kernel disagrees."""
+    got, ref = flat(torch, kern()), flat(torch, plain())
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, ref)
     ok = bool(torch.equal(got, ref)) if exact else rel <= TOL[dname]
@@ -289,7 +341,7 @@ def spmv_case(torch, name, tables, dname, kern, plain, library, cost, shape,
     # the library call is a yardstick, not a check: a refusal is
     # recorded, not raised
     try:
-        lib_err = rel_err(library(), ref)[1]
+        lib_err = rel_err(flat(torch, library()), ref)[1]
         library_ms = profiled_ms(torch, library)
         library_eager = event_time_ms(torch, library)
     except RuntimeError as exc:
@@ -500,6 +552,235 @@ def rd3d_kernel_checks(torch, dev, stencil3d):
                     summary[name] = timing
             del u, t, ref, ref_s, tn
     return summary
+
+
+def band_kernel_checks(torch, dev, spmv, spmv_stream, pattern, bplan,
+                       jac_data):
+    """K7 on the band route's own tables (its (w, n_pad) columns, and the
+    Jacobian at the root packed by the route's selection), f32 and f64,
+    against its plain version, with inf written into every pad slot (y must
+    be bit-equal); then K5 on the same matrix as CSR.  Each timed beside
+    cuSPARSE.  Returns the f32 records by kernel."""
+    import numpy as np
+    n = pattern.shape[0]
+    nnz = pattern.nnz
+    indptr, indices = pattern.device_tables(dev)
+    cols = bplan.cols_table(dev)
+    pads = cols < 0
+    x64 = torch.as_tensor(np.random.default_rng(5).standard_normal(n),
+                          device=dev)
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        data = jac_data.to(dtype).contiguous()
+        x = x64.to(dtype)
+        packed = bplan.pack_data(data)
+        packed_inf = packed.clone()
+        packed_inf[pads] = float("inf")
+        csr_lib = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
+
+        def inf_pads(got):
+            # inf in every pad slot: K7 must not read them
+            y_inf = spmv_stream.band_spmv_packed(cols, packed_inf, x, n)
+            torch.cuda.synchronize()
+            return {"inf_pads_equal": bool(torch.equal(y_inf, got))}
+
+        k7 = spmv_case(
+            torch, "band_spmv", "band_route_256", dname,
+            lambda: spmv_stream.band_spmv_packed(cols, packed, x, n),
+            lambda: spmv_stream.band_spmv_plain(cols, packed, x, n),
+            lambda: csr_lib @ x,
+            (cols.numel() * 4 + nnz * item + 2 * n * item, 2 * nnz),
+            [bplan.w, bplan.n_pad, nnz], extra_check=inf_pads)
+        del packed_inf
+        k5 = spmv_case(
+            torch, "gather_spmv", "band_route_256", dname,
+            lambda: spmv.gather_spmv(indptr, indices, data, x),
+            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
+            lambda: csr_lib @ x,
+            (nnz * (item + 4) + (n + 1) * 4 + 2 * n * item, 2 * nnz),
+            [n, n, nnz])
+        if dtype == torch.float32:
+            records = {"band_spmv": k7, "gather_spmv_same_tables": k5}
+        del data, x, packed, csr_lib
+    return records
+
+
+def scatter_kernel_checks(torch, dev, spmv, spmv_scatter, pattern, splan,
+                          jac_data):
+    """K8 on the scatter route's own tables (each part's G columns and R
+    chain, the Jacobian at the root staged by the route's selection), f32
+    and f64: the expand launches of one product, its regroup launches, and
+    the whole staged product against their plain versions; then K5 on the
+    same matrix as CSR.  Each timed beside cuSPARSE (of G, of R, of A).
+    Returns the f32 records by kernel."""
+    import numpy as np
+    n = pattern.shape[0]
+    nnz = pattern.nnz
+    indptr, indices = pattern.device_tables(dev)
+    tables = splan.tables(dev)
+    x64 = torch.as_tensor(np.random.default_rng(6).standard_normal(n),
+                          device=dev)
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        data = jac_data.to(dtype).contiguous()
+        x = x64.to(dtype)
+        staged = splan.stage(data)
+        parts = list(zip(tables, staged))
+        p_in = [spmv_scatter.scatter_expand_plain(g, gd, x[c0:c1])
+                for (c0, c1, g, _r), gd in parts]
+        g_lib, r_lib = [], []
+        e_bytes = r_bytes = r_flops = 0
+        for ((c0, c1, g, rts), gd), p in zip(parts, p_in):
+            valid = g >= 0
+            crow = torch.cat([valid.new_zeros(1, dtype=torch.int32),
+                              torch.cumsum(valid, 0, dtype=torch.int32)])
+            g_lib.append((torch.sparse_csr_tensor(
+                crow, g[valid], gd[valid], (g.shape[0], c1 - c0)), c0, c1))
+            e_bytes += g.shape[0] * (4 + item) + int(valid.sum()) * item \
+                + (c1 - c0) * item
+            chain, length = [], p.shape[0]
+            for rp, pos in rts:
+                rows = rp.shape[0] - 1
+                chain.append(torch.sparse_csr_tensor(
+                    rp, pos, torch.ones(pos.shape[0], dtype=dtype,
+                                        device=dev), (rows, length)))
+                r_bytes += (rows + 1) * 4 + pos.shape[0] * (4 + item) \
+                    + rows * item
+                r_flops += pos.shape[0]
+                length = rows
+            r_lib.append(chain)
+
+        def expand_all(fn):
+            return [fn(g, gd, x[c0:c1]) for (c0, c1, g, _r), gd in parts]
+
+        def regroup_all(fn):
+            out = []
+            for ((_c0, _c1, _g, rts), _gd), p in zip(parts, p_in):
+                for rp, pos in rts:
+                    p = fn(rp, pos, p)
+                out.append(p)
+            return out
+
+        def regroup_lib():
+            out = []
+            for chain, p in zip(r_lib, p_in):
+                for R in chain:
+                    p = R @ p
+                out.append(p)
+            return out
+
+        expand = spmv_case(
+            torch, "scatter_expand", "scatter_route_96_permuted", dname,
+            lambda: expand_all(spmv_scatter.scatter_expand),
+            lambda: expand_all(spmv_scatter.scatter_expand_plain),
+            lambda: [G @ x[c0:c1] for G, c0, c1 in g_lib],
+            (e_bytes, nnz), [len(parts), sum(g.shape[0] for g in p_in)])
+        regroup = spmv_case(
+            torch, "scatter_regroup", "scatter_route_96_permuted", dname,
+            lambda: regroup_all(spmv_scatter.scatter_regroup),
+            lambda: regroup_all(spmv_scatter.scatter_regroup_plain),
+            regroup_lib, (r_bytes, r_flops),
+            [len(parts), sum(len(c) for c in r_lib), n])
+        mv = spmv_scatter.scatter_spmv_staged(splan, data)
+        csr_lib = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
+        whole = spmv_case(
+            torch, "scatter_spmv", "scatter_route_96_permuted", dname,
+            lambda: mv(x),
+            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
+            lambda: csr_lib @ x,
+            (e_bytes + r_bytes + 3 * (len(parts) - 1) * n * item,
+             nnz + r_flops + (len(parts) - 1) * n), [n, n, nnz])
+        k5 = spmv_case(
+            torch, "gather_spmv", "scatter_route_96_permuted", dname,
+            lambda: spmv.gather_spmv(indptr, indices, data, x),
+            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
+            lambda: csr_lib @ x,
+            (nnz * (item + 4) + (n + 1) * 4 + 2 * n * item, 2 * nnz),
+            [n, n, nnz])
+        if dtype == torch.float32:
+            records = {"scatter_expand": expand, "scatter_regroup": regroup,
+                       "scatter_spmv": whole, "gather_spmv_same_tables": k5}
+        del data, x, staged, parts, p_in, g_lib, r_lib, mv, csr_lib
+    return records
+
+
+def periodic7_pattern(CSR, N, perm=None):
+    """The 3D periodic 7-point Jacobian pattern on N³ (C order) as the
+    port's CSR, built with numpy (the JAX package traces it;
+    tests/test_torch_sparse3d.py holds the two equal).  With ``perm`` the
+    unknowns are renumbered: entry (i, j) moves to (pinv[i], pinv[j])."""
+    import numpy as np
+    n = N ** 3
+    i = np.arange(n, dtype=np.int64)
+    x, y, z = i // (N * N), (i // N) % N, i % N
+
+    def idx(a, b, c):
+        return ((a % N) * N + (b % N)) * N + (c % N)
+    cols = np.stack([idx(x - 1, y, z), idx(x, y - 1, z), idx(x, y, z - 1), i,
+                     idx(x, y, z + 1), idx(x, y + 1, z), idx(x + 1, y, z)], 1)
+    del x, y, z
+    cols.sort(axis=1)
+    cols = cols.reshape(-1)
+    indptr = np.arange(n + 1, dtype=np.int64) * 7
+    if perm is not None:
+        pinv = np.argsort(perm)
+        rows = pinv[np.repeat(i, 7)]
+        cols = pinv[cols]
+        order = np.argsort(rows * n + cols, kind="stable")
+        cols = cols[order]
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(rows,
+                                                            minlength=n))])
+    return CSR(None, cols.astype(np.int32), indptr.astype(np.int32), (n, n))
+
+
+def flat3d_problem(nls, reaction_diffusion, N, dtype, dev, pattern,
+                   perm=None, colorvec=None):
+    """The flat 3D reaction–diffusion problem (u0 = 0.1, the residual on
+    flat vectors) with its sparsity pattern; with ``perm``, its unknowns
+    permuted: w = u[perm], G(w) = F(w[pinv])[perm]."""
+    import numpy as np
+    import torch
+    u0 = torch.full((N ** 3,), 0.1, dtype=dtype, device=dev)
+    p = (torch.tensor(0.01, dtype=dtype, device=dev),
+         reaction_diffusion.forcing(N, dtype, device=dev))
+    if perm is None:
+        def residual(u, p_):
+            return reaction_diffusion.reaction_diffusion_3d(
+                u.reshape(N, N, N), p_).reshape(-1)
+        return nls.NonlinearProblem(
+            nls.NonlinearFunction(f=residual, sparsity=pattern,
+                                  colorvec=colorvec), u0, p)
+    perm_t = torch.as_tensor(perm, device=dev)
+    pinv_t = torch.as_tensor(np.argsort(perm), device=dev)
+
+    def permuted(w, p_):
+        return reaction_diffusion.reaction_diffusion_3d(
+            w[pinv_t].reshape(N, N, N), p_).reshape(-1)[perm_t]
+    return nls.NonlinearProblem(
+        nls.NonlinearFunction(f=permuted, sparsity=pattern,
+                              colorvec=colorvec), u0[perm_t], p)
+
+
+def sparse_alg3d(nls, fft_poisson_preconditioner, N, perm=None, dev=None):
+    """slice 3's operating point with the colored sparse-AD Jacobian:
+    GMRES(8), krylov_maxiter 200, the FFT Poisson preconditioner on
+    (N, N, N) with shift −0.9 (conjugated by ``perm``), η = 0.1."""
+    import numpy as np
+    import torch
+    M = fft_poisson_preconditioner((N, N, N), 0.01, 1.0 / N, shift=-0.9)
+    if perm is not None:
+        perm_t = torch.as_tensor(perm, device=dev)
+        pinv_t = torch.as_tensor(np.argsort(perm), device=dev)
+        M = (lambda v, M0=M: M0(v[pinv_t])[perm_t])
+    return nls.NewtonRaphson(
+        autodiff=nls.JacobianPolicy(mode="sparse"),
+        linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                  krylov_maxiter=200, precond_fn=M),
+        forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
 
 
 def flat_problem(nls, brusselator, N, dtype, dev, perm=None):
@@ -814,11 +1095,10 @@ def main(argv):
     # --- 6. sparse path: colored AD into DIA, f64 N=512 ---------------------
     import numpy as np
     from nonlinearsolve_tpu_torch.core import solve as solve_mod
-    from nonlinearsolve_tpu_torch.ops import spmv_dia
     f64 = torch.float64
     n = 2 * N * N
-    # time the one-time host plan from an empty cache (phase 3 filled it)
-    spmv_dia._DIA_PLAN_CACHE.clear()
+    # time the one-time host plan from empty caches (phase 3 filled them)
+    spmv.clear_plan_caches()
     t0 = time.perf_counter()
     pat = brusselator.sparsity_pattern(N)
     t_pattern = time.perf_counter() - t0
@@ -827,15 +1107,15 @@ def main(argv):
     t_coloring = time.perf_counter() - t0
     t0 = time.perf_counter()
     host_plan.dia_plan
-    t_dia_plan = time.perf_counter() - t0
+    t_tier = time.perf_counter() - t0
     t0 = time.perf_counter()
     host_plan.dia_selection.table(dev)
     torch.cuda.synchronize()
     t_tables = time.perf_counter() - t0
     emit({"phase": "sparse_plan", "N": N, "pattern_s": t_pattern,
-          "coloring_s": t_coloring, "dia_plan_s": t_dia_plan,
+          "coloring_s": t_coloring, "tier_selection_s": t_tier,
           "selection_tables_s": t_tables,
-          "host_plan_s": t_pattern + t_coloring + t_dia_plan + t_tables,
+          "host_plan_s": t_pattern + t_coloring + t_tier + t_tables,
           "nnz": pat.nnz, "n_colors": host_plan.n_colors,
           "ndiag": host_plan.dia_plan.ndiag,
           "offsets": list(host_plan.dia_plan.offsets)})
@@ -928,7 +1208,8 @@ def main(argv):
           "abstol": 1e-4, "stats": vars(csol.stats),
           "krylov_iters": csol.counters["krylov_iters"],
           "jac_products": csol.counters["jvp"], "nnz": cplan.pattern.nnz,
-          "n_colors": cplan.n_colors, "dia_tier": cplan.dia_plan is not None,
+          "n_colors": cplan.n_colors, "tier": cplan.pattern.tier[0],
+          "reordered": cplan.pattern.tier[2] is not None,
           "launches": csr_launches,
           "host_syncs": csol.counters["host_syncs"],
           "root_rel_inf_to_sparse_path": c_dist, "limit": 1e-8,
@@ -936,7 +1217,8 @@ def main(argv):
     checks = {
         "retcode Success": csol.retcode == nls.ReturnCode.Success,
         "|F|_inf <= 1e-4": c_resid <= 1e-4,
-        "CSR tier": cplan.dia_plan is None,
+        "resident tier (K5)": (cplan.dia_plan is None
+                               and cplan.pattern.tier[0] == "resident"),
         "K5 launches == Jacobian products":
             csr_launches["gather_spmv"] == csol.counters["jvp"] > 0,
         "K5 selection launches == Jacobians":
@@ -1123,9 +1405,234 @@ def main(argv):
         raise AssertionError(f"3D f64 polish: {sol3_64.retcode.name}, "
                              f"distance {dist3}, launches "
                              f"{polish3_launches}")
-    del prob3_64, sol3_64, u3_64
+    del prob3_64, sol3_64
 
-    # --- 12. summary -------------------------------------------------------
+    # --- 12. band route: the 3D steady state on the assembled sparse path ---
+    from nonlinearsolve_tpu_torch.ops import spmv_scatter, spmv_stream
+    from nonlinearsolve_tpu_torch.ops.coloring import greedy_column_coloring
+    from nonlinearsolve_tpu_torch.ops.sparse import CSR
+    n3 = N3 ** 3
+    spmv.clear_plan_caches()
+    t0 = time.perf_counter()
+    pat3 = periodic7_pattern(CSR, N3)
+    t_pattern3 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    colors3 = greedy_column_coloring(pat3)
+    t_coloring3 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bplan3 = spmv_stream.band_plan_for(pat3.indptr, pat3.indices, n3, n3)
+    t_band3 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tier3 = pat3.tier
+    t_tier3 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bplan3.sel.table(dev)
+    bplan3.cols_table(dev)
+    torch.cuda.synchronize()
+    t_tables3 = time.perf_counter() - t0
+    per_nnz3 = (spmv._derated_cost("stream", bplan3) * (bplan3.n_pad / 128)
+                / pat3.nnz)
+    emit({"phase": "band_route_plan", "N": N3, "nnz": pat3.nnz,
+          "pattern_s": t_pattern3, "coloring_s": t_coloring3,
+          "band_plan_s": t_band3,
+          "tier_selection_s_besides_band_plan": t_tier3,
+          "pack_tables_s": t_tables3,
+          "host_plan_s": (t_pattern3 + t_coloring3 + t_band3 + t_tier3
+                          + t_tables3),
+          "n_colors": int(colors3.max()) + 1, "tier": tier3[0],
+          "reordered": tier3[2] is not None, "w": bplan3.w,
+          "bands": bplan3.bands, "F": bplan3.F,
+          "group_lo_t": bplan3.group_lo_t, "cost_per_nnz": per_nnz3})
+    checks = {
+        "tier stream": tier3[0] == "stream" and tier3[1] is bplan3,
+        "no reorder": tier3[2] is None,
+        "w 11, 5 bands": (bplan3.w, len(bplan3.bands)) == (11, 5),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"band route plan: {failed}")
+
+    bprob = flat3d_problem(nls, reaction_diffusion, N3, f32, dev, pat3,
+                           colorvec=colors3)
+    balg = sparse_alg3d(nls, fft_poisson_preconditioner, N3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    bsol = nls.solve(bprob, balg, abstol=abstol3, maxiters=30)
+    torch.cuda.synchronize()
+    band_first_s = time.perf_counter() - t0
+    b_launches = dict(_backend.LAUNCHES)
+    bcj, = solve_mod._SPARSE_PLANS[bprob.f].values()
+    b_resid = float(bsol.resid.abs().max())
+    b_dist = (float((bsol.u.double() - u3_64.reshape(-1)).abs().max())
+              / max(float(u3_64.abs().max()), 1.0))
+    emit({"phase": "band_route", "N": N3, "dtype": "float32",
+          "retcode": bsol.retcode.name, "resid_inf": b_resid,
+          "abstol": abstol3, "stats": vars(bsol.stats),
+          "nsteps_matrix_free": sol3.stats.nsteps,
+          "krylov_iters": bsol.counters["krylov_iters"],
+          "jac_products": bsol.counters["jvp"], "n_colors": bcj.n_colors,
+          "tier": bcj.pattern.tier[0], "launches": b_launches,
+          "host_syncs": bsol.counters["host_syncs"],
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "root_rel_inf_to_f64_polish": b_dist, "limit": 1e-4,
+          "first_solve_s_with_plan": band_first_s})
+    checks = {
+        "retcode Success": bsol.retcode == nls.ReturnCode.Success,
+        "|F|_inf <= 1e-5 N": b_resid <= abstol3,
+        "nsteps within 1 of the matrix-free solve's":
+            abs(bsol.stats.nsteps - sol3.stats.nsteps) <= 1,
+        "K7 launches == Jacobian products":
+            b_launches["band_spmv"] == bsol.counters["jvp"] > 0,
+        "selection launches == 2 x Jacobians":
+            b_launches["gather_select"] == 2 * bsol.stats.njacs > 0,
+        "no K4, CSR K5, K8 or K9 launch": not any(
+            b_launches[k] for k in ("dia_spmv", "gather_spmv",
+                                    "scatter_expand", "scatter_regroup",
+                                    "rd3d_jvp", "rd3d_jvp_scaled")),
+        "root within 1e-4 of the f64 polish": b_dist <= 1e-4,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"band route failed: {failed}")
+
+    def warm_band():
+        warm = nls.solve(bprob, balg, abstol=abstol3, maxiters=30)
+        if warm.retcode != nls.ReturnCode.Success:
+            raise AssertionError(f"warm band-route solve: "
+                                 f"{warm.retcode.name}")
+
+    torch.cuda.reset_peak_memory_stats()
+    b_walls = warm_walls(torch, warm_band)
+    emit({"phase": "band_route_timing", "warm_solve_s": b_walls,
+          "warm_solve_s_median": sorted(b_walls)[1],
+          **profile_device(torch, warm_band),
+          "peak_memory_gib_warm": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": card})
+    # K7 (and K5 on the same matrix) on this route's own tables, the
+    # Jacobian at the root as data (outside the counted run)
+    jac3 = bcj(lambda u: bprob.f.f(u, bprob.p), bsol.u)
+    band_summary = band_kernel_checks(torch, dev, spmv, spmv_stream, pat3,
+                                      bplan3, jac3.data)
+    del jac3, bprob, bsol, bcj, u3_64, sol3, prob3
+    spmv.clear_plan_caches()
+    del pat3, bplan3, tier3
+
+    # --- 13. scatter route: the 3D steady state, unknowns permuted, 96³ ---
+    N96 = 96
+    n96 = N96 ** 3
+    abstol96 = 1e-5 * N96
+    perm96 = np.random.default_rng(42).permutation(n96)
+    pinv96_t = torch.as_tensor(np.argsort(perm96), device=dev)
+    t0 = time.perf_counter()
+    spat = periodic7_pattern(CSR, N96, perm96)
+    t_pattern96 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scolors = greedy_column_coloring(spat)
+    t_coloring96 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stier = spat.tier
+    t_tier96 = time.perf_counter() - t0
+    if stier[0] != "scatter":
+        raise AssertionError(f"scatter route plan: tier {stier[0]}")
+    splan96 = stier[1]
+    t0 = time.perf_counter()
+    splan96.sel.table(dev)
+    splan96.tables(dev)
+    torch.cuda.synchronize()
+    t_tables96 = time.perf_counter() - t0
+    parts96 = [(c0, c1, part.B, part.P, len(part.r_plans))
+               for (c0, c1, _sel, part) in splan96.parts]
+    emit({"phase": "scatter_route_plan", "N": N96, "nnz": spat.nnz,
+          "pattern_s": t_pattern96, "coloring_s": t_coloring96,
+          "tier_selection_s": t_tier96, "stage_tables_s": t_tables96,
+          "host_plan_s": (t_pattern96 + t_coloring96 + t_tier96
+                          + t_tables96),
+          "n_colors": int(scolors.max()) + 1, "tier": stier[0],
+          "reordered": stier[2] is not None,
+          "parts_c0_c1_B_P_chain": parts96,
+          "cost_per_nnz": spmv.spmv_tier_cost("scatter", splan96)
+          * (splan96.n_pad / 128) / spat.nnz})
+    chain96 = sum(p[4] for p in parts96)
+    checks = {
+        "no reorder": stier[2] is None,
+        "3 parts, one R plan each": len(parts96) == 3 and chain96 == 3,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"scatter route plan: {failed}")
+
+    # the same problem in natural order (the DIA tier: K4), the reference
+    nprob = flat3d_problem(nls, reaction_diffusion, N96, f32, dev,
+                           periodic7_pattern(CSR, N96))
+    nsol = nls.solve(nprob, sparse_alg3d(nls, fft_poisson_preconditioner,
+                                         N96), abstol=abstol96, maxiters=30)
+    ncj, = solve_mod._SPARSE_PLANS[nprob.f].values()
+    if nsol.retcode != nls.ReturnCode.Success or ncj.dia_plan is None:
+        raise AssertionError(f"natural-order 96³ solve: {nsol.retcode.name}, "
+                             f"tier {ncj.pattern.tier[0]}")
+
+    sprob96 = flat3d_problem(nls, reaction_diffusion, N96, f32, dev, spat,
+                             perm=perm96, colorvec=scolors)
+    salg96 = sparse_alg3d(nls, fft_poisson_preconditioner, N96, perm=perm96,
+                          dev=dev)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    ssol96 = nls.solve(sprob96, salg96, abstol=abstol96, maxiters=30)
+    torch.cuda.synchronize()
+    scatter_first_s = time.perf_counter() - t0
+    s_launches = dict(_backend.LAUNCHES)
+    scj, = solve_mod._SPARSE_PLANS[sprob96.f].values()
+    s96_resid = float(ssol96.resid.abs().max())
+    s96_dist = (float((ssol96.u[pinv96_t] - nsol.u).abs().max())
+                / max(float(nsol.u.abs().max()), 1.0))
+    products96 = ssol96.counters["jvp"]
+    emit({"phase": "scatter_route", "N": N96, "dtype": "float32",
+          "retcode": ssol96.retcode.name, "resid_inf": s96_resid,
+          "abstol": abstol96, "stats": vars(ssol96.stats),
+          "natural_order_stats": vars(nsol.stats),
+          "krylov_iters": ssol96.counters["krylov_iters"],
+          "jac_products": products96, "n_colors": scj.n_colors,
+          "tier": scj.pattern.tier[0], "launches": s_launches,
+          "host_syncs": ssol96.counters["host_syncs"],
+          "root_rel_inf_to_natural_order": s96_dist, "limit": 1e-4,
+          "first_solve_s_with_plan": scatter_first_s})
+    checks = {
+        "retcode Success": ssol96.retcode == nls.ReturnCode.Success,
+        "|F|_inf <= 1e-5 N": s96_resid <= abstol96,
+        "K8 expand launches == 3 x products":
+            s_launches["scatter_expand"] == 3 * products96 > 0,
+        "K8 regroup launches == chain x products":
+            s_launches["scatter_regroup"] == chain96 * products96,
+        "selection launches == 2 x Jacobians":
+            s_launches["gather_select"] == 2 * ssol96.stats.njacs > 0,
+        "no K4, CSR K5, K7 or K9 launch": not any(
+            s_launches[k] for k in ("dia_spmv", "gather_spmv", "band_spmv",
+                                    "rd3d_jvp", "rd3d_jvp_scaled")),
+        "root within 1e-4 of the natural order's": s96_dist <= 1e-4,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"scatter route failed: {failed}")
+
+    def warm_scatter():
+        warm = nls.solve(sprob96, salg96, abstol=abstol96, maxiters=30)
+        if warm.retcode != nls.ReturnCode.Success:
+            raise AssertionError(f"warm scatter-route solve: "
+                                 f"{warm.retcode.name}")
+
+    s96_walls = warm_walls(torch, warm_scatter)
+    emit({"phase": "scatter_route_timing", "warm_solve_s": s96_walls,
+          "warm_solve_s_median": sorted(s96_walls)[1],
+          **profile_device(torch, warm_scatter), "card": card})
+    jac96 = scj(lambda u: sprob96.f.f(u, sprob96.p), ssol96.u)
+    scatter_summary = scatter_kernel_checks(torch, dev, spmv, spmv_scatter,
+                                            spat, splan96, jac96.data)
+    del jac96, sprob96, ssol96, nprob, nsol
+
+    # --- 14. summary -------------------------------------------------------
     out = []
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
         r = summary[name]
@@ -1157,6 +1664,25 @@ def main(argv):
                     "library_note": r["library"],
                     "share_of_bound": r["share_of_bound"],
                     "shape": r["shape"], "dtype": "float64"})
+    for name, r, where, dtype_row in (
+            ("band_spmv", band_summary["band_spmv"], "band_route",
+             "float32"),
+            ("scatter_expand", scatter_summary["scatter_expand"],
+             "scatter_route", "float32"),
+            ("scatter_regroup", scatter_summary["scatter_regroup"],
+             "scatter_route", "float32")):
+        out.append({"name": name, "route": "cuda", "source": SPMV_SOURCE,
+                    "replaces": SPMV_REPLACES[name],
+                    "launches": (b_launches if where == "band_route"
+                                 else s_launches)[name],
+                    "launches_in": where, "tables": r["tables"],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"],
+                    "library_note": r["library"],
+                    "share_of_bound": r["share_of_bound"],
+                    "shape": r["shape"], "dtype": dtype_row})
     for name, path_launches_3d, where in (
             ("rd3d_jvp", launches3["rd3d_jvp"], "rd3d_solve"),
             ("rd3d_jvp_scaled", chain3_launches["rd3d_jvp_scaled"],

@@ -23,7 +23,24 @@
 //                    source, y[i] = values[src[i]], and a pad row
 //                    (src[i] == n_src) gives 0.
 //
-// Bound on the H100: bytes, for all three.  At the 512^2 Brusselator
+// K7  band_spmv      replaces nonlinearsolve_tpu/ops/pallas_spmv_stream.py
+//                    _band_spmv_call (band_spmv_pallas, band_spmv_staged):
+//                      y[r] = sum_s data[s, r] * x[cols[s, r]]
+//                    over the w slots of a slot-major (w, n_pad) band-ELL
+//                    table, in slot order (bands ascending, rank within a
+//                    band ascending: the row's sorted column order, K5's
+//                    sum order on a sorted CSR).  A pad slot (col -1) is
+//                    skipped, its data never read.
+//
+// K8  scatter_expand  and  scatter_regroup  replace
+//                    nonlinearsolve_tpu/ops/pallas_spmv_scatter.py
+//                    (scatter_spmv_pallas, scatter_spmv_staged: two passes
+//                    of _ell_spmv_call):
+//                      expand   p[k] = gdata[k] * x[gcol[k]]  (0 where -1)
+//                      regroup  y[r] = sum_k p[pos[k]], indptr[r] <= k <
+//                               indptr[r+1] (unit data: no data array)
+//
+// Bound on the H100: bytes, for all of them.  At the 512^2 Brusselator
 // (n = 524,288, 11 diagonals, 3,145,728 nonzeros) in f64, reading every input
 // once and writing y once:
 //   K4  in-band data (44.9 MB) + x + y (8.4 MB)                ~ 16 us
@@ -32,10 +49,20 @@
 //   selection: src (23.1 MB) + the 3.1M values it reads (25.2 MB)
 //       + y (46.1 MB)                                           ~ 28 us
 // at 3.35 TB/s, against at most two flops per nonzero (a few us of f64
-// arithmetic at 34 TFLOP/s).  The TPU kernels were shaped by the lack of
-// scalar gathers (windowed slot-major ELL, register gathers inside an (8, 128)
-// tile); Hopper gathers through L1/L2, so the port keeps the CSR and DIA
-// layouts as they are and lets the caches serve x.
+// arithmetic at 34 TFLOP/s).  K7 on the 256^3 periodic 7-point Jacobian
+// (n = 16,777,216, 117,440,512 nonzeros, w = 11 slots), f32: cols 11 x 4 B
+// + the data of the 7 occupied slots 7 x 4 B + x, y 8 B = 80 B a row,
+// 1.34 GB, ~ 401 us, where K5 on the same matrix as CSR moves 1.14 GB
+// (~ 341 us): the band sub-slots pad 7 nonzeros to 11 slots.  K8 on the
+// permuted 96^3 Jacobian (884,736 rows, 6.2M nonzeros, 3 column parts of
+// ~2.1M positions), f32: the expand and regroup passes of the three parts
+// and the parts' sum move ~ 150 MB (~ 45 us) where K5 moves ~ 60 MB
+// (~ 18 us): x (3.5 MB) sits in the 50 MB L2 here, so the locality the
+// two passes buy on a TPU buys nothing on this card.  The TPU kernels
+// were shaped by the lack of scalar gathers (windowed slot-major ELL,
+// register gathers inside an (8, 128) tile); Hopper gathers through L1/L2,
+// so the port keeps the CSR and DIA layouts as they are and lets the caches
+// serve x.
 //
 // Design: one thread per output row, 256 threads a block.  K4 walks the
 // diagonals in a loop; the offsets (at most 48, as DiaPlan allows) travel by
@@ -43,9 +70,14 @@
 // x at consecutive addresses (coalesced) for each diagonal.  K5 walks its
 // row's nonzeros; neighbouring threads read neighbouring CSR segments, which
 // L1 merges into lines.  x is read through the read-only path (const
-// __restrict__).  No shared-memory tiling, no warp-per-row split, no vector
-// loads: making these fast is later work.  a*b + c is contracted into an FMA,
-// so the sums differ from the plain versions' in the last bits.
+// __restrict__).  K7 is K5 on the band table: one thread per row walks its
+// w slots; the slot-major layout makes each slot's cols and data reads
+// coalesced across a warp, and its offsets are 64-bit (w * n_pad is 184.5M
+// at 256^3).  K8's expand is one thread per position, its regroup one
+// thread per output row (K5 without data).  No shared-memory tiling, no
+// warp-per-row split, no vector loads: making these fast is later work.
+// a*b + c is contracted into an FMA, so the sums differ from the plain
+// versions' in the last bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +133,46 @@ csr_select_kernel(const int* __restrict__ src, const T* __restrict__ values,
   y[i] = (s >= 0 && s < n_src) ? values[s] : T(0);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ data,
+                 const T* __restrict__ x, T* __restrict__ y, int n_rows,
+                 int n_x, long long n_pad, int w) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rows) return;
+  T acc = T(0);
+  for (int s = 0; s < w; ++s) {
+    const long long k = static_cast<long long>(s) * n_pad + r;
+    const int c = cols[k];
+    if (c >= 0 && c < n_x) acc += data[k] * x[c];
+  }
+  y[r] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_expand_kernel(const int* __restrict__ gcol, const T* __restrict__ gdata,
+                      const T* __restrict__ x, T* __restrict__ p, int n,
+                      int n_x) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  const int c = gcol[k];
+  p[k] = (c >= 0 && c < n_x) ? gdata[k] * x[c] : T(0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_regroup_kernel(const int* __restrict__ indptr,
+                       const int* __restrict__ pos, const T* __restrict__ p,
+                       T* __restrict__ y, int n_rows) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rows) return;
+  const int k1 = indptr[r + 1];
+  T acc = T(0);
+  for (int k = indptr[r]; k < k1; ++k) acc += p[pos[k]];
+  y[r] = acc;
+}
+
 inline unsigned blocks_of(int n) {
   return static_cast<unsigned>((static_cast<long long>(n) + kThreads - 1) / kThreads);
 }
@@ -147,6 +219,44 @@ int launch_select(const void* src, const void* values, void* y, int n_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_band(const void* cols, const void* data, const void* x, void* y,
+                int n_rows, int n_x, long long n_pad, int w, void* stream) {
+  if (n_rows < 0 || n_x < 0 || w < 0 || n_pad < n_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows == 0) return 0;
+  band_spmv_kernel<T><<<blocks_of(n_rows), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cols), static_cast<const T*>(data),
+      static_cast<const T*>(x), static_cast<T*>(y), n_rows, n_x, n_pad, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_expand(const void* gcol, const void* gdata, const void* x, void* p,
+                  int n, int n_x, void* stream) {
+  if (n < 0 || n_x < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  scatter_expand_kernel<T><<<blocks_of(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(gcol), static_cast<const T*>(gdata),
+      static_cast<const T*>(x), static_cast<T*>(p), n, n_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_regroup(const void* indptr, const void* pos, const void* p, void* y,
+                   int n_rows, void* stream) {
+  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0) return 0;
+  scatter_regroup_kernel<T><<<blocks_of(n_rows), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(pos),
+      static_cast<const T*>(p), static_cast<T*>(y), n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -183,6 +293,36 @@ int csr_select_f32(const void* src, const void* values, void* y, int n_out,
 int csr_select_f64(const void* src, const void* values, void* y, int n_out,
                    int n_src, void* stream) {
   return launch_select<double>(src, values, y, n_out, n_src, stream);
+}
+
+int band_spmv_f32(const void* cols, const void* data, const void* x, void* y,
+                  int n_rows, int n_x, long long n_pad, int w, void* stream) {
+  return launch_band<float>(cols, data, x, y, n_rows, n_x, n_pad, w, stream);
+}
+
+int band_spmv_f64(const void* cols, const void* data, const void* x, void* y,
+                  int n_rows, int n_x, long long n_pad, int w, void* stream) {
+  return launch_band<double>(cols, data, x, y, n_rows, n_x, n_pad, w, stream);
+}
+
+int scatter_expand_f32(const void* gcol, const void* gdata, const void* x,
+                       void* p, int n, int n_x, void* stream) {
+  return launch_expand<float>(gcol, gdata, x, p, n, n_x, stream);
+}
+
+int scatter_expand_f64(const void* gcol, const void* gdata, const void* x,
+                       void* p, int n, int n_x, void* stream) {
+  return launch_expand<double>(gcol, gdata, x, p, n, n_x, stream);
+}
+
+int scatter_regroup_f32(const void* indptr, const void* pos, const void* p,
+                        void* y, int n_rows, void* stream) {
+  return launch_regroup<float>(indptr, pos, p, y, n_rows, stream);
+}
+
+int scatter_regroup_f64(const void* indptr, const void* pos, const void* p,
+                        void* y, int n_rows, void* stream) {
+  return launch_regroup<double>(indptr, pos, p, y, n_rows, stream);
 }
 
 }  // extern "C"

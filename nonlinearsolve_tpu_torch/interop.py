@@ -7,8 +7,9 @@ Brusselator's ``(u0, p)`` (the JAX package's ``models.brusselator.init_u0`` /
 preconditioner's ``(grid_shape, alpha, h, shift)``, which are plain numbers
 and pass as they are.  ``problem_from_numpy`` and
 ``reaction_diffusion_problem_from_numpy`` build the port's problems from the
-arrays; ``solution_to_numpy`` returns a solution as numpy arrays and ints,
-for comparison with the JAX package's.
+arrays; ``csr_from_numpy`` carries a sparse matrix (a JAX ``CSR``'s
+``indptr``, ``indices``, ``data`` and shape); ``solution_to_numpy`` returns a
+solution as numpy arrays and ints, for comparison with the JAX package's.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from . import _backend
 from .core.problems import NonlinearProblem
 from .core.solution import NonlinearSolution
 from .models import brusselator, reaction_diffusion
+from .ops.sparse import CSR
 
 
 def problem_from_numpy(u0, p, *, kernel_jvp: bool = False, device=None,
@@ -55,6 +57,18 @@ def reaction_diffusion_problem_from_numpy(u0, D, g, *,
     return reaction_diffusion.problem(
         torch.as_tensor(u0.astype(npdt), device=dev), p,
         kernel_jvp=kernel_jvp)
+
+
+def csr_from_numpy(indptr, indices, data, shape, device=None) -> CSR:
+    """The port's ``CSR`` of a matrix given by its CSR arrays (host
+    pattern, ``data`` on ``device``, the card by default, in its own
+    dtype)."""
+    dev = _backend.resolve_device(device)
+    data = np.asarray(data)
+    dt = _backend.resolve_dtype(data.dtype)
+    return CSR(torch.as_tensor(data.astype(_backend.np_dtype(dt)),
+                               device=dev),
+               np.asarray(indices), np.asarray(indptr), shape)
 
 
 def solution_to_numpy(sol: NonlinearSolution) -> dict:

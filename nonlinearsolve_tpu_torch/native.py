@@ -4,10 +4,11 @@
 The source is compiled as it is, with ``g++``, at first use into
 ``nonlinearsolve_tpu_torch/csrc/build/`` (through
 ``_backend.compile_shared``: the library's name carries a hash of the
-source and the flags) and bound with ``ctypes``.  Only
-``greedy_column_coloring`` is bound for now.  A failed build raises with
-the compiler's output: the port never falls back to the Python coloring
-on its own.
+source and the flags) and bound with ``ctypes``.  Bound: ``greedy_column_coloring`` and
+``rcm_ordering``.  A failed build raises with the compiler's output: the
+port never falls back to the Python coloring on its own, and where the
+JAX package's ``rcm_ordering`` returns ``None`` without its library, the
+port's raises.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def get_lib() -> ctypes.CDLL:
             lib.greedy_column_coloring.restype = ctypes.c_int32
             lib.greedy_column_coloring.argtypes = [
                 i32p, i32p, ctypes.c_int32, ctypes.c_int32, i32p]
+            lib.rcm_ordering.restype = ctypes.c_int32
+            lib.rcm_ordering.argtypes = [i32p, i32p, ctypes.c_int32, i32p]
             _lib = lib
     return _lib
 
@@ -75,3 +78,18 @@ def greedy_column_coloring(indptr, indices, n_rows, n_cols) -> np.ndarray:
         raise ValueError(f"greedy_column_coloring refused the pattern "
                          f"(rc {n})")
     return colors
+
+
+def rcm_ordering(indptr, indices, n) -> np.ndarray:
+    """Reverse Cuthill–McKee ordering of the symmetrised square pattern:
+    ``perm[new] = old`` (int32).  Raises if the library refuses it."""
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    if indptr.shape != (n + 1,) or indptr[-1] != indices.size:
+        raise ValueError("indptr does not describe the indices")
+    perm = np.empty(n, np.int32)
+    rc = get_lib().rcm_ordering(_ptr(indptr), _ptr(indices), np.int32(n),
+                                _ptr(perm))
+    if rc != 0:
+        raise ValueError(f"rcm_ordering refused the pattern (rc {rc})")
+    return perm

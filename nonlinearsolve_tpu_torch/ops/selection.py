@@ -23,23 +23,23 @@ class StaticSelection:
     """Plan for ``apply(values) -> values_ext[src]`` with static ``src``."""
 
     def __init__(self, src, n_src: int):
-        self.src = np.asarray(src, np.int64)
+        src = np.asarray(src)
         self.n_src = int(n_src)
-        self.n_out = len(self.src)
+        self.n_out = len(src)
         if self.n_src >= 2 ** 31 - 1:
             raise ValueError(f"n_src = {self.n_src} exceeds the int32 "
                              f"tables of the selection kernel")
-        if self.n_out and (self.src.min() < 0 or self.src.max() > self.n_src):
+        if self.n_out and (src.min() < 0 or src.max() > self.n_src):
             raise ValueError(f"selection source out of range [0, "
                              f"{self.n_src}]")
+        self.src = src.astype(np.int32, copy=False)   # the kernel's table
         self._tables: dict = {}
 
     def table(self, device) -> torch.Tensor:
         """``src`` as an int32 tensor on ``device`` (cached)."""
         key = torch.device(device)
         if key not in self._tables:
-            self._tables[key] = torch.as_tensor(self.src.astype(np.int32),
-                                                device=key)
+            self._tables[key] = torch.as_tensor(self.src, device=key)
         return self._tables[key]
 
     def apply(self, values):

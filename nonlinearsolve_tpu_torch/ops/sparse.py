@@ -4,10 +4,10 @@
 ``CSR``: the pattern (``indptr``, ``indices``) is a static host array, as
 the JAX package's ``jac_prototype`` is; ``data`` is a tensor on the device
 (``None`` for a pattern alone).  ``matvec`` and ``matvec_fn`` go through the
-tiers of ``ops/spmv.py`` (K4 after the DIA repack for stencil-born
-patterns, K5 otherwise).  The pattern's tier and its int32 device copies
-are worked out once (the copies once per device) and shared by every
-``with_data`` copy.
+JAX package's tiers (``ops/spmv.py``): K4 on "dia", K7 on "stream", K8 on
+"scatter", K5 on "resident" and where no tier fits.  The pattern's tier and
+its int32 device copies are worked out once (the copies once per device)
+and shared by every ``with_data`` copy.
 
 ``DIA``: ``data[d, i] = A[i, i + offsets[d]]``, (ndiag, n) on the device;
 ``matvec`` is K4 and reads in-band slots only.
@@ -66,11 +66,22 @@ class CSR:
 
     @property
     def tier(self):
-        """``(tier, plan)`` of ``select_spmv_plan`` for this pattern (once)."""
+        """``(tier, plan, perm, pinv, dperm)`` of ``select_spmv_plan`` for
+        this pattern (once)."""
         if "tier" not in self._shared:
             self._shared["tier"] = select_spmv_plan(self.indptr, self.indices,
                                                     *self.shape)
         return self._shared["tier"]
+
+    def perm_tables(self, device):
+        """The tier's ``(perm, pinv, dperm)`` as int64 tensors on
+        ``device`` (cached; the tier must carry a reorder)."""
+        key = ("perm", torch.device(device))
+        if key not in self._shared:
+            _tier, _plan, *perms = self.tier
+            self._shared[key] = tuple(torch.as_tensor(a, device=key[1])
+                                      for a in perms)
+        return self._shared[key]
 
     def device_tables(self, device):
         """``(indptr, indices)`` as int32 tensors on ``device`` (cached)."""

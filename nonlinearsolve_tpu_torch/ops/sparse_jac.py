@@ -49,8 +49,8 @@ class ColoredJacobian:
     def dia_plan(self):
         """The pattern's DiaPlan when the DIA SpMV tier owns it, else
         None — decides whether :meth:`dia` is available."""
-        tier, dplan = self.pattern.tier
-        return dplan if tier == "dia" else None
+        tier, dplan, perm, _pinv, _dperm = self.pattern.tier
+        return dplan if tier == "dia" and perm is None else None
 
     @property
     def dia_selection(self) -> StaticSelection:

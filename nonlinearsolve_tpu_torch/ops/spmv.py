@@ -1,5 +1,5 @@
-"""Sparse matrix-vector products (the port of ``ops/pallas_spmv.py``'s
-tier selection and CSR entry points, with the kernels K4 and K5).
+"""Sparse matrix-vector products: the port of ``ops/pallas_spmv.py``'s tier
+selection and CSR entry points, and the kernels K4 and K5.
 
 Kernels (CUDA C++ for ``sm_90a`` in ``csrc/spmv.cu``; its header gives
 their bounds and design):
@@ -14,17 +14,19 @@ their bounds and design):
   ``y[i] = values[src[i]]``, 0 where ``src[i] == n_src`` (a pad): the
   static selection of ``ops/selection.py``.
 
-Each wrapper takes its plain PyTorch version (``*_plain``) for a tensor on
-the CPU, and only there.  For a CUDA tensor it checks device, dtype,
-shape and contiguity, launches the kernel on the current stream and counts
-the launch in ``_backend.LAUNCHES``; anything the kernel does not take
-raises.
+K7 (``ops/spmv_stream.py``) and K8 (``ops/spmv_scatter.py``) live in the
+same source.  Each wrapper takes its plain PyTorch version (``*_plain``)
+for a tensor on the CPU, and only there.  For a CUDA tensor it checks
+device, dtype, shape and contiguity, launches the kernel on the current
+stream and counts the launch in ``_backend.LAUNCHES``; anything the kernel
+does not take raises.
 
-Tier selection keeps the JAX package's order with the TPU-only tiers taken
-out: ``"dia"`` when the pattern's ``DiaPlan`` is supported (few
-generalised diagonals), else ``"csr"``.  The resident / stream / scatter
-tiers and the RCM reorder existed because the TPU has no scalar gathers;
-K5 takes any CSR pattern and returns the same y.
+Tier selection is the JAX package's, to the bit (``select_spmv_plan``):
+"dia", "resident", "stream", "scatter" or None, by its op-count model of
+the TPU kernels, with RCM reordering where that makes a plan fit.  The
+port routes the tiers to its kernels (``csr_spmv_staged``): "dia" to K4,
+"stream" to K7, "scatter" to K8, "resident" and None to K5 on the pattern
+as given.
 """
 
 from __future__ import annotations
@@ -46,6 +48,12 @@ _SIGNATURES = {
     "csr_spmv_f64": [_VP] * 5 + [_I, _VP],
     "csr_select_f32": [_VP] * 3 + [_I, _I, _VP],
     "csr_select_f64": [_VP] * 3 + [_I, _I, _VP],
+    "band_spmv_f32": [_VP] * 4 + [_I, _I, ctypes.c_longlong, _I, _VP],
+    "band_spmv_f64": [_VP] * 4 + [_I, _I, ctypes.c_longlong, _I, _VP],
+    "scatter_expand_f32": [_VP] * 4 + [_I, _I, _VP],
+    "scatter_expand_f64": [_VP] * 4 + [_I, _I, _VP],
+    "scatter_regroup_f32": [_VP] * 4 + [_I, _VP],
+    "scatter_regroup_f64": [_VP] * 4 + [_I, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_OFFSETS = 48            # the kernel's by-value offset table
@@ -204,9 +212,42 @@ def gather_select(src, values):
     return y
 
 
+
+
 # ---------------------------------------------------------------------------
-# tier selection and the CSR entry points
+# tier selection: the JAX package's host planning and its op-count model
 # ---------------------------------------------------------------------------
+#
+# The constants, the EllPlan acceptance and the cost model are the JAX
+# package's (ops/pallas_spmv.py), kept as module attributes so that tests
+# can lower the caps on both sides.  They describe the TPU kernels' envelope
+# and vector-op costs: the port keeps them so that its tier is the JAX
+# package's for every pattern, not as a model of the H100.
+
+LANES = 128
+SUBLANES = 8
+ROWS_PER_TILE = SUBLANES * LANES
+MAX_X_ELEMS_VMEM = (10 * 1024 * 1024) // 4
+MAX_WINDOW_ROWS = 512
+MAX_SLOTS = 32
+_UNROLL_G = 8
+# the JAX package's TPU constants of its dia-tier cost (ops/pallas_spmv.py)
+HBM_BYTES_PER_S = 2.2e12
+VPU_VEC_OPS_PER_S = 4 * 940e6
+_LOOP_WALK_DERATE = 4.0
+_SCATTER_TRY_THRESHOLD = 0.35
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _unique_sorted(offs, lo, hi) -> np.ndarray:
+    """``np.unique(offs)`` for integers in [lo, hi]: one counting pass
+    instead of a sort of every nonzero."""
+    seen = np.bincount(offs - lo, minlength=hi - lo + 1)
+    return np.flatnonzero(seen).astype(np.int64) + lo
+
 
 def pattern_key(indptr, indices, *extra) -> tuple:
     """Cache key for a static sparsity pattern: sha1 over (indptr, indices)
@@ -217,37 +258,277 @@ def pattern_key(indptr, indices, *extra) -> tuple:
     return (h.hexdigest(),) + tuple(int(e) for e in extra)
 
 
+def transpose_pattern_of(indptr, indices, n_rows, n_cols):
+    """(tindptr, tindices, tperm): the CSR pattern of Aᵀ plus the
+    permutation mapping A's data order into Aᵀ's.  Host."""
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int64)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr))
+    order = np.lexsort((rows, indices))     # sort by (col, row)
+    counts = np.bincount(indices, minlength=n_cols)
+    tindptr = np.concatenate([[0], np.cumsum(counts)])
+    return tindptr, rows[order], order
+
+
+class EllPlan:
+    """The acceptance and cost fields of the JAX package's slot-major
+    windowed ELL plan (``ops/pallas_spmv.py`` ``EllPlan``): ``w`` (max nnz a
+    row), ``n_pad`` (rows padded to 1024·rt), ``W`` (window height in x-tile
+    rows), ``mode`` ("slot" or "group"), ``supported``, and ``table_size``
+    (w·n_pad, the size of its slot tables).  The TPU's window tables are not
+    built.  When the pattern is outside the envelope for a reason the
+    windows cannot change (``n_cols`` above ``MAX_X_ELEMS_VMEM``, or ``w``
+    above ``MAX_SLOTS``), the windows are not computed (``W`` and ``mode``
+    are None): the JAX package never reads them for an unsupported plan."""
+
+    def __init__(self, indptr, indices, n_rows, n_cols, *, rt=1):
+        indptr = np.asarray(indptr, np.int64)
+        indices = np.asarray(indices, np.int64)
+        counts = np.diff(indptr)
+        w = max(int(counts.max()) if counts.size else 1, 1)
+        self.rt = max(int(rt), 1)
+        n_pad = _round_up(max(n_rows, 1), ROWS_PER_TILE * self.rt)
+        self.w, self.n_pad = w, n_pad
+        self.n_rows, self.n_cols = int(n_rows), int(n_cols)
+        self.ntiles = n_pad // ROWS_PER_TILE
+        self.table_size = w * n_pad
+        self.W = self.mode = None
+        self.supported = False
+        if n_cols > MAX_X_ELEMS_VMEM or w > MAX_SLOTS:
+            return
+        # per (128-row group, slot): the x-tile rows its columns span; an
+        # empty (group, slot) counts as tile row 0, as in the JAX plan
+        rows = np.repeat(np.arange(n_rows, dtype=np.int64), counts)
+        slots = np.arange(len(indices), dtype=np.int64) - indptr[:-1][rows]
+        groups = n_pad // LANES
+        hi = indices // LANES
+        hi_min = np.full((w, n_pad), np.iinfo(np.int64).max, np.int64)
+        hi_max = np.full((w, n_pad), -1, np.int64)
+        hi_min[slots, rows] = hi
+        hi_max[slots, rows] = hi
+        hi_min_s = hi_min.reshape(w, groups, LANES).min(axis=2)
+        hi_max_s = hi_max.reshape(w, groups, LANES).max(axis=2)
+        del hi_min, hi_max
+        empty = hi_max_s < 0
+        hi_min_s = np.where(empty, 0, hi_min_s)
+        hi_max_s = np.where(empty, 0, hi_max_s)
+        r0_s = (hi_min_s // SUBLANES) * SUBLANES
+        Ws = _round_up(max(int((hi_max_s - r0_s + 1).max()), 1, SUBLANES),
+                       SUBLANES)
+        hi_min_g = hi_min_s.min(axis=0)
+        hi_max_g = hi_max_s.max(axis=0)
+        r0_g = (hi_min_g // SUBLANES) * SUBLANES
+        Wg = _round_up(max(int((hi_max_g - r0_g + 1).max()), 1, SUBLANES),
+                       SUBLANES)
+        Gs, Gg = Ws // SUBLANES, Wg // SUBLANES
+        self.mode = "slot" if 3 * w * Gs < (2 * w + 1) * Gg else "group"
+        self.W = Ws if self.mode == "slot" else Wg
+        self.supported = self.W <= MAX_WINDOW_ROWS
+
+
+_PLAN_CACHE: dict = {}
+
+
+def _default_rt(indptr, n_rows) -> int:
+    """Row-tiles per grid step of the JAX package's resident tier (it
+    changes ``n_pad``, and so the plan's cost)."""
+    counts = np.diff(np.asarray(indptr, np.int64))
+    w = max(int(counts.max()) if counts.size else 1, 1)
+    rt = max(1, min(16, 16 // min(w, 16)))
+    while rt > 1 and rt * ROWS_PER_TILE > max(int(n_rows), 1):
+        rt //= 2
+    return rt
+
+
+def ell_plan_for(indptr, indices, n_rows, n_cols) -> EllPlan:
+    """The pattern's resident-tier plan (host, cached by pattern)."""
+    key = pattern_key(indptr, indices, n_rows, n_cols)
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        plan = EllPlan(indptr, indices, int(n_rows), int(n_cols),
+                       rt=_default_rt(indptr, n_rows))
+        _PLAN_CACHE[key] = plan
+    return plan
+
+
+_REORDER_CACHE: dict = {}
+_RCM_PATTERN_CACHE: dict = {}
+
+
+def _rcm_pattern(indptr, indices, n_rows):
+    """RCM symmetric permutation of a square pattern: (perm, pinv, dperm,
+    new_indptr, new_indices), ``perm[new] = old`` and ``dperm`` the data
+    order of the reordered CSR.  Host, cached."""
+    key = pattern_key(indptr, indices, n_rows)
+    hit = _RCM_PATTERN_CACHE.get(key)
+    if hit is not None:
+        return hit
+    from ..native import rcm_ordering
+    perm = np.asarray(rcm_ordering(indptr, indices, n_rows), np.int64)
+    pinv = np.empty(n_rows, np.int64)
+    pinv[perm] = np.arange(n_rows)
+    indptr64 = np.asarray(indptr, np.int64)
+    row_ids = np.repeat(np.arange(n_rows, dtype=np.int64),
+                        np.diff(indptr64))
+    new_row = pinv[row_ids]
+    new_col = pinv[np.asarray(indices, np.int64)]
+    # lexsort((new_col, new_row)) as one stable sort of a combined key
+    dperm = np.argsort(new_row * n_rows + new_col, kind="stable")
+    new_indices = new_col[dperm]
+    new_indptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(new_row, minlength=n_rows))])
+    out = (perm, pinv, dperm, new_indptr, new_indices)
+    _RCM_PATTERN_CACHE[key] = out
+    return out
+
+
+def _plan_maybe_reordered(indptr, indices, n_rows, n_cols):
+    """(plan, perm, pinv, dperm): the direct resident plan when it is
+    supported, else the RCM-reordered one when that is.  The RCM is skipped
+    where the plan has no windows (``n_cols`` or ``w`` beyond the envelope):
+    a symmetric permutation changes neither, so no reorder can help."""
+    key = pattern_key(indptr, indices, n_rows, n_cols)
+    hit = _REORDER_CACHE.get(key)
+    if hit is not None:
+        return hit
+    plan = ell_plan_for(indptr, indices, n_rows, n_cols)
+    out = (plan, None, None, None)
+    if not plan.supported and n_rows == n_cols and plan.W is not None:
+        perm, pinv, dperm, new_indptr, new_indices = _rcm_pattern(
+            indptr, indices, n_rows)
+        rplan = ell_plan_for(new_indptr, new_indices, n_rows, n_cols)
+        if rplan.supported:
+            out = (rplan, perm, pinv, dperm)
+    _REORDER_CACHE[key] = out
+    return out
+
+
+def spmv_tier_cost(tier, plan) -> float:
+    """The JAX package's weighted vector-op count per 128-row group, which
+    orders its tiers (``ops/pallas_spmv.py`` ``spmv_tier_cost``)."""
+    if tier == "resident":
+        G = plan.W // SUBLANES
+        if plan.mode == "slot":
+            return 12.0 * plan.w * G
+        return (12.0 * plan.w + 2.0) * G
+    if tier == "stream":
+        return 14.0 * sum(m * span for (_l, _h, m, _b, span, _g)
+                          in plan.bands)
+    if tier == "scatter":
+        return plan.cost / max(plan.n_pad / LANES, 1.0)
+    if tier == "dia":
+        hbm_equiv = (VPU_VEC_OPS_PER_S * (8.0 * plan.ndiag + 8.0) * LANES
+                     / HBM_BYTES_PER_S)
+        return max(hbm_equiv, 0.25 * plan.ndiag)
+    return float("inf")
+
+
+def _derated_cost(tier, plan) -> float:
+    c = spmv_tier_cost(tier, plan)
+    if tier == "resident" and plan.W // SUBLANES > _UNROLL_G:
+        c *= _LOOP_WALK_DERATE
+    return c
+
+
+_TIER_CACHE: dict = {}
+
+
 def select_spmv_plan(indptr, indices, n_rows, n_cols):
-    """``(tier, plan)``: ``("dia", DiaPlan)`` when the pattern has few
-    enough generalised diagonals, else ``("csr", None)``.  Host; the
-    ``DiaPlan`` is cached by pattern (``dia_plan_for``), and ``CSR.tier``
-    keeps the answer on the pattern."""
+    """The JAX package's tier for a pattern, ``(tier, plan, perm, pinv,
+    dperm)`` (``ops/pallas_spmv.py`` ``select_spmv_plan``): "dia",
+    "resident", "stream" or "scatter" by the least derated cost, the
+    scatter plan built only when no other tier fits or the best one costs
+    more than ``_SCATTER_TRY_THRESHOLD`` per nonzero; ``(None,)*5`` when no
+    tier fits.  ``perm`` is set when the plan is of the RCM-reordered
+    pattern.  Host, cached by pattern; ``CSR.tier`` keeps the answer on the
+    pattern."""
+    key = pattern_key(indptr, indices, n_rows, n_cols)
+    hit = _TIER_CACHE.get(key)
+    if hit is not None:
+        return hit
     from .spmv_dia import dia_plan_for
+    from .spmv_stream import band_plan_for
+    plan, perm, pinv, dperm = _plan_maybe_reordered(
+        indptr, indices, n_rows, n_cols)
+    candidates = []
     dplan = dia_plan_for(indptr, indices, n_rows, n_cols)
-    return ("dia", dplan) if dplan.supported else ("csr", None)
+    if dplan.supported:
+        candidates.append(("dia", dplan, None, None, None))
+    if plan.supported:
+        candidates.append(("resident", plan, perm, pinv, dperm))
+    bplan = band_plan_for(indptr, indices, n_rows, n_cols)
+    if bplan.supported:
+        candidates.append(("stream", bplan, None, None, None))
+    if not candidates and n_rows == n_cols:
+        rperm, rpinv, rdperm, new_indptr, new_indices = _rcm_pattern(
+            indptr, indices, n_rows)
+        rbplan = band_plan_for(new_indptr, new_indices, n_rows, n_cols)
+        if rbplan.supported:
+            candidates.append(("stream", rbplan, rperm, rpinv, rdperm))
+    nnz = max(len(np.asarray(indices)), 1)
+    if candidates:
+        best_pn = min(_derated_cost(c[0], c[1]) for c in candidates) \
+            * (_round_up(max(n_rows, 1), ROWS_PER_TILE) / LANES) / nnz
+    if not candidates or best_pn > _SCATTER_TRY_THRESHOLD:
+        from .spmv_scatter import scatter_plan_for
+        splan = scatter_plan_for(indptr, indices, n_rows, n_cols)
+        if splan.supported:
+            candidates.append(("scatter", splan, None, None, None))
+    if candidates:
+        out = min(candidates, key=lambda c: _derated_cost(c[0], c[1]))
+    else:
+        out = (None, None, None, None, None)
+    _TIER_CACHE[key] = out
+    return out
+
+
+def clear_plan_caches() -> None:
+    """Empty every pattern-keyed plan cache of the tiers."""
+    from . import spmv_dia, spmv_scatter, spmv_stream
+    for cache in (_TIER_CACHE, _PLAN_CACHE, _REORDER_CACHE,
+                  _RCM_PATTERN_CACHE, spmv_dia._DIA_PLAN_CACHE,
+                  spmv_stream._BAND_PLAN_CACHE,
+                  spmv_scatter._SCATTER_PLAN_CACHE):
+        cache.clear()
+
+
+# ---------------------------------------------------------------------------
+# the CSR entry points, routed by tier
+# ---------------------------------------------------------------------------
+
+def csr_spmv_staged(csr):
+    """Staged matvec closure for a Krylov loop, by the pattern's tier:
+
+    - "dia": the DIA repack (K5's selection) once here, then K4;
+    - "stream": the band repack (K5's selection) once here, then K7, with
+      x gathered by ``perm`` and y by ``pinv`` when the plan is of the
+      RCM-reordered pattern;
+    - "scatter": the parts' G data staged (K5's selection) once here, then
+      K8's expand and regroup passes;
+    - "resident": K5 on the pattern as given.  The JAX package's RCM
+      reorder only made its TPU windows fit; K5 takes any pattern and gives
+      the same y;
+    - None: K5.  The JAX package uses XLA's segment_sum there; the port
+      keeps its hand-written kernel."""
+    tier, plan, perm, _pinv, _dperm = csr.tier
+    data = csr.data
+    if tier == "dia":
+        from .spmv_dia import dia_spmv_staged
+        return dia_spmv_staged(plan, data)
+    if tier == "stream":
+        from .spmv_stream import band_spmv_staged
+        if perm is None:
+            return band_spmv_staged(plan, data)
+        perm_t, pinv_t, dperm_t = csr.perm_tables(data.device)
+        inner = band_spmv_staged(plan, data[dperm_t])
+        return lambda x: inner(x[perm_t])[pinv_t]
+    if tier == "scatter":
+        from .spmv_scatter import scatter_spmv_staged
+        return scatter_spmv_staged(plan, data)
+    indptr, indices = csr.device_tables(data.device)
+    return lambda x: gather_spmv(indptr, indices, data, x)
 
 
 def csr_spmv(csr, x):
-    """One product through the pattern's tier: the DIA repack (K5's
-    selection) then K4, or K5 on the CSR tables."""
-    tier, plan = csr.tier
-    if tier == "dia":
-        return plan.matvec_packed(plan.pack(csr.data), x)
-    indptr, indices = csr.device_tables(x.device)
-    return gather_spmv(indptr, indices, csr.data, x)
-
-
-def csr_spmv_staged(csr):
-    """Staged matvec closure for a Krylov loop: on the DIA tier the repack
-    runs once here, then every product is one K4 launch; on the CSR tier
-    every product is one K5 launch."""
-    tier, plan = csr.tier
-    if tier == "dia":
-        from .spmv_dia import dia_spmv_staged
-        return dia_spmv_staged(plan, csr.data)
-    indptr, indices = csr.device_tables(csr.data.device)
-    data = csr.data
-
-    def mv(x):
-        return gather_spmv(indptr, indices, data, x)
-    return mv
+    """One product ``A·x`` through the pattern's tier."""
+    return csr_spmv_staged(csr)(x)

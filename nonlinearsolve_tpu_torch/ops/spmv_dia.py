@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .spmv import dia_spmv
+from .spmv import _unique_sorted, dia_spmv
 
 # Plan acceptance, as the JAX package's: a cap on the diagonal count (each
 # costs one pass over x and data however empty it is) and on the repack
@@ -40,7 +40,7 @@ class DiaPlan:
         row_ids = np.repeat(np.arange(n_rows, dtype=np.int64),
                             np.diff(indptr))
         offs = indices - row_ids
-        uniq = np.unique(offs)
+        uniq = _unique_sorted(offs, -(n_rows - 1), n_cols - 1)
         if (len(uniq) > DIA_MAX_OFFSETS
                 or len(uniq) * n_rows > DIA_MAX_TABLE):
             return

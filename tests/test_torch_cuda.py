@@ -146,7 +146,7 @@ def _bru_csr(N, dtype, seed, device):
 def test_spmv_kernels_match_plain_on_card(cuda, N, dtype):
     from nonlinearsolve_tpu_torch.ops import spmv
     A, x = _bru_csr(N, dtype, N, cuda)
-    tier, plan = spmv.select_spmv_plan(A.indptr, A.indices, *A.shape)
+    tier, plan = spmv.select_spmv_plan(A.indptr, A.indices, *A.shape)[:2]
     assert tier == "dia" and plan.ndiag == 11
     launches = dict(_backend.LAUNCHES)
     src = plan.sel.table(cuda)
@@ -195,7 +195,8 @@ def test_gather_spmv_on_an_unstructured_pattern_on_card(cuda):
                          data=torch.tensor(rng.standard_normal(rows.size)))
     A = A.with_data(A.data.to(cuda))
     x = torch.tensor(rng.standard_normal(m), device=cuda)
-    assert spmv.select_spmv_plan(A.indptr, A.indices, n, m)[0] == "csr"
+    # the JAX package's resident tier, which the port runs on K5
+    assert spmv.select_spmv_plan(A.indptr, A.indices, n, m)[0] == "resident"
     indptr, indices = A.device_tables(cuda)
     _close(A.matvec(x), spmv.gather_spmv_plain(indptr, indices, A.data, x),
            "float64")
@@ -259,6 +260,202 @@ def test_sparse_solve_on_card_matches_cpu(cuda):
     assert lg["dia_spmv"] == gpu.counters["jvp"] > 0
     assert lg["gather_spmv"] == lg["brusselator_jvp"] == 0
     assert not any(lc.values())
+
+
+# ---------------------------------------------------------------------------
+# K7 (band_spmv) and K8 (scatter_expand, scatter_regroup): rel-inf 1e-12
+# (f64) / 1e-5 (f32) of max|y| against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+def _periodic7(N, perm=None):
+    """The 3D periodic 7-point pattern (CSR, columns sorted), optionally
+    with its unknowns renumbered by ``perm``."""
+    from nonlinearsolve_tpu_torch.ops.sparse import CSR
+    n = N ** 3
+    i = np.arange(n)
+    x, y, z = i // (N * N), (i // N) % N, i % N
+
+    def idx(a, b, c):
+        return ((a % N) * N + (b % N)) * N + (c % N)
+    cols = np.stack([idx(x - 1, y, z), idx(x, y - 1, z), idx(x, y, z - 1), i,
+                     idx(x, y, z + 1), idx(x, y + 1, z), idx(x + 1, y, z)], 1)
+    rows = np.repeat(i, 7)
+    cols = cols.reshape(-1)
+    if perm is not None:
+        pinv = np.argsort(perm)
+        rows, cols = pinv[rows], pinv[cols]
+    return CSR.from_pattern(rows, cols, (n, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_band_spmv_matches_plain_on_card(cuda, dtype):
+    from nonlinearsolve_tpu_torch.ops import spmv_stream as tst
+    pat = _periodic7(40)          # the 256³ band structure: 11 slots
+    plan = tst.BandPlan(pat.indptr, pat.indices, *pat.shape)
+    assert plan.ok and (plan.w, len(plan.bands)) == (11, 5)
+    gen = torch.Generator().manual_seed(11)
+    data = torch.randn(pat.nnz, generator=gen, dtype=TORCH_DT[dtype])
+    x = torch.randn(pat.shape[1], generator=gen, dtype=TORCH_DT[dtype])
+    data, x = data.to(cuda), x.to(cuda)
+    launches = dict(_backend.LAUNCHES)
+    packed = plan.pack_data(data)
+    cols = plan.cols_table(cuda)
+    y = tst.band_spmv_packed(cols, packed, x, pat.shape[0])
+    _close(y, tst.band_spmv_plain(cols, packed, x, pat.shape[0]), dtype)
+    indptr, indices = pat.device_tables(cuda)
+    from nonlinearsolve_tpu_torch.ops import spmv
+    _close(y, spmv.gather_spmv_plain(indptr, indices, data, x), dtype)
+    # inf in every pad slot: never read, y bit-equal
+    packed_inf = packed.clone()
+    packed_inf[cols < 0] = float("inf")
+    y_inf = tst.band_spmv_packed(cols, packed_inf, x, pat.shape[0])
+    assert torch.equal(y_inf, y)
+    assert _backend.LAUNCHES["band_spmv"] == launches["band_spmv"] + 2
+    assert _backend.LAUNCHES["gather_select"] == \
+        launches["gather_select"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_scatter_kernels_match_plain_on_card(cuda, dtype, monkeypatch):
+    """Dense rows (a chained R) and column parts (the x cap lowered)."""
+    from nonlinearsolve_tpu_torch.ops import spmv, spmv_scatter as tsc
+    from nonlinearsolve_tpu_torch.ops.sparse import CSR
+    monkeypatch.setattr(spmv, "MAX_X_ELEMS_VMEM", 2048)
+    rng = np.random.default_rng(4)
+    rows = np.concatenate([np.repeat(np.arange(512), 3),
+                           np.repeat(np.arange(4), 100)])
+    cols = rng.integers(0, 4096, size=rows.size)
+    A = CSR.from_pattern(rows, cols, (512, 4096))
+    plan = tsc.ScatterPlan(A.indptr, A.indices, *A.shape)
+    assert plan.ok and len(plan.parts) >= 2
+    assert any(len(p.r_plans) >= 2 for (*_, p) in plan.parts)
+    gen = torch.Generator().manual_seed(12)
+    data = torch.randn(A.nnz, generator=gen, dtype=TORCH_DT[dtype]).to(cuda)
+    x = torch.randn(A.shape[1], generator=gen,
+                    dtype=TORCH_DT[dtype]).to(cuda)
+    launches = dict(_backend.LAUNCHES)
+    staged = plan.stage(data)
+    n_regroup = 0
+    for (c0, c1, gcol, rts), gdata in zip(plan.tables(cuda), staged):
+        p = tsc.scatter_expand(gcol, gdata, x[c0:c1])
+        _close(p, tsc.scatter_expand_plain(gcol, gdata, x[c0:c1]), dtype)
+        for indptr, pos in rts:
+            q = tsc.scatter_regroup(indptr, pos, p)
+            _close(q, tsc.scatter_regroup_plain(indptr, pos, p), dtype)
+            p = q
+            n_regroup += 1
+    indptr, indices = A.device_tables(cuda)
+    _close(tsc.scatter_spmv(plan, data, x),
+           spmv.gather_spmv_plain(indptr, indices, data, x), dtype)
+    parts = len(plan.parts)
+    assert _backend.LAUNCHES["scatter_expand"] == \
+        launches["scatter_expand"] + 2 * parts
+    assert _backend.LAUNCHES["scatter_regroup"] == \
+        launches["scatter_regroup"] + 2 * n_regroup
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stream", "scatter"])
+def test_band_and_scatter_route_solves_on_card_match_cpu(cuda, route,
+                                                        monkeypatch):
+    """The 3D sparse path, f64: the band route at 16³ (the DIA and x caps
+    lowered so that the stream tier takes the pattern, as at 256³) and the
+    scatter route at 20³ permuted.  K7 (or K8) in every product and K5's
+    selection twice a Jacobian on the card, the plain versions on the CPU;
+    the same retcode and stats, u atol 1e-9."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.core import solve as tsolve
+    from nonlinearsolve_tpu_torch.models import reaction_diffusion as trd
+    from nonlinearsolve_tpu_torch.ops import spmv, spmv_dia
+    from nonlinearsolve_tpu_torch.ops.preconditioners import \
+        fft_poisson_preconditioner
+
+    spmv.clear_plan_caches()
+    if route == "stream":
+        N, perm = 16, None
+        monkeypatch.setattr(spmv_dia, "DIA_MAX_TABLE", 50_000)
+        monkeypatch.setattr(spmv, "MAX_X_ELEMS_VMEM", 2048)
+    else:
+        N = 20
+        perm = np.random.default_rng(42).permutation(N ** 3)
+    pinv = None if perm is None else np.argsort(perm)
+    pat = _periodic7(N, perm)
+
+    def flat(u, p):
+        w = u if pinv is None else u[torch.as_tensor(pinv, device=u.device)]
+        r = trd.reaction_diffusion_3d(w.reshape(N, N, N), p).reshape(-1)
+        return r if perm is None else r[torch.as_tensor(perm,
+                                                        device=u.device)]
+
+    f = tnls.NonlinearFunction(f=flat, sparsity=pat)
+    sols = []
+    for d in (cuda, "cpu"):
+        M0 = fft_poisson_preconditioner((N, N, N), 0.01, 1.0 / N,
+                                        shift=-0.9)
+        if perm is None:
+            M = M0
+        else:
+            tp = torch.as_tensor(perm, device=d)
+            tpi = torch.as_tensor(pinv, device=d)
+            M = (lambda v, M0=M0, tp=tp, tpi=tpi: M0(v[tpi])[tp])
+        alg = tnls.NewtonRaphson(
+            autodiff=tnls.JacobianPolicy(mode="sparse"),
+            linsolve=tnls.LinearSolver(method="gmres", restart=8,
+                                       krylov_maxiter=200, precond_fn=M),
+            forcing=tnls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+        u0 = torch.full((N ** 3,), 0.1, dtype=torch.float64, device=d)
+        p = (torch.tensor(0.01, dtype=torch.float64, device=d),
+             trd.forcing(N, device=d))
+        prob = tnls.NonlinearProblem(f, u0, p)
+        _backend.reset_counters()
+        sols.append((tnls.solve(prob, alg, abstol=1e-8, maxiters=30),
+                     dict(_backend.LAUNCHES)))
+    spmv.clear_plan_caches()
+    (gpu, lg), (cpu, lc) = sols
+    assert gpu.retcode == cpu.retcode == tnls.ReturnCode.Success
+    assert gpu.stats == cpu.stats
+    np.testing.assert_allclose(gpu.u.cpu().numpy(), cpu.u.numpy(), rtol=0,
+                               atol=1e-9)
+    plan, = tsolve._SPARSE_PLANS[f].values()
+    tier, splan = plan.pattern.tier[:2]
+    assert tier == route
+    products = gpu.counters["jvp"]
+    assert lg["gather_select"] == 2 * gpu.stats.njacs > 0
+    if route == "stream":
+        assert lg["band_spmv"] == products > 0
+    else:
+        parts = len(splan.parts)
+        chain = sum(len(pt.r_plans) for (*_, pt) in splan.parts)
+        assert lg["scatter_expand"] == parts * products > 0
+        assert lg["scatter_regroup"] == chain * products
+    assert lg["dia_spmv"] == lg["gather_spmv"] == 0
+    assert not any(lc.values())
+
+
+@pytest.mark.cuda
+def test_band_and_scatter_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from nonlinearsolve_tpu_torch.ops import spmv_scatter as tsc
+    from nonlinearsolve_tpu_torch.ops import spmv_stream as tst
+    x = torch.ones(8, dtype=torch.float64, device=cuda)
+    cols = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    data = torch.ones((2, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        tst.band_spmv_packed(cols, data.float(), x, 8)
+    with pytest.raises(TypeError):
+        tst.band_spmv_packed(cols.long(), data, x, 8)
+    with pytest.raises(ValueError):
+        tst.band_spmv_packed(cols, data, x, 9)
+    with pytest.raises(ValueError):
+        tst.band_spmv_packed(cols, data[:, :4], x, 4)
+    gcol = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tsc.scatter_expand(gcol.cpu(), x, x)
+    with pytest.raises(ValueError):
+        tsc.scatter_expand(gcol[:4], x, x)
+    with pytest.raises(TypeError):
+        tsc.scatter_regroup(gcol[:3].long(), gcol, x)
 
 
 # ---------------------------------------------------------------------------

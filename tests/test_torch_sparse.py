@@ -281,9 +281,10 @@ def test_dia_plan_equals_jax(N):
     jpat = jbru.sparsity_pattern(N)
     tpat = tbru.sparsity_pattern(N)
     jplan = jdia.DiaPlan(jpat.indptr, jpat.indices, *jpat.shape)
-    tier, tplan = tspmv.select_spmv_plan(tpat.indptr, tpat.indices,
-                                         *tpat.shape)
-    assert tier == "dia" and tplan.supported and jplan.supported
+    tier, tplan, perm, _, _ = tspmv.select_spmv_plan(
+        tpat.indptr, tpat.indices, *tpat.shape)
+    assert tier == "dia" and perm is None
+    assert tplan.supported and jplan.supported
     assert tplan.offsets == jplan.offsets
     assert tplan.ndiag == jplan.ndiag == 11
     assert tspmv.select_spmv_plan(tpat.indptr, tpat.indices,
@@ -297,11 +298,16 @@ def test_dia_plan_equals_jax(N):
 
 
 def test_select_spmv_plan_refuses_wide_patterns():
-    """More than 48 generalised diagonals: the CSR tier (K5)."""
+    """More than 48 generalised diagonals: not the DIA tier, but the JAX
+    package's "resident" tier, which the port runs on K5."""
     rows, cols = _random_coo(np.random.default_rng(1), 300, 300, 6)
     pat = tsp.CSR.from_pattern(rows, cols, (300, 300))
-    assert tspmv.select_spmv_plan(pat.indptr, pat.indices,
-                                  300, 300) == ("csr", None)
+    tier, plan, perm, _, _ = tspmv.select_spmv_plan(pat.indptr, pat.indices,
+                                                    300, 300)
+    jtier, jplan, jperm, _, _ = jps.select_spmv_plan(pat.indptr, pat.indices,
+                                                     300, 300)
+    assert tier == jtier == "resident" and perm is None and jperm is None
+    assert (plan.w, plan.W, plan.mode) == (jplan.w, jplan.W, jplan.mode)
     assert not tdia.DiaPlan(pat.indptr, pat.indices, 300, 300).supported
 
 
@@ -315,7 +321,7 @@ def test_tier_is_kept_on_the_pattern(wide, monkeypatch):
     else:
         pat = tbru.sparsity_pattern(8)
     tier = pat.tier
-    assert tier[0] == ("csr" if wide else "dia")
+    assert tier[0] == ("resident" if wide else "dia")
 
     def no_hash(*_):
         raise AssertionError("pattern hashed again")
