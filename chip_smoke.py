@@ -25,7 +25,10 @@ check raises, so the script exits non-zero.
    beside K4/K5 (cuSPARSE through ``torch.sparse_csr_tensor``,
    ``torch.take``) is timed by its kernels' device time under
    torch.profiler over eager calls (the kernel is timed that way too, for
-   a like-for-like pair);
+   a like-for-like pair).  K3 (brusselator_jvp_bf16) at N=512 and 2048,
+   bf16, must be bit-equal to its plain version; at N=512 it is timed
+   beside the whole bf16 matvec (``make_brusselator_jvp_bf16``'s mv: two
+   casts and K3) and K1 at f32;
 4. main path, with every launch counter set to 0 just before and read just
    after: the chained, normalised matvec of the throughput row
    (bench.py:92-108, K2) and the flagship solve at bench.py:134-140's
@@ -105,11 +108,36 @@ check raises, so the script exits non-zero.
    versions on the route's own tables, f32 and f64, timed (expand and
    regroup launches of one product, and the whole product) beside K5 on
    the same matrix and cuSPARSE;
-14. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+14. the bf16 path (counters at 0 just before each run, read just after):
+   the flagship's solve with ``krylov_basis_dtype="bf16"`` — run (a) with
+   K1, run (b) with K3 as the problem's jvp (docs/solvers.md's
+   mixed-precision problem).  Checks: the retcode the JAX package gives on
+   the CPU at this operating point (JAX_BF16_FLAGSHIP: MaxIters for both),
+   nsteps within 2 of its, nf equal, K1 (a) or K3 (b) launches = Jacobian
+   products and none of the other; run (a) with its root within rel-inf
+   1e-2 of phase 5's (as any run that succeeds) and |F|_inf at most
+   BF16_A_RESID_INF_MAX; run (b) with u equal to u0 bit for bit and
+   |F|_inf within rel 1e-6 of the JAX package's, as there.  Then 8 Arnoldi
+   iterations at u0 with the f32 and
+   the bf16 basis, timed in turns (wall and device time);
+15. K11 (rd3d_jvp_blocked_halo) on z-slabs, each given its neighbours'
+   planes: bit-equal to K9 on the whole grid at 256³ (4 and 8 slabs) and
+   (40, 72, 100) (4 slabs, bz 5), f32 and f64; against its plain version
+   at TOL, f32 and f64, on a 64-plane shard and on the whole 256³ grid as
+   one shard (there also bit-equal to K9); timed at f32 on both;
+16. the distributed entry point (counters at 0 just before, read just
+   after): NCCL at world size 1 (``init_process_group`` with a HashStore),
+   ``parallel.scaling.weak_scaling_report([1], base_n=256, n_matvecs=50,
+   use_pallas=True, bz=8)``.  Checks: one row, a finite rate, 100 K11
+   launches (the report's warm-up chain and its timed chain, 50 each, as
+   the JAX package's report runs them), no K9 or K10 launch; the rate
+   beside phase 9's K10 chain;
+17. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -118,7 +146,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,       # H100 SXM, outside the tensor cores
-              "float64": 34e12}
+              "float64": 34e12,
+              # K3 computes in f32 on the CUDA cores, rounding through bf16
+              "bfloat16": 67e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}   # rel-inf of max|out|
 FLOPS_PER_POINT = {"brusselator_jvp": 27, "brusselator_jvp_scaled": 31,
                    "rd3d_jvp": 13, "rd3d_jvp_scaled": 15}
@@ -127,7 +157,28 @@ REPLACES = {
     "brusselator_jvp_scaled": "nonlinearsolve_tpu/ops/pallas_stencil.py:170",
     "rd3d_jvp": "nonlinearsolve_tpu/ops/pallas_stencil3d.py:299",
     "rd3d_jvp_scaled": "nonlinearsolve_tpu/ops/pallas_stencil3d.py:174",
+    "brusselator_jvp_bf16": "nonlinearsolve_tpu/ops/pallas_stencil.py:183",
+    "rd3d_jvp_halo": "nonlinearsolve_tpu/ops/pallas_stencil3d.py:260",
 }
+# The JAX package on the CPU (jax_platforms cpu, x64 on; its f32 solve) at
+# phase 14's operating point, N=512: run (a) is the bf16 Krylov basis with
+# the f32 matvec (Pallas K1), run (b) the bf16 basis with the bf16 matvec
+# (make_brusselator_jvp_bf16).  Neither reaches abstol 5.0: the bf16
+# rounding of the basis (and of the matvec) puts a floor above it.  Run (a)
+# ends near the root; its final |F|_inf depends on the order of sums (47.3
+# in the JAX package, 24.9 in the port on the CPU, 9.97 on the H100), so the
+# card is held to BF16_A_RESID_INF_MAX, about twice the largest reading and
+# far below |F(u0)|_inf = 6094.876.  Run (b) never leaves u0: its u comes
+# back equal to u0 bit for bit (in the port on the CPU too), so its |F|_inf
+# is |F(u0)|_inf.  (The f32-basis flagship there: Success in 22 steps,
+# |F|_inf 4.994.)
+JAX_BF16_FLAGSHIP = {
+    "a": {"retcode": "MaxIters", "nsteps": 30, "nf": 32,
+          "resid_inf": 47.31610870361328},
+    "b": {"retcode": "MaxIters", "nsteps": 30, "nf": 32,
+          "resid_inf": 6094.87646484375, "u_equals_u0": True},
+}
+BF16_A_RESID_INF_MAX = 100.0
 SOURCE = "nonlinearsolve_tpu_torch/csrc/stencil.cu"
 SOURCE_3D = "nonlinearsolve_tpu_torch/csrc/stencil3d.cu"
 LIBRARY_NOTE = ("no single PyTorch call computes this fused stencil JVP "
@@ -312,6 +363,150 @@ def rd3d_bound_ms(name, numel, dtype, itemsize):
     if name == "rd3d_jvp_scaled":
         nbytes += 2 * itemsize
     return roofline_ms(nbytes, FLOPS_PER_POINT[name] * numel, dtype)
+
+
+def k3_kernel_checks(torch, stencil, inputs):
+    """K3 against its plain version on the card, bit for bit, at N=512 and
+    2048 (bf16 state and tangent from phase 3's seeded f32 inputs, f32 p);
+    the N=512 case timed beside the whole bf16 matvec ``mv(T)`` (the two
+    casts and K3) and K1 at f32 on the same inputs.  Returns the N=512
+    record."""
+    bf = torch.bfloat16
+    summary = None
+    for N in (512, 2048):
+        U, T, p = inputs(N, torch.float32)
+        Ub, Tb = U.to(bf), T.to(bf)
+        got = stencil.brusselator_jvp_bf16(Ub, Tb, p)
+        ref = stencil.brusselator_jvp_bf16_plain(Ub, Tb, p)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, ref)
+        differing = int((got != ref).sum())
+        # the fallback bar if not bit-equal: 1 bf16 ulp of max|out|
+        scale = float(ref.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        rec = {"phase": "kernel_check", "case": "brusselator_jvp_bf16",
+               "N": N, "dtype": "bfloat16", "bit_equal": differing == 0,
+               "differing_values": differing, "max_abs_err": abs_err,
+               "rel_err": rel, "bf16_ulp_of_max": ulp,
+               "ok": differing == 0}
+        if N == 512:
+            mv = stencil.make_brusselator_jvp_bf16(U, p)
+            rec.update({
+                "ms": graph_time_ms(torch, lambda: stencil.brusselator_jvp_bf16(
+                    Ub, Tb, p)),
+                "plain_ms": graph_time_ms(
+                    torch, lambda: stencil.brusselator_jvp_bf16_plain(
+                        Ub, Tb, p), calls=10, replays=20),
+                "mv_ms": graph_time_ms(torch, lambda: mv(T)),
+                "k1_f32_ms": graph_time_ms(
+                    torch, lambda: stencil.brusselator_jvp(U, T, p)),
+                "mv_max_abs_err": rel_err(mv(T), ref.float())[0]})
+            rec["faster_of_mv_and_k1"] = ("mv" if rec["mv_ms"] < rec["k1_f32_ms"]
+                                          else "K1")
+            # U, T and out once each (2 bytes a value), p in f32
+            rec["bound_ms"], rec["bound_by"] = roofline_ms(
+                3 * N * N * 2 * 2 + 4 * 4,
+                FLOPS_PER_POINT["brusselator_jvp"] * N * N, "bfloat16")
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            summary = rec
+        emit(rec)
+        if differing:
+            raise AssertionError(f"K3 N={N} is not bit-equal to its plain "
+                                 f"version: {rec}")
+        del U, T, p, Ub, Tb, got, ref
+    return summary
+
+
+def k11_kernel_checks(torch, dev, stencil3d):
+    """K11 on z-slabs at 256³ (S = 4 and 8 slabs, bz 8) and on (40, 72,
+    100) (S = 4, bz 5), f32 and f64: each slab given its neighbours' planes
+    and h of the whole grid; the slabs together must be bit-equal to K9 on
+    the whole grid.  Then K11 against its plain version (TOL), f32 and f64,
+    on a 64-plane shard of the 256³ grid and on the whole 256³ grid as one
+    shard (the weak-scaling report's shard at world size 1; there also
+    bit-equal to K9), and timed at f32 on both.  Returns the f32 timing
+    records by shard."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    records = {}
+    for shape, slabs, bz in (((256, 256, 256), (4, 8), 8),
+                             ((40, 72, 100), (4,), 5)):
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            u = 0.1 + 0.5 * torch.randn(shape, generator=gen, dtype=dtype,
+                                        device=dev)
+            t = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+            D = torch.tensor(0.01, dtype=dtype, device=dev)
+            whole = stencil3d.rd3d_jvp_blocked(u, t, D, bz=bz)
+            equal = {}
+            for S in slabs:
+                nz = shape[0] // S
+                parts = []
+                for s in range(S):
+                    z = slice(s * nz, (s + 1) * nz)
+                    lo = t[(s * nz - 1) % shape[0]][None].contiguous()
+                    hi = t[((s + 1) * nz) % shape[0]][None].contiguous()
+                    parts.append(stencil3d.rd3d_jvp_blocked_halo(
+                        u[z].contiguous(), t[z].contiguous(), lo, hi, D,
+                        bz=bz, n_global=shape[0]))
+                equal[f"S={S}"] = bool(torch.equal(torch.cat(parts), whole))
+                del parts
+            rec = {"phase": "kernel_check_k11_shards", "shape": list(shape),
+                   "dtype": dname, "bz": bz, "bit_equal_to_k9": equal,
+                   "ok": all(equal.values())}
+            if shape[0] == 256:
+                # K11 against its plain version on a 64-plane shard (given
+                # its neighbours' planes) and on the whole grid as one shard
+                # (given its own wrapped planes, as the weak-scaling report's
+                # shard at world size 1 is; that one is also K9's input, so
+                # it must be bit-equal to K9)
+                cases = {"shard_64": (u[:64].contiguous(), t[:64].contiguous(),
+                                      t[-1:].contiguous(),
+                                      t[64:65].contiguous()),
+                         "whole_256": (u, t, t[-1:].contiguous(),
+                                       t[:1].contiguous())}
+                rec["vs_plain"] = {}
+                for name, (a, b, la, hb) in cases.items():
+                    got = stencil3d.rd3d_jvp_blocked_halo(a, b, la, hb, D,
+                                                          bz=8, n_global=256)
+                    ref = stencil3d.rd3d_jvp_blocked_halo_plain(a, b, la, hb,
+                                                                D, 256)
+                    torch.cuda.synchronize()
+                    abs_err, rel = rel_err(got, ref)
+                    check = {"shape": list(a.shape), "max_abs_err": abs_err,
+                             "rel_err": rel, "tolerance": TOL[dname],
+                             "ok": rel <= TOL[dname]}
+                    if name == "whole_256":
+                        check["bit_equal_to_k9"] = bool(torch.equal(got,
+                                                                    whole))
+                        check["ok"] = check["ok"] and check["bit_equal_to_k9"]
+                    rec["vs_plain"][name] = check
+                    rec["ok"] = rec["ok"] and check["ok"]
+                    del got, ref
+                    if dtype != torch.float32:
+                        continue
+                    ms = graph_time_ms(
+                        torch, lambda: stencil3d.rd3d_jvp_blocked_halo(
+                            a, b, la, hb, D, bz=8, n_global=256))
+                    plain_ms = graph_time_ms(
+                        torch, lambda: stencil3d.rd3d_jvp_blocked_halo_plain(
+                            a, b, la, hb, D, 256), calls=5, replays=10)
+                    plane = shape[1] * shape[2]
+                    bms, by = roofline_ms(
+                        (3 * a.numel() + 2 * plane + 1) * u.element_size(),
+                        FLOPS_PER_POINT["rd3d_jvp"] * a.numel(), dname)
+                    records[name] = {
+                        "phase": "kernel_time_k11", "case": name,
+                        "shape": list(a.shape), "dtype": dname,
+                        "max_abs_err": abs_err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by, "share_of_bound": bms / ms}
+                    emit(records[name])
+                del cases, a, b, la, hb
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"K11 {shape} {dname}: {rec}")
+            del u, t, whole
+    return records
 
 
 def rel_err(got, ref):
@@ -968,6 +1163,7 @@ def main(argv):
             if not nan_ok:
                 raise AssertionError("K2's absmax dropped a NaN")
             del U, T, p, planes, Tn
+    k3_summary = k3_kernel_checks(torch, stencil, inputs)
 
     from nonlinearsolve_tpu_torch.ops.sparse_jac import plan_sparse_jacobian
     spmv_summary = sparse_kernel_checks(torch, dev, spmv, brusselator,
@@ -1632,7 +1828,162 @@ def main(argv):
                                             spat, splan96, jac96.data)
     del jac96, sprob96, ssol96, nprob, nsol
 
-    # --- 14. summary -------------------------------------------------------
+    # --- 14. the bf16 path: the flagship with the bf16 basis (and K3) -------
+    def bf16_alg():
+        return nls.NewtonRaphson(
+            linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                      krylov_maxiter=100, precond_fn=pm,
+                                      krylov_basis_dtype="bf16"),
+            forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+
+    # docs/solvers.md's mixed-precision problem: K3 as the analytic jvp
+    prob_k3 = nls.NonlinearProblem(
+        nls.NonlinearFunction(
+            f=brusselator.brusselator_2d,
+            jvp=lambda v, U, p_: stencil.make_brusselator_jvp_bf16(U, p_)(v)),
+        prob.u0, prob.p)
+    bf16_launches = {}
+    for run, bprob in (("a", prob), ("b", prob_k3)):
+        expected = JAX_BF16_FLAGSHIP[run]
+        balg16 = bf16_alg()
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        bsol16 = nls.solve(bprob, balg16, abstol=5.0, maxiters=30)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        bl = dict(_backend.LAUNCHES)
+        bf16_launches[run] = bl
+        b_resid16 = float(bsol16.resid.abs().max())
+        b_dist16 = (float((bsol16.u.double() - u64).abs().max())
+                    / max(float(u64.abs().max()), 1.0))
+
+        def warm_bf16(bprob=bprob, balg16=balg16):
+            nls.solve(bprob, balg16, abstol=5.0, maxiters=30)
+
+        walls16 = warm_walls(torch, warm_bf16)
+        success = bsol16.retcode == nls.ReturnCode.Success
+        rec = {"phase": f"bf16_flagship_{run}", "N": N, "dtype": "float32",
+               "krylov_basis_dtype": "bf16",
+               "matvec": "K3 (bf16)" if run == "b" else "K1 (f32)",
+               "retcode": bsol16.retcode.name, "resid_inf": b_resid16,
+               "abstol": 5.0, "stats": vars(bsol16.stats),
+               "expected_jax_cpu": expected,
+               "krylov_iters": bsol16.counters["krylov_iters"],
+               "jac_products": bsol16.counters["jvp"], "launches": bl,
+               "host_syncs": bsol16.counters["host_syncs"],
+               "root_rel_inf_to_f64_polish": b_dist16,
+               "u_equals_u0": torch.equal(bsol16.u.reshape(-1),
+                                          bprob.u0.reshape(-1)),
+               "flagship_nsteps": sol.stats.nsteps,
+               "success_within_1_step_of_flagship": bool(
+                   success and abs(bsol16.stats.nsteps
+                                   - sol.stats.nsteps) <= 1),
+               "first_solve_s": first_s, "warm_solve_s": walls16,
+               "warm_ms_per_krylov_iter": 1e3 * sorted(walls16)[1]
+               / max(bsol16.counters["krylov_iters"], 1), "card": card}
+        emit(rec)
+        used, unused = (("brusselator_jvp_bf16", "brusselator_jvp")
+                        if run == "b" else
+                        ("brusselator_jvp", "brusselator_jvp_bf16"))
+        checks = {
+            "retcode as the JAX package's":
+                bsol16.retcode.name == expected["retcode"],
+            "nsteps within 2 of the JAX package's":
+                abs(bsol16.stats.nsteps - expected["nsteps"]) <= 2,
+            "nf as the JAX package's": bsol16.stats.nf == expected["nf"],
+            f"{used} launches == Jacobian products":
+                bl[used] == bsol16.counters["jvp"] > 0,
+            f"no {unused} launch": bl[unused] == 0,
+        }
+        if success or run == "a":
+            checks["root within 1e-2 of the f64 polish"] = b_dist16 <= 1e-2
+        if run == "a":
+            checks[f"|F|_inf <= {BF16_A_RESID_INF_MAX}"] = (
+                b_resid16 <= BF16_A_RESID_INF_MAX)
+        else:
+            checks["|F|_inf within rel 1e-6 of the JAX package's"] = (
+                abs(b_resid16 - expected["resid_inf"])
+                <= 1e-6 * expected["resid_inf"])
+            checks["u == u0 bit for bit, as in the JAX package"] = (
+                torch.equal(bsol16.u.reshape(-1), bprob.u0.reshape(-1)))
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            raise AssertionError(f"bf16 flagship run ({run}) failed: {failed}")
+        del bsol16
+
+    # the basis alone: 8 Arnoldi iterations at u0 (rtol 0), f32 and bf16,
+    # the walls in turns, then one profiled call each
+    from nonlinearsolve_tpu_torch.ops.krylov import gmres
+    fu0 = brusselator.brusselator_2d(prob.u0, prob.p)
+
+    def one_gmres(bdt):
+        r = gmres(lambda v: stencil.brusselator_jvp(prob.u0, v, prob.p),
+                  fu0, restart=8, maxiter=8, rtol=0.0, M=pm, basis_dtype=bdt)
+        if r.iterations != 8:
+            raise AssertionError(f"GMRES ran {r.iterations} iterations")
+
+    basis_dtypes = {"f32": None, "bf16": torch.bfloat16}
+    basis_walls = {name: [] for name in basis_dtypes}
+    for _ in range(5):
+        for name, bdt in basis_dtypes.items():
+            basis_walls[name] += warm_walls(torch, lambda: one_gmres(bdt),
+                                            count=1)
+    basis_rec = {"phase": "bf16_basis_gmres", "N": N, "iterations": 8,
+                 "card": card}
+    for name, bdt in basis_dtypes.items():
+        prof_g = profile_device(torch, lambda: one_gmres(bdt))
+        basis_rec[name] = {"wall_ms": [1e3 * w for w in basis_walls[name]],
+                           "wall_ms_median":
+                               1e3 * sorted(basis_walls[name])[2],
+                           "device_busy_ms": prof_g["device_busy_ms"],
+                           "device_ms_by_group":
+                               prof_g["device_ms_by_group"]}
+    emit(basis_rec)
+
+    # --- 15. K11 on z-slabs against K9 on the whole grid ---------------------
+    k11_summary = k11_kernel_checks(torch, dev, stencil3d)
+
+    # --- 16. the distributed entry point: NCCL at world size 1, 256³ --------
+    import torch.distributed as dist
+    from nonlinearsolve_tpu_torch.parallel.scaling import weak_scaling_report
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        ws_rows = weak_scaling_report([1], base_n=256, n_matvecs=50,
+                                      use_pallas=True, bz=8)
+        torch.cuda.synchronize()
+        ws_wall = time.perf_counter() - t0
+        ws_launches = dict(_backend.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    ws_rate = ws_rows[0][1] if ws_rows else float("nan")
+    emit({"phase": "weak_scaling", "backend": "nccl", "world_size": 1,
+          "base_n": 256, "n_matvecs": 50, "use_pallas": True, "bz": 8,
+          "rows": ws_rows, "nnz_per_s": ws_rate,
+          "step_ms": 1e3 * 7 * N3 ** 3 / ws_rate,
+          "k10_chain_step_ms_graph": chain3_graph_ms,
+          "k10_chain_tnnz_per_s_graph": nnz3 / chain3_graph_ms / 1e9,
+          "launches": ws_launches, "seconds": ws_wall, "card": card,
+          "note": "7 nnz a point, as the JAX report counts; the K10 chain "
+                  "of phase 9 counts 8"})
+    checks = {
+        "one row, efficiency 1": (len(ws_rows) == 1 and ws_rows[0][0] == 1
+                                  and ws_rows[0][2] == 1.0),
+        "rate finite and > 0": math.isfinite(ws_rate) and ws_rate > 0,
+        "K11 launches == 2 x 50 (the warm-up chain and the timed one)":
+            ws_launches["rd3d_jvp_halo"] == 2 * 50,
+        "no K9 or K10 launch": not (ws_launches["rd3d_jvp"]
+                                    or ws_launches["rd3d_jvp_scaled"]),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"weak scaling failed: {failed}")
+
+    # --- 17. summary -------------------------------------------------------
     out = []
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
         r = summary[name]
@@ -1697,6 +2048,31 @@ def main(argv):
                     "share_of_bound": r["share_of_bound"],
                     "shape": r["shape"], "dtype": "float32",
                     "config": r["config"]})
+    r = k3_summary
+    out.append({"name": "brusselator_jvp_bf16", "route": "cuda",
+                "source": SOURCE, "replaces": REPLACES["brusselator_jvp_bf16"],
+                "launches": bf16_launches["b"]["brusselator_jvp_bf16"],
+                "launches_in": "bf16_flagship_b",
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "library_note": LIBRARY_NOTE,
+                "share_of_bound": r["share_of_bound"], "shape": [N, N, 2],
+                "dtype": "bfloat16", "bit_equal": r["bit_equal"],
+                "mv_ms": r["mv_ms"], "k1_f32_ms": r["k1_f32_ms"]})
+    r = k11_summary["whole_256"]
+    out.append({"name": "rd3d_jvp_halo", "route": "cuda", "source": SOURCE_3D,
+                "replaces": REPLACES["rd3d_jvp_halo"],
+                "launches": ws_launches["rd3d_jvp_halo"],
+                "launches_in": "weak_scaling", "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None, "library_note": LIBRARY_NOTE,
+                "share_of_bound": r["share_of_bound"], "shape": r["shape"],
+                "dtype": "float32",
+                "shard_64": {k: k11_summary["shard_64"][k]
+                             for k in ("ms", "plain_ms", "bound_ms",
+                                       "share_of_bound")}})
     emit({"kernels": out})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})

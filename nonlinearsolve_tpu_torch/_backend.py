@@ -40,9 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES: dict = {"brusselator_jvp": 0, "brusselator_jvp_scaled": 0,
+                  "brusselator_jvp_bf16": 0,
                   "dia_spmv": 0, "gather_spmv": 0, "gather_select": 0,
                   "band_spmv": 0, "scatter_expand": 0, "scatter_regroup": 0,
-                  "rd3d_jvp": 0, "rd3d_jvp_scaled": 0}
+                  "rd3d_jvp": 0, "rd3d_jvp_scaled": 0, "rd3d_jvp_halo": 0}
 HOST_SYNCS: dict = {"n": 0}
 
 

@@ -69,6 +69,12 @@ def _matrix_precond(cfg: LinearSolver, J):
     return lambda x: x / safe
 
 
+# LinearSolver.krylov_basis_dtype → the GMRES basis dtype (the JAX
+# package's table; a name outside it raises KeyError there too)
+_BASIS_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+                 "f16": torch.float16}
+
+
 def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
                   krylov_rtol=None, u=None):
     """Krylov route: solve J δu = -fu with J a matrix-free operator or a
@@ -129,11 +135,12 @@ def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
             M = cfg.linsolve.precond_fn
     else:
         M = _matrix_precond(cfg.linsolve, J)
-    if cfg.linsolve.krylov_basis_dtype:
-        raise NotImplementedError(
-            "krylov_basis_dtype is ROADMAP B.3, with the bf16 stencil kernel")
+    kw = {}
+    if method == "gmres" and cfg.linsolve.krylov_basis_dtype:
+        kw["basis_dtype"] = _BASIS_DTYPES[cfg.linsolve.krylov_basis_dtype]
     res = solve_krylov(method, matvec, fu, restart=cfg.linsolve.restart,
-                       maxiter=cfg.linsolve.krylov_maxiter, rtol=rtol, M=M)
+                       maxiter=cfg.linsolve.krylov_maxiter, rtol=rtol, M=M,
+                       **kw)
     return -res.x, torch.isfinite(res.x).all(), res.iterations, products[0]
 
 

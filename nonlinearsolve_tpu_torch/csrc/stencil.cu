@@ -40,7 +40,24 @@
 // >= 0 the integer order is the float order, and a NaN (sign cleared by
 // fabs) sorts above +inf, so NaN propagates as jnp.max does — then one
 // atomicMax per block into an output the wrapper zeroes.
+//
+// K3  brusselator_jvp_bf16      replaces nonlinearsolve_tpu/ops/pallas_stencil.py
+//                               make_brusselator_jvp_bf16 (K1's pallas_call at
+//                               bf16)
+//
+// K1's function on bf16 state and tangent, bf16 out.  The scalars are
+// formed in f32 from p (f32) as the JAX wrapper forms them — al =
+// alpha/(dx*dx), A + 1, A — then rounded to bf16, as the Pallas kernel
+// casts them.  Every operation rounds to bf16 in the order of the plain
+// version (ops/stencil.py _jvp_planes): each is done in f32 with the _rn
+// intrinsics (never contracted into an FMA) and rounded to bf16 at once.
+// The f32 result of one operation on two bf16 values, rounded again to bf16,
+// is the correctly rounded bf16 result (24 >= 2*8 + 2 bits), so the kernel
+// agrees with the plain version, which rounds every eager op, bit for bit.
+// Bound: bytes, half of K1's at the same N (U, T and out at 2 bytes a
+// value: 3 MiB at N=512); the design is K1's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -220,6 +237,49 @@ jvp_scaled_kernel(const T* __restrict__ u, const T* __restrict__ v,
   block_absmax<T>(m, gmax);
 }
 
+// One bf16 operation on bf16-valued floats, rounded to bf16.
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float badd(float a, float b) { return rbf(__fadd_rn(a, b)); }
+__device__ __forceinline__ float bsub(float a, float b) { return rbf(__fsub_rn(a, b)); }
+__device__ __forceinline__ float bmul(float a, float b) { return rbf(__fmul_rn(a, b)); }
+
+__device__ __forceinline__ float blap5(float w, float wim, float wip, float wjm,
+                                       float wjp) {
+  return bsub(badd(badd(badd(wim, wip), wjm), wjp), bmul(4.0f, w));
+}
+
+// K3: interleaved (N, N, 2) bf16 in, interleaved bf16 out; p is f32.
+__global__ void __launch_bounds__(BX * BY)
+jvp_bf16_kernel(const __nv_bfloat162* __restrict__ U,
+                const __nv_bfloat162* __restrict__ Tg,
+                const float* __restrict__ p, __nv_bfloat162* __restrict__ out,
+                int N) {
+  const int j = blockIdx.x * BX + threadIdx.x;
+  const int i = blockIdx.y * BY + threadIdx.y;
+  if (i >= N || j >= N) return;
+  const float al = rbf(__fdiv_rn(p[2], __fmul_rn(p[3], p[3])));
+  const float ap1 = rbf(__fadd_rn(p[0], 1.0f));
+  const float A = rbf(p[0]);
+  const Nbr nb(i, j, N);
+  const float2 uv = __bfloat1622float2(U[nb.c]);
+  const float2 t = __bfloat1622float2(Tg[nb.c]);
+  const float2 tim = __bfloat1622float2(Tg[nb.im]);
+  const float2 tip = __bfloat1622float2(Tg[nb.ip]);
+  const float2 tjm = __bfloat1622float2(Tg[nb.jm]);
+  const float2 tjp = __bfloat1622float2(Tg[nb.jp]);
+  const float two_uv = bmul(bmul(2.0f, uv.x), uv.y);
+  const float u2 = bmul(uv.x, uv.x);
+  const float lap_u = blap5(t.x, tim.x, tip.x, tjm.x, tjp.x);
+  const float lap_v = blap5(t.y, tim.y, tip.y, tjm.y, tjp.y);
+  const float ou = badd(badd(bmul(al, lap_u), bmul(bsub(two_uv, ap1), t.x)),
+                        bmul(u2, t.y));
+  const float ov = bsub(badd(bmul(al, lap_v), bmul(bsub(A, two_uv), t.x)),
+                        bmul(u2, t.y));
+  out[nb.c] = __floats2bfloat162_rn(ou, ov);
+}
+
 inline dim3 grid_of(int N) {
   return dim3((N + BX - 1) / BX, (N + BY - 1) / BY);
 }
@@ -263,6 +323,14 @@ int brusselator_jvp_f32(const void* U, const void* T, const void* p, void* out,
 int brusselator_jvp_f64(const void* U, const void* T, const void* p, void* out,
                         int N, void* stream) {
   return launch_jvp<double>(U, T, p, out, N, stream);
+}
+
+int brusselator_jvp_bf16(const void* U, const void* T, const void* p, void* out,
+                         int N, void* stream) {
+  jvp_bf16_kernel<<<grid_of(N), dim3(BX, BY), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat162*>(U), static_cast<const __nv_bfloat162*>(T),
+      static_cast<const float*>(p), static_cast<__nv_bfloat162*>(out), N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int brusselator_jvp_scaled_f32(const void* U, const void* T, const void* p,

@@ -8,6 +8,8 @@
 //                       (rd3d_jvp_blocked)
 // K10  rd3d_jvp_scaled  replaces nonlinearsolve_tpu/ops/pallas_stencil3d.py
 //                       _rd3d_jvp_kernel_db_scaled (rd3d_jvp_scaled)
+// K11  rd3d_jvp_halo    replaces nonlinearsolve_tpu/ops/pallas_stencil3d.py
+//                       _rd3d_jvp_kernel_halo (rd3d_jvp_blocked_halo)
 //
 //   out = d_h2 * (inplane + t[z-1] + t[z+1]) + (1 - 3u^2) * t,
 //   inplane = t[y-1] + t[y+1] + t[x-1] + t[x+1] - 6t,   d_h2 = D / h^2
@@ -30,10 +32,12 @@
 //
 // Halo planes: the plane before z = 0 and the plane after z = nz-1 come in
 // through their own pointers (lo, hi).  The periodic wrappers pass t's last
-// and first planes; a z-shard of a distributed grid passes the planes its
-// neighbours sent (the shard-local kernel of pallas_stencil3d.py,
-// _rd3d_jvp_kernel_halo, is this kernel with those pointers and h of the
-// global grid).
+// and first planes; K11, the shard-local kernel of a z-sharded grid
+// (pallas_stencil3d.py _rd3d_jvp_kernel_halo), is K9's entry point
+// (rd3d_jvp_*) given the planes its neighbours sent and h of the global
+// grid.  Its launch is K9's, so K11 on the shards of a grid, each given its
+// neighbours' planes, is bit-equal to K9 on the whole grid.  Its bound is
+// K9's bytes on the shard plus the two planes.
 //
 // Scalars: D is read from device memory by pointer and d_h2 = D / T(h2) is
 // formed in the state's dtype, as the JAX wrapper forms it (h2 travels by

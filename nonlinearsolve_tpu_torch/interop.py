@@ -8,7 +8,9 @@ preconditioner's ``(grid_shape, alpha, h, shift)``, which are plain numbers
 and pass as they are.  ``problem_from_numpy`` and
 ``reaction_diffusion_problem_from_numpy`` build the port's problems from the
 arrays; ``csr_from_numpy`` carries a sparse matrix (a JAX ``CSR``'s
-``indptr``, ``indices``, ``data`` and shape); ``solution_to_numpy`` returns a
+``indptr``, ``indices``, ``data`` and shape); ``shard_from_numpy`` turns a
+global array (a JAX global array, as numpy) into the port's z-sharded
+DTensor on a mesh of ``parallel.mesh``; ``solution_to_numpy`` returns a
 solution as numpy arrays and ints, for comparison with the JAX package's.
 """
 
@@ -69,6 +71,33 @@ def csr_from_numpy(indptr, indices, data, shape, device=None) -> CSR:
     return CSR(torch.as_tensor(data.astype(_backend.np_dtype(dt)),
                                device=dev),
                np.asarray(indices), np.asarray(indptr), shape)
+
+
+def shard_from_numpy(x, mesh):
+    """The global array ``x`` (f32 or f64; every rank holds all of it, as a
+    JAX global array read back with numpy) as a DTensor sharded on its
+    leading axis over ``mesh``'s first axis: each member rank keeps its own
+    block of rows, on the mesh's device.  The leading axis must divide
+    evenly, as a shard_map in_spec needs."""
+    from torch.distributed.tensor import DTensor
+
+    from .parallel.mesh import mesh_device, row_sharding
+
+    x = np.asarray(x)
+    dt = _backend.resolve_dtype(x.dtype)
+    n = mesh.size(0)
+    if x.ndim < 1 or x.shape[0] % n:
+        raise ValueError(f"the leading axis of an array of shape {x.shape} "
+                         f"does not split evenly over {n} ranks")
+    rows = x.shape[0] // n
+    r = mesh.get_local_rank(0)
+    local = np.ascontiguousarray(x[r * rows:(r + 1) * rows],
+                                 dtype=_backend.np_dtype(dt))
+    full = torch.empty(x.shape, dtype=dt, device="meta")
+    return DTensor.from_local(
+        torch.as_tensor(local, device=mesh_device(mesh)), mesh,
+        row_sharding(mesh, mesh.mesh_dim_names[0], x.ndim), run_check=False,
+        shape=full.shape, stride=full.stride())
 
 
 def solution_to_numpy(sol: NonlinearSolution) -> dict:

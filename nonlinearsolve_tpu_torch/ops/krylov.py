@@ -55,16 +55,24 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     """Restarted GMRES(m), left-preconditioned: solves M⁻¹A x = M⁻¹b.
 
     ``rtol``/``atol`` may be Python numbers or numpy scalars (e.g. the
-    Eisenstat–Walker forcing term in the working dtype)."""
-    if basis_dtype is not None:
-        raise NotImplementedError(
-            "a narrowed Krylov basis (basis_dtype) is ROADMAP B.3, with the "
-            "bf16 stencil kernel")
+    Eisenstat–Walker forcing term in the working dtype).
+
+    ``basis_dtype`` (e.g. ``torch.bfloat16``) stores the Krylov basis V in
+    a narrower dtype, as the JAX package's: each vector is rounded on store
+    and upcast on read (one upcast copy of the occupied prefix per Arnoldi
+    iteration, shared by both Gram–Schmidt passes); the Hessenberg and
+    Givens recurrences, the norms and the dot accumulations stay in the
+    working dtype.  It pairs with loose inner tolerances (Eisenstat–Walker
+    inexact Newton), not rtol ≲ 1e-4."""
+    if basis_dtype is not None and b.is_complex():
+        raise ValueError("basis_dtype narrowing stores a REAL basis; "
+                         "complex systems must keep the working dtype")
     if b.is_complex():
         raise NotImplementedError("complex GMRES is ROADMAP A.33")
     n = b.numel()
     shape = b.shape
-    npdt = np_dtype(b.dtype)
+    dtype = b.dtype
+    npdt = np_dtype(dtype)
     m = min(restart, n)
     if maxiter is None:
         maxiter = min(10 * max(1, n // m), 1000) * m
@@ -83,7 +91,7 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     else:
         b_norm, rnorm = fetch(l2(mb), l2(r))
     tol = np.maximum(npdt(rtol) * b_norm, npdt(atol))
-    V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
+    V = torch.empty((m + 1, n), dtype=basis_dtype or dtype, device=b.device)
     beta = rnorm           # the norm of r, known for the first cycle
     it = 0
     while rnorm > tol and it < maxiter:
@@ -98,8 +106,8 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         k = 0
         done = beta <= tol
         while k < m and not done:
-            w = M(matvec(V[k].view(shape))).reshape(-1)
-            Vk = V[: k + 1]
+            w = M(matvec(V[k].view(shape).to(dtype))).reshape(-1)
+            Vk = V[: k + 1].to(dtype)
             hd = Vk @ w
             w_norm0 = l2(w)
             w = w - hd @ Vk
@@ -141,7 +149,8 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         R[np.arange(k), np.arange(k)] = np.where(diag == 0, npdt(1), diag)
         y = _back_substitute(R, g[:k])
         if k:
-            x = x + (torch.as_tensor(y, device=b.device) @ V[:k]).view(shape)
+            x = x + (torch.as_tensor(y, device=b.device)
+                     @ V[:k].to(dtype)).view(shape)
         rnorm = np.abs(g[k])
         it += k
         if rnorm > tol:

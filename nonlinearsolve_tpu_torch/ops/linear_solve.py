@@ -17,6 +17,8 @@ class LinearSolver:
     Of these the port runs 'gmres'; the others raise where they are used.
     ``precond_fn(u) -> (v -> M⁻¹v)`` is rebuilt at each Newton step; a
     plain ``v -> M⁻¹v`` callable is accepted too.
+    ``krylov_basis_dtype`` ('bf16', 'bfloat16' or 'f16') stores the GMRES
+    basis in that dtype (``ops.krylov.gmres(basis_dtype=)``).
     """
 
     method: str = "auto"

@@ -5,11 +5,14 @@ K1 ``brusselator_jvp(U, T, p)`` replaces ``ops/pallas_stencil.py``
 ``_brusselator_jvp_kernel`` (the Jv of every GMRES iteration on the main
 path).  K2 ``brusselator_jvp_scaled(U, T, p, inv_scale)`` and
 ``brusselator_jvp_scaled_pair(u, v, tu, tv, p, inv_scale)`` replace
-``_brusselator_jvp_scaled_kernel`` (the chained, normalised matvec).  Both
-are CUDA C++ for ``sm_90a`` in ``csrc/stencil.cu``; that file's header says
-what bounds them on the H100 (bytes: at f32 N=512 about 4 MiB read and
-2 MiB written per call, all resident in the 50 MB L2) and what the simple
-design does about it (nothing yet).
+``_brusselator_jvp_scaled_kernel`` (the chained, normalised matvec).  K3
+``brusselator_jvp_bf16(U, T, p)`` is K1 on bf16 state and tangent with f32
+``p`` (the JAX kernel at bf16); ``make_brusselator_jvp_bf16(U, p)`` is the
+JAX package's mixed-precision matvec factory around it.  All are CUDA C++
+for ``sm_90a`` in ``csrc/stencil.cu``; that file's header says what bounds
+them on the H100 (bytes: at f32 N=512 about 4 MiB read and 2 MiB written
+per call, all resident in the 50 MB L2) and what the simple design does
+about it (nothing yet).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, written with
 ``torch.roll``) for a tensor on the CPU, and only there.  For a CUDA tensor
@@ -31,6 +34,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "brusselator_jvp_f32": [_VP, _VP, _VP, _VP, _I, _VP],
     "brusselator_jvp_f64": [_VP, _VP, _VP, _VP, _I, _VP],
+    "brusselator_jvp_bf16": [_VP, _VP, _VP, _VP, _I, _VP],
     "brusselator_jvp_scaled_f32": [_VP] * 6 + [_I, _VP],
     "brusselator_jvp_scaled_f64": [_VP] * 6 + [_I, _VP],
     "brusselator_jvp_scaled_pair_f32": [_VP] * 9 + [_I, _VP],
@@ -69,6 +73,23 @@ def _jvp_planes(u, v, tu, tv, al, ap1, A):
 
 def brusselator_jvp_plain(U, T, p):
     al, ap1, A = _scalars(p, U.dtype)
+    ou, ov = _jvp_planes(U[..., 0], U[..., 1], T[..., 0], T[..., 1],
+                         al, ap1, A)
+    return torch.stack([ou, ov], dim=-1)
+
+
+def _scalars_bf16(p):
+    """K3's scalars: (α/h², A+1, A) formed in f32 from ``p`` (α/(dx·dx),
+    as XLA evaluates ``dx ** 2``), then rounded to bf16."""
+    A, alpha, dx = p[0], p[2], p[3]
+    bf = torch.bfloat16
+    return ((alpha / (dx * dx)).to(bf), (A + 1.0).to(bf), A.to(bf))
+
+
+def brusselator_jvp_bf16_plain(U, T, p):
+    """K3's plain version: ``_jvp_planes`` on bf16 tensors, every eager op
+    rounded to bf16; ``p`` in f32."""
+    al, ap1, A = _scalars_bf16(p)
     ou, ov = _jvp_planes(U[..., 0], U[..., 1], T[..., 0], T[..., 1],
                          al, ap1, A)
     return torch.stack([ou, ov], dim=-1)
@@ -164,6 +185,45 @@ def brusselator_jvp(U, T, p):
     _backend.check_launch(lib, rc, "brusselator_jvp")
     _backend.count_launch("brusselator_jvp")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def brusselator_jvp_bf16(U, T, p):
+    """K1 at bf16: ``U`` and ``T`` (N, N, 2) bf16, ``p`` (A, B, alpha, dx)
+    f32; the result is (N, N, 2) bf16."""
+    if U.device.type == "cpu":
+        return brusselator_jvp_bf16_plain(U, T, p)
+    N = _grid_n("U", U, 3)
+    bf = torch.bfloat16
+    _check_state("U", U, (N, N, 2), bf, U.device)
+    _check_state("T", T, (N, N, 2), bf, U.device)
+    _check_p(p, torch.float32, U.device)
+    out = torch.empty_like(U)
+    lib = _lib()
+    rc = lib.brusselator_jvp_bf16(
+        _backend.ptr(U), _backend.ptr(T), _backend.ptr(p), _backend.ptr(out),
+        N, _backend.stream_handle(U))
+    _backend.check_launch(lib, rc, "brusselator_jvp_bf16")
+    _backend.count_launch("brusselator_jvp_bf16")
+    return out
+
+
+def make_brusselator_jvp_bf16(U, p):
+    """Mixed-precision matvec factory (``ops/pallas_stencil.py``'s): returns
+    ``mv(T) -> J·T`` with the state cast to bf16 once, here, and ``p`` to
+    f32.  ``mv`` casts ``T`` to bf16, runs K3 and casts the result back to
+    ``T``'s dtype, so a Krylov basis around it keeps its own dtype."""
+    Ub = U.to(torch.bfloat16).contiguous()
+    p32 = p.to(torch.float32).contiguous()
+
+    def mv(T):
+        out = brusselator_jvp_bf16(Ub, T.to(torch.bfloat16).contiguous(), p32)
+        return out.to(T.dtype)
+
+    return mv
 
 
 # ---------------------------------------------------------------------------

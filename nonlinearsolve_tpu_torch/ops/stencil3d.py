@@ -4,10 +4,15 @@
 K9 ``rd3d_jvp_blocked(u, t, D, bz=, double_buffer=)`` replaces
 ``_rd3d_jvp_kernel`` / ``_rd3d_jvp_kernel_db`` (the Jv of every GMRES
 iteration of the 3D solve); K10 ``rd3d_jvp_scaled(u, t, D, inv_scale, bz=)``
-replaces ``_rd3d_jvp_kernel_db_scaled`` (the chained, normalised matvec).
-Both are CUDA C++ for ``sm_90a`` in ``csrc/stencil3d.cu``; that file's header
-says what bounds them on the H100 (bytes: at f32 256³ about 201 MB of HBM
-traffic per call) and what the simple design does about it.
+replaces ``_rd3d_jvp_kernel_db_scaled`` (the chained, normalised matvec);
+K11 ``rd3d_jvp_blocked_halo(u, t, lo, hi, D, bz=, n_global=)`` replaces
+``_rd3d_jvp_kernel_halo`` (the per-shard operator of the z-sharded grid,
+``parallel/distributed.py``): K9 on a z-shard whose neighbour planes ``lo``
+and ``hi`` (each (1, ny, nx)) were received from the neighbouring ranks,
+with h = 1/n_global.  All are CUDA C++ for ``sm_90a`` in
+``csrc/stencil3d.cu``; that file's header says what bounds them on the H100
+(bytes: at f32 256³ about 201 MB of HBM traffic per call) and what the
+simple design does about it.
 
 On an (nz, ny, nx) grid, periodic on every axis, with h = 1/nz:
 ``out = (D/h²)·Δt + (1 − 3u²)·t``.  ``D/h²`` is formed in the state's dtype,
@@ -20,8 +25,8 @@ Each wrapper takes its plain PyTorch version (``*_plain``, written with
 ``torch.roll``) for a tensor on the CPU, and only there.  For a CUDA tensor
 it checks device, dtype, shape and contiguity, launches the kernel on the
 current stream and counts the launch in ``_backend.LAUNCHES``
-(``rd3d_jvp``, ``rd3d_jvp_scaled``); anything the kernel does not take
-raises.
+(``rd3d_jvp``, ``rd3d_jvp_scaled``, ``rd3d_jvp_halo``); anything the
+kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -49,15 +54,16 @@ def _lib():
     return _backend.load("stencil3d", _SIGNATURES)
 
 
-def _check_bz(t, bz: int) -> int:
+def _check_bz(t, bz: int, what: str = "Nz") -> int:
     """nz of the (nz, ny, nx) tangent; raises the JAX package's ValueError
-    when ``bz`` does not divide it."""
+    when ``bz`` does not divide it (``what`` names nz as that message
+    does)."""
     if t.dim() != 3:
         raise ValueError(f"the state must be (nz, ny, nx), got "
                          f"{tuple(t.shape)}")
     nz = int(t.shape[0])
     if bz < 1 or nz % bz:
-        raise ValueError(f"bz={bz} must divide Nz={nz}")
+        raise ValueError(f"bz={bz} must divide {what}={nz}")
     return nz
 
 
@@ -75,12 +81,26 @@ def _d_h2(D, nz: int, dtype) -> torch.Tensor:
     return torch.tensor(D / h2, dtype=dtype)
 
 
-def rd3d_jvp_blocked_plain(u, t, D):
-    d_h2 = _d_h2(D, int(t.shape[0]), u.dtype)
+def _stencil(u, t, up, down, d_h2):
+    """``_rd3d_stencil``: the z-neighbours ``up`` (t[z−1]) and ``down``
+    (t[z+1]) given, the in-plane ones by rolls, in the JAX kernel's order."""
     inplane = (torch.roll(t, 1, 1) + torch.roll(t, -1, 1)
                + torch.roll(t, 1, 2) + torch.roll(t, -1, 2) - 6.0 * t)
-    return (d_h2 * (inplane + torch.roll(t, 1, 0) + torch.roll(t, -1, 0))
-            + (1.0 - 3.0 * u * u) * t)
+    return d_h2 * (inplane + up + down) + (1.0 - 3.0 * u * u) * t
+
+
+def rd3d_jvp_blocked_plain(u, t, D):
+    d_h2 = _d_h2(D, int(t.shape[0]), u.dtype)
+    return _stencil(u, t, torch.roll(t, 1, 0), torch.roll(t, -1, 0), d_h2)
+
+
+def rd3d_jvp_blocked_halo_plain(u, t, lo, hi, D, n_global=None):
+    """K11's plain version: the shard's z-neighbours from ``lo`` (before
+    its first plane) and ``hi`` (after its last), h = 1/n_global."""
+    nz = int(t.shape[0])
+    d_h2 = _d_h2(D, nz if n_global is None else n_global, u.dtype)
+    return _stencil(u, t, torch.cat([lo, t[:-1]]), torch.cat([t[1:], hi]),
+                    d_h2)
 
 
 def rd3d_jvp_scaled_plain(u, t, D, inv_scale):
@@ -94,13 +114,14 @@ def rd3d_jvp_scaled_plain(u, t, D, inv_scale):
 # the wrappers
 # ---------------------------------------------------------------------------
 
-def _scalar_args(u, t, D):
-    """(dtype, (nz, ny, nx), D pointer tensor, h2) for a CUDA launch."""
+def _scalar_args(u, t, D, n_h=None):
+    """(dtype, (nz, ny, nx), D pointer tensor, h2) for a CUDA launch, with
+    h = 1/n_h (1/nz when ``n_h`` is None)."""
     dtype = _dtype_of(u)
     shape = tuple(int(s) for s in t.shape)
     _check_state("u", u, shape, dtype, u.device, paired=False)
     _check_state("t", t, shape, dtype, u.device, paired=False)
-    h2 = (1.0 / shape[0]) ** 2
+    h2 = (1.0 / (shape[0] if n_h is None else n_h)) ** 2
     if isinstance(D, torch.Tensor):
         if D.numel() != 1 or D.device != u.device:
             raise ValueError("D must be a scalar on the state's device")
@@ -115,23 +136,46 @@ def _halo_planes(t, shape):
     return t[shape[0] - 1], t[0]
 
 
-def rd3d_jvp_blocked(u, t, D, *, bz: int = 8, double_buffer: bool = False):
-    """JVP of ``D Δu + u − u³ + g`` at ``u`` applied to ``t``:
-    ``D Δt + (1 − 3u²) t`` on a periodic (nz, ny, nx) grid, h = 1/nz."""
-    nz = _check_bz(t, bz)
-    if u.device.type == "cpu":
-        return rd3d_jvp_blocked_plain(u, t, D)
-    dtype, shape, d, h2 = _scalar_args(u, t, D)
-    lo, hi = _halo_planes(t, shape)
+def _launch_jvp(counter, u, t, lo, hi, d, h2, dtype, shape, bz):
+    """K9's kernel with the halo planes ``lo``/``hi``, counted as
+    ``counter`` (K9 passes t's wrapped planes, K11 the received ones)."""
     out = torch.empty_like(u)
     lib = _lib()
     rc = getattr(lib, f"rd3d_jvp_{_SUFFIX[dtype]}")(
         _backend.ptr(u), _backend.ptr(t), _backend.ptr(lo), _backend.ptr(hi),
-        _backend.ptr(d), h2, _backend.ptr(out), nz, shape[1], shape[2], bz,
-        _backend.stream_handle(u))
-    _backend.check_launch(lib, rc, "rd3d_jvp")
-    _backend.count_launch("rd3d_jvp")
+        _backend.ptr(d), h2, _backend.ptr(out), shape[0], shape[1], shape[2],
+        bz, _backend.stream_handle(u))
+    _backend.check_launch(lib, rc, counter)
+    _backend.count_launch(counter)
     return out
+
+
+def rd3d_jvp_blocked(u, t, D, *, bz: int = 8, double_buffer: bool = False):
+    """JVP of ``D Δu + u − u³ + g`` at ``u`` applied to ``t``:
+    ``D Δt + (1 − 3u²) t`` on a periodic (nz, ny, nx) grid, h = 1/nz."""
+    _check_bz(t, bz)
+    if u.device.type == "cpu":
+        return rd3d_jvp_blocked_plain(u, t, D)
+    dtype, shape, d, h2 = _scalar_args(u, t, D)
+    lo, hi = _halo_planes(t, shape)
+    return _launch_jvp("rd3d_jvp", u, t, lo, hi, d, h2, dtype, shape, bz)
+
+
+def rd3d_jvp_blocked_halo(u, t, lo, hi, D, *, bz: int = 8,
+                          n_global=None):
+    """K11: ``rd3d_jvp_blocked`` on a z-shard (nz, ny, nx) whose plane
+    before z = 0 is ``lo`` and after z = nz-1 is ``hi`` (each (1, ny, nx),
+    received from the neighbouring shards), with h = 1/n_global (1/nz when
+    None).  ``bz`` must divide the local nz."""
+    _check_bz(t, bz, "local Nz")
+    if u.device.type == "cpu":
+        return rd3d_jvp_blocked_halo_plain(u, t, lo, hi, D, n_global)
+    dtype, shape, d, h2 = _scalar_args(u, t, D, n_global)
+    for name, x in (("lo", lo), ("hi", hi)):
+        _check_state(name, x, (1,) + shape[1:], dtype, u.device,
+                     paired=False)
+    return _launch_jvp("rd3d_jvp_halo", u, t, lo, hi, d, h2, dtype, shape,
+                       bz)
 
 
 def rd3d_jvp_scaled(u, t, D, inv_scale, *, bz: int = 4):

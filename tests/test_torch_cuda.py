@@ -566,3 +566,158 @@ def test_rd3d_solve_on_card_matches_cpu(cuda):
     assert float((gpu.u.cpu() - cpu.u).abs().max()) <= 1e-8 * scale
     assert lg["rd3d_jvp"] == gpu.counters["jvp"] > 0
     assert not any(lc.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 33, 512])
+def test_k3_matches_plain_on_card_bit_for_bit(cuda, N):
+    """K3 rounds every operation to bf16 in the plain version's order, with
+    no FMA contraction: bit-equal to the plain version on the card."""
+    U, T, p = _inputs(N, "float32", 40 + N, cuda)
+    bf = torch.bfloat16
+    Ub, Tb = U.to(bf), T.to(bf)
+    launches = dict(_backend.LAUNCHES)
+    got = tst.brusselator_jvp_bf16(Ub, Tb, p)
+    ref = tst.brusselator_jvp_bf16_plain(Ub, Tb, p)
+    assert got.dtype == bf and torch.equal(got, ref)
+    mv = tst.make_brusselator_jvp_bf16(U, p)
+    out = mv(T)
+    assert out.dtype == torch.float32 and torch.equal(out, ref.float())
+    assert _backend.LAUNCHES["brusselator_jvp_bf16"] == \
+        launches["brusselator_jvp_bf16"] + 2
+    assert _backend.LAUNCHES["brusselator_jvp"] == launches["brusselator_jvp"]
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    U, T, p = _inputs(16, "float32", 4, cuda)
+    bf = torch.bfloat16
+    with pytest.raises(TypeError):
+        tst.brusselator_jvp_bf16(U, T, p)                 # f32 state
+    with pytest.raises(TypeError):
+        tst.brusselator_jvp_bf16(U.to(bf), T.to(bf), p.to(bf))
+    with pytest.raises(ValueError):
+        tst.brusselator_jvp_bf16(U.to(bf), T.to(bf).cpu(), p)
+    with pytest.raises(ValueError):
+        tst.brusselator_jvp_bf16(U.to(bf), T.to(bf).transpose(0, 1), p)
+
+
+@pytest.mark.cuda
+def test_bf16_flagship_runs_on_card_match_cpu(cuda):
+    """The flagship's bf16 runs at N=32 f32 (bench.py's algorithm with the
+    bf16 basis; run (b) with the K3 matvec): the card's retcode and nsteps
+    are the CPU's; run (b) launches K3 for every product and K1 never."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.ops.preconditioners import \
+        fft_poisson_preconditioner
+
+    N = 32
+    alg = tnls.NewtonRaphson(
+        linsolve=tnls.LinearSolver(
+            method="gmres", restart=8, krylov_maxiter=100,
+            krylov_basis_dtype="bf16",
+            precond_fn=fft_poisson_preconditioner(
+                (N, N), alpha=10.0, h=1.0 / (N - 1), shift=3.0,
+                n_components=2)),
+        forcing=tnls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+    for run in ("a", "b"):
+        sols = []
+        for d in (cuda, "cpu"):
+            prob = tbru.make_problem(N, torch.float32, kernel_jvp=True,
+                                     device=d)
+            if run == "b":
+                prob = tnls.NonlinearProblem(tnls.NonlinearFunction(
+                    f=tbru.brusselator_2d,
+                    jvp=lambda v, U, p: tst.make_brusselator_jvp_bf16(U, p)(
+                        v)), prob.u0, prob.p)
+            _backend.reset_counters()
+            sols.append((tnls.solve(prob, alg, abstol=5.0, maxiters=30),
+                         dict(_backend.LAUNCHES)))
+        (gpu, lg), (cpu, _) = sols
+        assert gpu.retcode == cpu.retcode
+        assert abs(gpu.stats.nsteps - cpu.stats.nsteps) <= 1
+        if run == "b":
+            assert lg["brusselator_jvp_bf16"] == gpu.counters["jvp"] > 0
+            assert lg["brusselator_jvp"] == 0
+        else:
+            assert lg["brusselator_jvp"] == gpu.counters["jvp"] > 0
+            assert lg["brusselator_jvp_bf16"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape,S,bz", [((64, 64, 64), 4, 8),
+                                        ((40, 72, 100), 4, 5)])
+def test_k11_shards_equal_k9_on_card(cuda, shape, S, bz, dtype):
+    """K11 on S z-slabs, each given its neighbours' planes and h of the
+    whole grid, is K9 on the whole grid bit for bit; each slab agrees with
+    K11's plain version."""
+    from nonlinearsolve_tpu_torch.ops import stencil3d as t3
+    u, t, D = _rd3d_inputs(shape, dtype, 11, cuda)
+    nz = shape[0] // S
+    launches = dict(_backend.LAUNCHES)
+    parts = []
+    for s in range(S):
+        z = slice(s * nz, (s + 1) * nz)
+        lo = t[(s * nz - 1) % shape[0]][None].contiguous()
+        hi = t[((s + 1) * nz) % shape[0]][None].contiguous()
+        ul, tl = u[z].contiguous(), t[z].contiguous()
+        out = t3.rd3d_jvp_blocked_halo(ul, tl, lo, hi, D, bz=bz,
+                                       n_global=shape[0])
+        _close(out, t3.rd3d_jvp_blocked_halo_plain(ul, tl, lo, hi, D,
+                                                   shape[0]), dtype)
+        parts.append(out)
+    whole = t3.rd3d_jvp_blocked(u, t, D, bz=bz)
+    assert torch.equal(torch.cat(parts), whole)
+    assert _backend.LAUNCHES["rd3d_jvp_halo"] == \
+        launches["rd3d_jvp_halo"] + S
+
+
+@pytest.mark.cuda
+def test_k11_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from nonlinearsolve_tpu_torch.ops import stencil3d as t3
+    u, t, D = _rd3d_inputs((16, 16, 16), "float32", 12, cuda)
+    lo, hi = t[-1:].contiguous(), t[:1].contiguous()
+    with pytest.raises(ValueError, match="must divide local Nz"):
+        t3.rd3d_jvp_blocked_halo(u, t, lo, hi, D, bz=5)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_blocked_halo(u, t, t[-2:], hi, D, bz=4)
+    with pytest.raises(TypeError):
+        t3.rd3d_jvp_blocked_halo(u, t, lo.double(), hi, D, bz=4)
+    with pytest.raises(ValueError):
+        t3.rd3d_jvp_blocked_halo(u, t, lo, hi.cpu(), D, bz=4)
+
+
+@pytest.mark.cuda
+def test_distributed_layer_at_world_size_one_on_card(cuda):
+    """NCCL at world size 1 on the card: the ring hands a shard its own
+    planes (no P2P call), so both 3D factories are K9 on the whole grid,
+    and the weak-scaling report runs K11 in its two chains."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from nonlinearsolve_tpu_torch.ops import stencil3d as t3
+    from nonlinearsolve_tpu_torch.parallel import (
+        create_mesh, sharded_rd3d_jvp_factory,
+        sharded_rd3d_jvp_pallas_factory)
+    from nonlinearsolve_tpu_torch.parallel.scaling import weak_scaling_report
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = create_mesh()
+        u, t, _ = _rd3d_inputs((32, 32, 32), "float32", 13, cuda)
+        ud, td = (DTensor.from_local(a, mesh, [Shard(0)], run_check=False)
+                  for a in (u, t))
+        whole = t3.rd3d_jvp_blocked(u, t, 0.01, bz=8)
+        k11 = sharded_rd3d_jvp_pallas_factory(mesh, 0.01, 32)(ud, td)
+        assert torch.equal(k11.to_local(), whole)
+        rolls = sharded_rd3d_jvp_factory(mesh, 0.01, 32)(ud, td)
+        _close(rolls.to_local(), whole, "float32")
+        _backend.reset_counters()
+        rows = weak_scaling_report([1, 2], base_n=32, n_matvecs=3,
+                                   use_pallas=True, bz=8)
+        assert [k for k, _, _ in rows] == [1] and rows[0][1] > 0
+        assert _backend.LAUNCHES["rd3d_jvp_halo"] == 2 * 3
+    finally:
+        dist.destroy_process_group()
