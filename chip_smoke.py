@@ -132,7 +132,20 @@ check raises, so the script exits non-zero.
    launches (the report's warm-up chain and its timed chain, 50 each, as
    the JAX package's report runs them), no K9 or K10 launch; the rate
    beside phase 9's K10 chain;
-17. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+17. the block-sparse layer (counters at 0 just before, read just after):
+   phase 6's f64 Jacobian at its root, assembled once with the plan as CSR
+   (outside the count), reblocked by ``BSR.from_csr(J, 2)`` (each grid
+   point's two species one 2×2 block).  Checks: 1,310,720 blocks, 5 a
+   block row, ``diag_blocks()`` (262144, 2, 2); K6 (``bsr_spmm``) times
+   the 8 colour seeds equal to the compressed colored JVPs at the same u
+   bit for bit; ``Jb.matvec`` (K5 on the expanded pattern) against the CSR
+   J's product at TOL; ``block_jacobi_preconditioner(Jb.diag_blocks())``
+   applied to D·v gives v back at TOL; K6 launches = products, one K5
+   launch, no K4, K7 or K8 launch.  Then K6 against its plain version at
+   nrhs 8 and 37, f32 and f64, seeded X, timed beside cuSPARSE (BSR ×
+   dense, or CSR × dense on the expanded pattern where torch refuses it)
+   and K5 on the expanded pattern once per column;
+18. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -159,6 +172,7 @@ REPLACES = {
     "rd3d_jvp_scaled": "nonlinearsolve_tpu/ops/pallas_stencil3d.py:174",
     "brusselator_jvp_bf16": "nonlinearsolve_tpu/ops/pallas_stencil.py:183",
     "rd3d_jvp_halo": "nonlinearsolve_tpu/ops/pallas_stencil3d.py:260",
+    "bsr_spmm": "nonlinearsolve_tpu/ops/pallas_spmv.py:945",
 }
 # The JAX package on the CPU (jax_platforms cpu, x64 on; its f32 solve) at
 # phase 14's operating point, N=512: run (a) is the bf16 Krylov basis with
@@ -216,6 +230,9 @@ SPMV_LIBRARY = {
                        "data), summed over the parts",
     "scatter_spmv": "cuSPARSE CSR matvec of the same matrix "
                     "(torch.sparse_csr_tensor @ x)",
+    "bsr_spmm": "cuSPARSE BSR x dense (torch.sparse_bsr_tensor @ X); where "
+                "torch refuses it, CSR x dense on the expanded pattern "
+                "(torch.sparse_csr_tensor @ X)",
 }
 LOG = {"path": None}
 
@@ -671,6 +688,70 @@ def csr_kernel_checks(torch, dev, spmv, cplan, jac_data):
         if dtype == torch.float64:
             records = {"gather_spmv": rec, "gather_select_csr": sel_rec}
         del data, x, csr_lib
+    return records
+
+
+def bsr_kernel_checks(torch, dev, spmv, Jb):
+    """K6 against its plain version on the block-sparse phase's matrix (the
+    512² Jacobian at the root, b = 2) with seeded X, nrhs 8 and 37, f32 and
+    f64; timed beside cuSPARSE (BSR × dense, or CSR × dense on the expanded
+    pattern where torch refuses BSR) and beside K5 on the expanded pattern
+    once per column.  Returns the records by (dtype, nrhs)."""
+    import numpy as np
+
+    n = Jb.shape[0]
+    b = Jb.blocksize
+    nblocks = len(Jb.indices)
+    indptr, indices, _cols, _brow = Jb.device_tables(dev)
+    s_indptr, s_indices, take = Jb.scalar_tables(dev)
+    rng = np.random.default_rng(6)
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        A = Jb.with_data(Jb.data.to(dtype).contiguous())
+        s_data = A.data.reshape(-1)[take]
+        bsr_lib = torch.sparse_bsr_tensor(indptr, indices, A.data, (n, n))
+        csr_lib = torch.sparse_csr_tensor(s_indptr, s_indices, s_data, (n, n))
+        for nrhs in (8, 37):
+            X = torch.as_tensor(rng.standard_normal((n, nrhs)), dtype=dtype,
+                                device=dev)
+            Xt = X.t().contiguous()
+            try:
+                (bsr_lib @ X).sum().item()
+                library, refusal = (lambda: bsr_lib @ X), None
+            except RuntimeError as exc:
+                library = lambda: csr_lib @ X
+                refusal = f"torch.sparse_bsr_tensor @ X refused: {exc}"[:300]
+
+            def k5_columns():
+                return [spmv.gather_spmv(s_indptr, s_indices, s_data, Xt[c])
+                        for c in range(nrhs)]
+
+            def extra(got):
+                return {"k5_columns_equal_plain": rel_err(
+                    torch.stack(k5_columns(), 1), got)[1] <= TOL[dname]}
+
+            rec = spmv_case(
+                torch, "bsr_spmm", "bsr_512_root_b2", dname,
+                lambda: spmv.bsr_spmm(A, X),
+                lambda: spmv.bsr_spmm_plain(A, X), library,
+                (nblocks * (b * b * item + 4) + (n // b + 1) * 4
+                 + 2 * n * nrhs * item, 2 * nblocks * b * b * nrhs),
+                [n, nrhs, nblocks, b], extra_check=extra)
+            rec = {**rec, "nrhs": nrhs,
+                   "library_call": ("bsr" if refusal is None
+                                    else "csr_expanded"),
+                   "library_refusal": refusal,
+                   "k5_columns_ms": graph_time_ms(torch, k5_columns,
+                                                  calls=10, replays=4)}
+            emit({"phase": "kernel_time_bsr", "dtype": dname, "nrhs": nrhs,
+                  "library_call": rec["library_call"],
+                  "library_refusal": refusal,
+                  "k5_columns_ms": rec["k5_columns_ms"]})
+            records[(dname, nrhs)] = rec
+            del X, Xt
+        del A, s_data, bsr_lib, csr_lib
     return records
 
 
@@ -1983,7 +2064,75 @@ def main(argv):
     if failed:
         raise AssertionError(f"weak scaling failed: {failed}")
 
-    # --- 17. summary -------------------------------------------------------
+    # --- 17. the block-sparse layer: phase 6's Jacobian at the root as BSR --
+    from nonlinearsolve_tpu_torch.ops.preconditioners import (
+        block_jacobi_preconditioner)
+    from nonlinearsolve_tpu_torch.ops.sparse import BSR
+
+    def sres(u):
+        return sprob.f.f(u, sprob.p)
+
+    # outside the counted run: J assembled once with the plan as CSR (K5's
+    # selection), the compressed JVPs, and J·x on J's own tier (K4)
+    t_phase = time.perf_counter()
+    J = splan(sres, ssol.u)
+    compressed = splan._compressed(sres, ssol.u)
+    S = torch.as_tensor(splan._seeds.T.copy(), dtype=f64, device=dev)
+    brng = np.random.default_rng(7)
+    xb = torch.as_tensor(brng.standard_normal(n), device=dev)
+    vb = torch.as_tensor(brng.standard_normal(n), device=dev)
+    y_csr = J.matvec(xb)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    Jb = BSR.from_csr(J, 2)
+    t_from_csr = time.perf_counter() - t0
+    Y = spmv.bsr_spmm(Jb, S)
+    k6_products = 1
+    y_bsr = Jb.matvec(xb)
+    D = Jb.diag_blocks()
+    v_back = block_jacobi_preconditioner(D)(
+        torch.bmm(D, vb.reshape(-1, 2, 1)).reshape(-1))
+    torch.cuda.synchronize()
+    bsr_s = time.perf_counter() - t0
+    bsr_launches = dict(_backend.LAUNCHES)
+    seeds_equal = bool(torch.equal(Y, compressed.t()))
+    mv_err = rel_err(y_bsr, y_csr)
+    bj_err = rel_err(v_back, vb)
+    per_row = np.diff(Jb.indptr)
+    emit({"phase": "block_sparse", "N": N, "dtype": "float64",
+          "blocksize": 2, "block_rows": len(per_row),
+          "nblocks": len(Jb.indices), "blocks_per_row": [
+              int(per_row.min()), int(per_row.max())],
+          "diag_blocks_shape": list(D.shape),
+          "seeds_product_equals_compressed_jvps": seeds_equal,
+          "matvec_rel_err_to_csr": mv_err[1],
+          "block_jacobi_rel_err": bj_err[1], "tolerance": TOL["float64"],
+          "launches": bsr_launches, "k6_products": k6_products,
+          "from_csr_s": t_from_csr, "seconds": bsr_s})
+    nbr = n // 2
+    checks = {
+        "1,310,720 blocks, 5 a block row": (len(Jb.indices) == 5 * nbr
+                                           and bool((per_row == 5).all())),
+        "diag_blocks (262144, 2, 2)": tuple(D.shape) == (nbr, 2, 2),
+        "K6 x seeds == compressed JVPs, bit for bit": seeds_equal,
+        "BSR.matvec (K5) == CSR J·x at TOL": mv_err[1] <= TOL["float64"],
+        "block-Jacobi gives v back at TOL": bj_err[1] <= TOL["float64"],
+        "K6 launches == products": bsr_launches["bsr_spmm"] == k6_products,
+        "one K5 launch (the matvec)": bsr_launches["gather_spmv"] == 1,
+        "no K4, K7 or K8 launch": not any(
+            bsr_launches[k] for k in ("dia_spmv", "band_spmv",
+                                      "scatter_expand", "scatter_regroup")),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"block-sparse layer failed: {failed}")
+    bsr_summary = bsr_kernel_checks(torch, dev, spmv, Jb)
+    emit({"phase": "block_sparse_timing",
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    del J, compressed, S, Y, Jb, D
+
+    # --- 18. summary -------------------------------------------------------
     out = []
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
         r = summary[name]
@@ -2073,6 +2222,24 @@ def main(argv):
                 "shard_64": {k: k11_summary["shard_64"][k]
                              for k in ("ms", "plain_ms", "bound_ms",
                                        "share_of_bound")}})
+    r = bsr_summary[("float64", 8)]
+    out.append({"name": "bsr_spmm", "route": "cuda", "source": SPMV_SOURCE,
+                "replaces": REPLACES["bsr_spmm"],
+                "launches": bsr_launches["bsr_spmm"],
+                "launches_in": "block_sparse", "tables": r["tables"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "library_note": r["library"],
+                "library_call": r["library_call"],
+                "share_of_bound": r["share_of_bound"], "shape": r["shape"],
+                "dtype": "float64", "k5_columns_ms": r["k5_columns_ms"],
+                "other": {f"{d}_nrhs{k}": {
+                    key: v[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "share_of_bound", "library_ms",
+                                            "library_call", "k5_columns_ms")}
+                    for (d, k), v in bsr_summary.items()
+                    if (d, k) != ("float64", 8)}})
     emit({"kernels": out})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})

@@ -3,7 +3,8 @@
 ``solve`` checks the keyword arguments, merges call-site over problem
 kwargs and runs ``solve_nonlinear``.  The port runs the shaped path only:
 the iterate is ``u0`` itself, one tensor of any shape (≥ 1-d), never
-flattened.  The engine runs under ``torch.no_grad()`` on the device that
+flattened; an empty ``u0`` returns ``Success`` at once, as in the JAX
+package.  The engine runs under ``torch.no_grad()`` on the device that
 ``u0`` is on.  When the algorithm takes the colored sparse-AD path, the
 host-side plan (pattern, coloring, DIA tier) is built once before the loop
 and cached.  Options whose machinery is not ported raise
@@ -28,7 +29,7 @@ from ..ops.sparse_jac import plan_sparse_jacobian
 from .jacobian import JacobianSpec, wants_sparse
 from .problems import NonlinearProblem
 from .returncode import ReturnCode
-from .solution import NonlinearSolution
+from .solution import NLStats, NonlinearSolution
 from .termination import default_termination_mode
 
 _ALLOWED_KWARGS = frozenset({
@@ -134,6 +135,13 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
             raise NotImplementedError(
                 f"{name} requires grad: differentiating through the solve "
                 f"(the implicit-function rule) is ROADMAP A.28")
+    if u0.numel() == 0:
+        # The null-u0 fast path (the JAX package's _build_null_solution for
+        # NonlinearProblem): an empty state solves trivially, before f is
+        # evaluated or a sparse plan is built.
+        return NonlinearSolution(
+            u=u0, resid=u0, retcode=ReturnCode.Success, stats=NLStats(),
+            counters={"jvp": 0, "krylov_iters": 0, "host_syncs": 0})
     # alias_u0 has no effect: the engine never writes into u0.
 
     npdt = _backend.np_dtype(u0.dtype)

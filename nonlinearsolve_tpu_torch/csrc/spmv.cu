@@ -40,6 +40,21 @@
 //                      regroup  y[r] = sum_k p[pos[k]], indptr[r] <= k <
 //                               indptr[r+1] (unit data: no data array)
 //
+// K6  bsr_spmm       replaces nonlinearsolve_tpu/ops/pallas_spmv.py
+//                    _bsr_spmm_kernel / _bsr_spmm_call (bsr_spmm_pallas):
+//                    Y = A X for A in block CSR (dense b x b blocks) and a
+//                    dense row-major X (n_cols x nrhs):
+//                      Y[i*b + r, c] = sum_{k in block row i} sum_j
+//                                      data[k, r, j] * X[indices[k]*b + j, c]
+//                    summed in block order k, then j ascending, in the value
+//                    type (the Pallas kernel's f32 / f64 accumulator).  It
+//                    reads the block CSR as it is: the TPU kernel's ELL
+//                    padding of block rows and 8-sublane X tiles are its
+//                    layout, not its function.  An empty block row writes 0;
+//                    every entry of a block is multiplied, zeros included, so
+//                    a NaN in X reaches every row whose block row references
+//                    it, as the dense block product does.
+//
 // Bound on the H100: bytes, for all of them.  At the 512^2 Brusselator
 // (n = 524,288, 11 diagonals, 3,145,728 nonzeros) in f64, reading every input
 // once and writing y once:
@@ -58,7 +73,12 @@
 // ~2.1M positions), f32: the expand and regroup passes of the three parts
 // and the parts' sum move ~ 150 MB (~ 45 us) where K5 moves ~ 60 MB
 // (~ 18 us): x (3.5 MB) sits in the 50 MB L2 here, so the locality the
-// two passes buy on a TPU buys nothing on this card.  The TPU kernels
+// two passes buy on a TPU buys nothing on this card.  K6 on the same 512^2
+// matrix reblocked with b = 2 (262,144 block rows, 1,310,720 blocks), f64:
+// data (41.9 MB) + block indices (5.2 MB) + block indptr (1.0 MB) + X and Y
+// once (33.5 MB each at nrhs 8) = 115 MB ~ 34 us; at nrhs 37 ~ 359 MB
+// ~ 107 us; 2 b^2 nrhs flops a block (84M at nrhs 8) are ~ 2.5 us of f64
+// arithmetic.  The TPU kernels
 // were shaped by the lack of scalar gathers (windowed slot-major ELL,
 // register gathers inside an (8, 128) tile); Hopper gathers through L1/L2,
 // so the port keeps the CSR and DIA layouts as they are and lets the caches
@@ -74,8 +94,13 @@
 // w slots; the slot-major layout makes each slot's cols and data reads
 // coalesced across a warp, and its offsets are 64-bit (w * n_pad is 184.5M
 // at 256^3).  K8's expand is one thread per position, its regroup one
-// thread per output row (K5 without data).  No shared-memory tiling, no
-// warp-per-row split, no vector loads: making these fast is later work.
+// thread per output row (K5 without data).  K6 is one thread per output
+// (block row i, row r of the block, column c), c fastest: a warp's reads of
+// an X row segment are consecutive (coalesced) and its reads of a block's
+// row are one address (a broadcast); the thread walks its block row's
+// blocks in CSR order, no atomics, and its offsets are 64-bit.  No
+// shared-memory tiling, no warp-per-row split, no vector loads, no tensor
+// cores for K6: making these fast is later work.
 // a*b + c is contracted into an FMA, so the sums differ from the plain
 // versions' in the last bits.
 
@@ -173,6 +198,27 @@ scatter_regroup_kernel(const int* __restrict__ indptr,
   y[r] = acc;
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bsr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                const T* __restrict__ data, const T* __restrict__ X,
+                T* __restrict__ Y, long long n_out, int b, int nrhs) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= n_out) return;
+  const long long row = t / nrhs;          // scalar row i*b + r
+  const int c = static_cast<int>(t - row * nrhs);
+  const long long i = row / b;
+  const int r = static_cast<int>(row - i * b);
+  const int k1 = indptr[i + 1];
+  T acc = T(0);
+  for (int k = indptr[i]; k < k1; ++k) {
+    const T* d = data + (static_cast<long long>(k) * b + r) * b;
+    const T* x = X + static_cast<long long>(indices[k]) * b * nrhs + c;
+    for (int j = 0; j < b; ++j) acc += d[j] * x[static_cast<long long>(j) * nrhs];
+  }
+  Y[t] = acc;
+}
+
 inline unsigned blocks_of(int n) {
   return static_cast<unsigned>((static_cast<long long>(n) + kThreads - 1) / kThreads);
 }
@@ -257,6 +303,25 @@ int launch_regroup(const void* indptr, const void* pos, const void* p, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_bsr_spmm(const void* indptr, const void* indices, const void* data,
+                    const void* X, void* Y, int n_brows, int b, int nrhs,
+                    void* stream) {
+  if (n_brows < 0 || b < 1 || nrhs < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_out = static_cast<long long>(n_brows) * b * nrhs;
+  if (n_out == 0) return 0;
+  const long long grid = (n_out + kThreads - 1) / kThreads;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bsr_spmm_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(indices),
+      static_cast<const T*>(data), static_cast<const T*>(X),
+      static_cast<T*>(Y), n_out, b, nrhs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -323,6 +388,20 @@ int scatter_regroup_f32(const void* indptr, const void* pos, const void* p,
 int scatter_regroup_f64(const void* indptr, const void* pos, const void* p,
                         void* y, int n_rows, void* stream) {
   return launch_regroup<double>(indptr, pos, p, y, n_rows, stream);
+}
+
+int bsr_spmm_f32(const void* indptr, const void* indices, const void* data,
+                 const void* X, void* Y, int n_brows, int b, int nrhs,
+                 void* stream) {
+  return launch_bsr_spmm<float>(indptr, indices, data, X, Y, n_brows, b, nrhs,
+                                stream);
+}
+
+int bsr_spmm_f64(const void* indptr, const void* indices, const void* data,
+                 const void* X, void* Y, int n_brows, int b, int nrhs,
+                 void* stream) {
+  return launch_bsr_spmm<double>(indptr, indices, data, X, Y, n_brows, b, nrhs,
+                                 stream);
 }
 
 }  // extern "C"

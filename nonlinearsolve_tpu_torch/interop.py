@@ -7,8 +7,9 @@ Brusselator's ``(u0, p)`` (the JAX package's ``models.brusselator.init_u0`` /
 preconditioner's ``(grid_shape, alpha, h, shift)``, which are plain numbers
 and pass as they are.  ``problem_from_numpy`` and
 ``reaction_diffusion_problem_from_numpy`` build the port's problems from the
-arrays; ``csr_from_numpy`` carries a sparse matrix (a JAX ``CSR``'s
-``indptr``, ``indices``, ``data`` and shape); ``shard_from_numpy`` turns a
+arrays; ``csr_from_numpy``, ``bsr_from_numpy`` and ``ell_from_numpy`` carry
+a sparse matrix (a JAX ``CSR``'s, ``BSR``'s or ``ELL``'s arrays and shape);
+``shard_from_numpy`` turns a
 global array (a JAX global array, as numpy) into the port's z-sharded
 DTensor on a mesh of ``parallel.mesh``; ``solution_to_numpy`` returns a
 solution as numpy arrays and ints, for comparison with the JAX package's.
@@ -25,7 +26,7 @@ from . import _backend
 from .core.problems import NonlinearProblem
 from .core.solution import NonlinearSolution
 from .models import brusselator, reaction_diffusion
-from .ops.sparse import CSR
+from .ops.sparse import BSR, CSR, ELL
 
 
 def problem_from_numpy(u0, p, *, kernel_jvp: bool = False, device=None,
@@ -65,12 +66,31 @@ def csr_from_numpy(indptr, indices, data, shape, device=None) -> CSR:
     """The port's ``CSR`` of a matrix given by its CSR arrays (host
     pattern, ``data`` on ``device``, the card by default, in its own
     dtype)."""
-    dev = _backend.resolve_device(device)
+    return CSR(_values(data, _backend.resolve_device(device)),
+               np.asarray(indices), np.asarray(indptr), shape)
+
+
+def _values(data, dev):
     data = np.asarray(data)
     dt = _backend.resolve_dtype(data.dtype)
-    return CSR(torch.as_tensor(data.astype(_backend.np_dtype(dt)),
-                               device=dev),
-               np.asarray(indices), np.asarray(indptr), shape)
+    return torch.as_tensor(data.astype(_backend.np_dtype(dt)), device=dev)
+
+
+def bsr_from_numpy(data, indices, indptr, shape, blocksize,
+                   device=None) -> BSR:
+    """The port's ``BSR`` of a JAX ``BSR``'s arrays: ``data`` (nblocks, b,
+    b) on ``device`` (the card by default) in its own dtype, the block
+    pattern on the host."""
+    return BSR(_values(data, _backend.resolve_device(device)),
+               np.asarray(indices), np.asarray(indptr), shape, blocksize)
+
+
+def ell_from_numpy(data, cols, valid, shape, device=None) -> ELL:
+    """The port's ``ELL`` of a JAX ``ELL``'s arrays: ``data`` (n_rows,
+    width) on ``device`` (the card by default), ``cols`` and ``valid`` on
+    the host."""
+    return ELL(_values(data, _backend.resolve_device(device)),
+               np.asarray(cols), np.asarray(valid), shape)
 
 
 def shard_from_numpy(x, mesh):

@@ -4,11 +4,11 @@
 The source is compiled as it is, with ``g++``, at first use into
 ``nonlinearsolve_tpu_torch/csrc/build/`` (through
 ``_backend.compile_shared``: the library's name carries a hash of the
-source and the flags) and bound with ``ctypes``.  Bound: ``greedy_column_coloring`` and
-``rcm_ordering``.  A failed build raises with the compiler's output: the
-port never falls back to the Python coloring on its own, and where the
-JAX package's ``rcm_ordering`` returns ``None`` without its library, the
-port's raises.
+source and the flags) and bound with ``ctypes``.  Bound: ``greedy_column_coloring``, ``rcm_ordering`` and
+``ell_plan``.  A failed build raises with the compiler's output: the port
+never falls back to the Python coloring or ELL loop on its own, and where
+the JAX package's ``rcm_ordering`` and ``ell_plan`` return ``None`` without
+their library, the port's raise.
 """
 
 from __future__ import annotations
@@ -50,12 +50,16 @@ def get_lib() -> ctypes.CDLL:
                 i32p, i32p, ctypes.c_int32, ctypes.c_int32, i32p]
             lib.rcm_ordering.restype = ctypes.c_int32
             lib.rcm_ordering.argtypes = [i32p, i32p, ctypes.c_int32, i32p]
+            lib.ell_plan.restype = ctypes.c_int32
+            lib.ell_plan.argtypes = [
+                i32p, i32p, ctypes.c_int32, ctypes.c_int32, i32p,
+                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int8)]
             _lib = lib
     return _lib
 
 
-def _ptr(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+def _ptr(a, typ=ctypes.c_int32):
+    return a.ctypes.data_as(ctypes.POINTER(typ))
 
 
 def greedy_column_coloring(indptr, indices, n_rows, n_cols) -> np.ndarray:
@@ -93,3 +97,30 @@ def rcm_ordering(indptr, indices, n) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"rcm_ordering refused the pattern (rc {rc})")
     return perm
+
+
+def ell_plan(indptr, indices, n_rows):
+    """The ELL layout of a CSR pattern: ``(width, cols, perm, valid)``, with
+    ``width`` the longest row, ``cols`` (int32), ``perm`` (int64, the
+    source nonzero of each slot) and ``valid`` (bool) of shape
+    (n_rows, width); pad slots hold 0 / 0 / False.  One query call for the
+    width, then one fill call, as the JAX loader does.  Raises if the
+    library refuses the pattern."""
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    if indptr.shape != (n_rows + 1,) or indptr[-1] != indices.size:
+        raise ValueError("indptr does not describe the indices")
+    lib = get_lib()
+    width = lib.ell_plan(_ptr(indptr), _ptr(indices), np.int32(n_rows),
+                         np.int32(0), None, None, None)
+    if width < 0:
+        raise ValueError(f"ell_plan refused the pattern (rc {width})")
+    cols = np.zeros((n_rows, width), np.int32)
+    perm = np.zeros((n_rows, width), np.int64)
+    valid = np.zeros((n_rows, width), np.int8)
+    rc = lib.ell_plan(_ptr(indptr), _ptr(indices), np.int32(n_rows),
+                      np.int32(width), _ptr(cols), _ptr(perm, ctypes.c_int64),
+                      _ptr(valid, ctypes.c_int8))
+    if rc < 0:
+        raise ValueError(f"ell_plan refused the pattern (rc {rc})")
+    return width, cols, perm, valid.astype(bool)

@@ -50,7 +50,7 @@ def JacVecOperator(f_flat: Callable, u=None, *, analytic_jvp=None):
 
 
 def as_matvec(A) -> Callable:
-    """Normalize a dense matrix, a sparse container (CSR, DIA) or an
+    """Normalize a dense matrix, a sparse container (CSR, DIA, ELL) or an
     operator to ``v -> A@v``."""
     if callable(A) and not isinstance(A, torch.Tensor):
         return A
@@ -59,11 +59,11 @@ def as_matvec(A) -> Callable:
 
 def mv(A, v):
     """``A @ v`` for a dense matrix (with a shaped ``v``), a sparse container
-    (flat ``v``) or an operator."""
-    from .sparse import CSR, DIA
+    (CSR, DIA, ELL; flat ``v``) or an operator."""
+    from .sparse import CSR, DIA, ELL
     if isinstance(A, StatefulJacobianOperator):
         return A(v)
-    if isinstance(A, (CSR, DIA)):
+    if isinstance(A, (CSR, DIA, ELL)):
         return A.matvec(v)
     if v.dim() != 1:
         return (A @ v.reshape(-1)).reshape(v.shape)

@@ -1,7 +1,14 @@
-"""FFT Poisson preconditioner (the port of ``ops/preconditioners.py``'s
-``fft_poisson_symbol`` and ``fft_poisson_preconditioner``), on ``torch.fft``.
+"""Preconditioners (the port of ``ops/preconditioners.py``'s
+``jacobi_preconditioner``, ``block_jacobi_preconditioner``,
+``fft_poisson_symbol`` and ``fft_poisson_preconditioner``).  Each returns a
+``v -> M⁻¹ v`` callable for ``LinearSolver(precond_fn=...)``.
 
-The preconditioner inverts ``alpha·Δ_h - shift`` on a periodic grid.  For
+``jacobi_preconditioner`` divides by a diagonal (zeros taken as 1);
+``block_jacobi_preconditioner`` inverts the (n_blocks, b, b) diagonal blocks
+in one batched ``torch.linalg.inv`` (the JAX package's ``jnp.linalg.inv``)
+and applies them as one batched matvec.
+
+The FFT preconditioner, on ``torch.fft``, inverts ``alpha·Δ_h - shift`` on a periodic grid.  For
 two components it packs them as ``z = u + i·w`` and preconditions both in
 one complex FFT round trip (the symbol is real); other cases take the rfft
 route.  The reciprocal symbol is computed once per factory, per real dtype
@@ -16,6 +23,26 @@ from typing import Sequence
 import torch
 
 from .. import _backend
+
+
+def jacobi_preconditioner(diag):
+    """``v ↦ v / diag``, with a zero of ``diag`` taken as 1."""
+    safe = torch.where(diag == 0, torch.ones_like(diag), diag)
+    return lambda v: v / safe
+
+
+def block_jacobi_preconditioner(blocks):
+    """``blocks`` (n_blocks, b, b): the dense diagonal blocks, inverted once
+    in a batch; ``v`` (n_blocks·b entries, any shape) is multiplied
+    blockwise."""
+    n_blocks, b, _ = blocks.shape
+    inv = torch.linalg.inv(blocks)
+
+    def apply(v):
+        out = torch.bmm(inv, v.reshape(n_blocks, b, 1))
+        return out.reshape(v.shape)
+
+    return apply
 
 
 def fft_poisson_symbol(shape: Sequence[int], alpha, h, shift=1.0,

@@ -1,5 +1,5 @@
 """Sparse matrix-vector products: the port of ``ops/pallas_spmv.py``'s tier
-selection and CSR entry points, and the kernels K4 and K5.
+selection, CSR and BSR entry points, and the kernels K4, K5 and K6.
 
 Kernels (CUDA C++ for ``sm_90a`` in ``csrc/spmv.cu``; its header gives
 their bounds and design):
@@ -13,9 +13,14 @@ their bounds and design):
 - K5's unit-data variant ``gather_select(src, values)``:
   ``y[i] = values[src[i]]``, 0 where ``src[i] == n_src`` (a pad): the
   static selection of ``ops/selection.py``.
+- K6 ``bsr_spmm(bsr, X)``: ``Y = A·X`` for A in BSR and a dense
+  multi-RHS X, each block row's blocks in CSR order.  It replaces
+  ``ops/pallas_spmv.py`` ``_bsr_spmm_call`` (``bsr_spmm_pallas``).
 
-K7 (``ops/spmv_stream.py``) and K8 (``ops/spmv_scatter.py``) live in the
-same source.  Each wrapper takes its plain PyTorch version (``*_plain``)
+``bsr_spmv`` (``BSR.matvec`` on the card) is K5 on the scalar pattern that
+``bsr_scalar_pattern`` expands from the blocks, as the JAX package's
+``bsr_spmv_pallas`` is.  K7 (``ops/spmv_stream.py``) and K8
+(``ops/spmv_scatter.py``) live in the same source.  Each wrapper takes its plain PyTorch version (``*_plain``)
 for a tensor on the CPU, and only there.  For a CUDA tensor it checks
 device, dtype, shape and contiguity, launches the kernel on the current
 stream and counts the launch in ``_backend.LAUNCHES``; anything the kernel
@@ -54,6 +59,8 @@ _SIGNATURES = {
     "scatter_expand_f64": [_VP] * 4 + [_I, _I, _VP],
     "scatter_regroup_f32": [_VP] * 4 + [_I, _VP],
     "scatter_regroup_f64": [_VP] * 4 + [_I, _VP],
+    "bsr_spmm_f32": [_VP] * 5 + [_I, _I, _I, _VP],
+    "bsr_spmm_f64": [_VP] * 5 + [_I, _I, _I, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_OFFSETS = 48            # the kernel's by-value offset table
@@ -212,6 +219,113 @@ def gather_select(src, values):
     return y
 
 
+# ---------------------------------------------------------------------------
+# BSR: K5 on the expanded scalar pattern for SpMV; K6 for SpMM
+# ---------------------------------------------------------------------------
+
+_BSR_EXPAND_CACHE: dict = {}
+
+
+def bsr_scalar_pattern(bsr) -> tuple:
+    """The scalar CSR pattern of a BSR block pattern, ``(indptr, indices,
+    take_order)`` (int64, host, cached by pattern), where ``take_order``
+    maps the flattened (nblocks, b, b) data into CSR nonzero order.  Each
+    block row's blocks are sorted stably by column, and scalar row i·b + r
+    holds row r of each of them in turn: the JAX package's
+    ``bsr_scalar_pattern``, array for array, without its loop over rows."""
+    key = pattern_key(bsr.indptr, bsr.indices, *bsr.shape, bsr.blocksize)
+    hit = _BSR_EXPAND_CACHE.get(key)
+    if hit is not None:
+        return hit
+    b = bsr.blocksize
+    bptr = np.asarray(bsr.indptr, np.int64)
+    bcol = np.asarray(bsr.indices, np.int64)
+    counts = np.diff(bptr)
+    nblocks = bcol.shape[0]
+    brow = np.repeat(np.arange(counts.shape[0], dtype=np.int64), counts)
+    order = np.argsort(brow * (int(bcol.max(initial=0)) + 1) + bcol,
+                       kind="stable")
+    row_s, col_s = brow[order], bcol[order]
+    start, cnt = bptr[:-1][row_s], counts[row_s]
+    rr = np.arange(b, dtype=np.int64)
+    # block j (in sorted order) puts its row r at slots
+    # b²·start + r·b·cnt + (j − start)·b + c of the scalar pattern
+    pos = ((b * b * start + (np.arange(nblocks) - start) * b)[:, None, None]
+           + (b * cnt)[:, None, None] * rr[None, :, None]
+           + rr[None, None, :])
+    indices = np.empty(nblocks * b * b, np.int64)
+    take = np.empty(nblocks * b * b, np.int64)
+    indices[pos] = (col_s * b)[:, None, None] + rr[None, None, :]
+    take[pos] = ((order * b * b)[:, None, None] + rr[None, :, None] * b
+                 + rr[None, None, :])
+    indptr = np.concatenate([[0], np.cumsum(np.repeat(b * counts, b))]
+                            ).astype(np.int64)
+    out = (indptr, indices, take)
+    _BSR_EXPAND_CACHE[key] = out
+    return out
+
+
+def bsr_spmv(bsr, x):
+    """``y = A·x`` for A in BSR: K5 (``gather_spmv``) on the expanded scalar
+    pattern (its int32 tables cached per pattern and device); the data
+    reshuffle is one static take, as in the JAX package's
+    ``bsr_spmv_pallas``."""
+    indptr, indices, take = bsr.scalar_tables(x.device)
+    return gather_spmv(indptr, indices,
+                       bsr.data.reshape(-1).index_select(0, take), x)
+
+
+def bsr_spmm_plain(bsr, X):
+    """The JAX package's XLA route of ``bsr_spmm_pallas`` in torch: the X
+    blocks gathered by block column, one batched (b, b)·(b, nrhs) product,
+    then ``index_add_`` by block row; accumulated in f32 (f64 for f64
+    data), returned in X's dtype."""
+    b = bsr.blocksize
+    n, m = bsr.shape
+    _indptr, _indices, cols, brow = bsr.device_tables(X.device)
+    acc = torch.float64 if bsr.data.dtype == torch.float64 else torch.float32
+    gathered = X.reshape(m // b, b, X.shape[1]).index_select(0, cols)
+    prods = torch.einsum("nij,njr->nir", bsr.data.to(acc), gathered.to(acc))
+    out = torch.zeros((n // b, b, X.shape[1]), dtype=acc, device=X.device)
+    return out.index_add_(0, brow, prods).to(X.dtype).reshape(n, X.shape[1])
+
+
+def bsr_spmm(bsr, X):
+    """``Y = A·X`` for A in BSR (``data`` (nblocks, b, b)) and a dense X
+    (n_cols, nrhs) of the data's dtype: K6.  An empty Y (no rows or no
+    columns) comes back without a launch."""
+    data = bsr.data
+    if X.dtype != data.dtype:
+        raise TypeError(f"X has dtype {X.dtype} and the BSR data "
+                        f"{data.dtype}: they must be equal")
+    if X.dim() != 2 or X.shape[0] != bsr.shape[1]:
+        raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                         f"({bsr.shape[1]}, nrhs)")
+    if X.device != data.device:
+        raise ValueError(f"X is on {X.device}, the BSR data on "
+                         f"{data.device}")
+    if X.device.type == "cpu":
+        return bsr_spmm_plain(bsr, X)
+    dtype = _value_dtype(X)
+    b = bsr.blocksize
+    _check("X", X, dtype, X.device, 2)
+    _check("data", data, dtype, X.device, 3)
+    if tuple(data.shape) != (bsr.indices.shape[0], b, b):
+        raise ValueError(f"data has shape {tuple(data.shape)}, expected "
+                         f"{(bsr.indices.shape[0], b, b)}")
+    n, nrhs = bsr.shape[0], X.shape[1]
+    Y = torch.empty((n, nrhs), dtype=dtype, device=X.device)
+    if Y.numel() == 0:
+        return Y
+    indptr, indices, _cols, _brow = bsr.device_tables(X.device)
+    lib = _lib()
+    rc = getattr(lib, f"bsr_spmm_{_SUFFIX[dtype]}")(
+        _backend.ptr(indptr), _backend.ptr(indices), _backend.ptr(data),
+        _backend.ptr(X), _backend.ptr(Y), n // b, b, nrhs,
+        _backend.stream_handle(X))
+    _backend.check_launch(lib, rc, "bsr_spmm")
+    _backend.count_launch("bsr_spmm")
+    return Y
 
 
 # ---------------------------------------------------------------------------
@@ -486,7 +600,8 @@ def clear_plan_caches() -> None:
     """Empty every pattern-keyed plan cache of the tiers."""
     from . import spmv_dia, spmv_scatter, spmv_stream
     for cache in (_TIER_CACHE, _PLAN_CACHE, _REORDER_CACHE,
-                  _RCM_PATTERN_CACHE, spmv_dia._DIA_PLAN_CACHE,
+                  _RCM_PATTERN_CACHE, _BSR_EXPAND_CACHE,
+                  spmv_dia._DIA_PLAN_CACHE,
                   spmv_stream._BAND_PLAN_CACHE,
                   spmv_scatter._SCATTER_PLAN_CACHE):
         cache.clear()

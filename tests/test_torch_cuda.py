@@ -721,3 +721,90 @@ def test_distributed_layer_at_world_size_one_on_card(cuda):
         assert _backend.LAUNCHES["rd3d_jvp_halo"] == 2 * 3
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# K6 (bsr_spmm): rel-inf 1e-12 (f64) / 1e-5 (f32) of max|Y| against its plain
+# version (the same products; the plain index_add_ sums by atomics in no
+# fixed order); BSR.matvec on the card is K5 on the expanded pattern
+# ---------------------------------------------------------------------------
+
+def _bsr(nbr, nbc, b, dtype, seed, device, empty_row=None):
+    """A seeded block-sparse matrix with explicit zeros inside its blocks,
+    as the port's BSR on ``device``."""
+    from nonlinearsolve_tpu_torch.ops.sparse import BSR, CSR
+    rng = np.random.default_rng(seed)
+    A = np.zeros((nbr * b, nbc * b))
+    for i in range(nbr):
+        if i == empty_row:
+            continue
+        for j in rng.choice(nbc, size=int(rng.integers(1, 6)), replace=False):
+            A[i * b:(i + 1) * b, j * b:(j + 1) * b] = \
+                rng.standard_normal((b, b))
+    A[rng.random(A.shape) < 0.2] = 0.0
+    T = BSR.from_csr(CSR.from_dense(A.astype(np.dtype(dtype)), device=device),
+                     b)
+    return T, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("nrhs", [1, 8, 37])
+@pytest.mark.parametrize("b", [1, 2, 3, 4])
+def test_bsr_spmm_matches_plain_on_card(cuda, b, nrhs, dtype):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    A, rng = _bsr(300, 280, b, dtype, 7 * b + nrhs, cuda, empty_row=5)
+    X = torch.tensor(rng.standard_normal((A.shape[1], nrhs)),
+                     dtype=TORCH_DT[dtype], device=cuda)
+    launches = _backend.LAUNCHES["bsr_spmm"]
+    Y = spmv.bsr_spmm(A, X)
+    assert _backend.LAUNCHES["bsr_spmm"] == launches + 1
+    assert Y.dtype == X.dtype and Y.shape == (A.shape[0], nrhs)
+    _close(Y, spmv.bsr_spmm_plain(A, X), dtype)
+    assert bool((Y[5 * b:6 * b] == 0).all())        # the empty block row
+
+
+@pytest.mark.cuda
+def test_bsr_spmm_nan_reaches_exactly_its_rows_on_card(cuda):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    A, rng = _bsr(200, 200, 3, "float64", 4, cuda)
+    X = torch.tensor(rng.standard_normal((600, 8)), device=cuda)
+    X[3 * 17 + 1, 5] = float("nan")                  # block column 17
+    hit = A.indices == 17
+    rows = (np.repeat(A.block_row_ids[hit] * 3, 3)
+            + np.tile(np.arange(3), int(hit.sum())))
+    expect = torch.zeros((600, 8), dtype=torch.bool)
+    expect[torch.as_tensor(rows), 5] = True
+    assert torch.equal(torch.isnan(spmv.bsr_spmm(A, X)).cpu(), expect)
+
+
+@pytest.mark.cuda
+def test_bsr_spmm_edges_on_card(cuda):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    A, rng = _bsr(40, 40, 2, "float64", 9, cuda)
+    X = torch.tensor(rng.standard_normal((80, 4)), device=cuda)
+    launches = _backend.LAUNCHES["bsr_spmm"]
+    Y0 = spmv.bsr_spmm(A, X[:, :0].contiguous())
+    assert Y0.shape == (80, 0)
+    assert _backend.LAUNCHES["bsr_spmm"] == launches     # no launch
+    with pytest.raises(TypeError):
+        spmv.bsr_spmm(A, X.float())
+    with pytest.raises(ValueError):
+        spmv.bsr_spmm(A, X.t())
+    with pytest.raises(ValueError):
+        spmv.bsr_spmm(A, X.cpu())
+
+
+@pytest.mark.cuda
+def test_bsr_matvec_launches_gather_spmv_on_card(cuda):
+    from nonlinearsolve_tpu_torch.ops import spmv
+    A, rng = _bsr(300, 300, 2, "float64", 3, cuda, empty_row=7)
+    x = torch.tensor(rng.standard_normal(600), device=cuda)
+    launches = dict(_backend.LAUNCHES)
+    y = A.matvec(x)
+    assert _backend.LAUNCHES["gather_spmv"] == launches["gather_spmv"] + 1
+    assert _backend.LAUNCHES["bsr_spmm"] == launches["bsr_spmm"]
+    _close(y, spmv.bsr_spmm_plain(A, x[:, None].contiguous())[:, 0],
+           "float64")
+    cpu = A.with_data(A.data.cpu())
+    _close(y, cpu.matvec(x.cpu()), "float64")

@@ -187,6 +187,41 @@ def test_linear_solve_failure_retcode():
     np.testing.assert_array_equal(sol.u.numpy(), prob.u0.numpy())
 
 
+@pytest.mark.parametrize("sparse", [False, True])
+def test_empty_state_matches_jax(sparse):
+    """An empty f64 state takes the null-u0 fast path: Success, u = resid =
+    u0 and zero NLStats, as the JAX package's ``_build_null_solution``; no
+    sparse plan is built for it."""
+    from nonlinearsolve_tpu_torch.core import solve as solve_mod
+
+    def f(u, p):
+        return u ** 3 - 1
+
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    jkw = tkw = {}
+    if sparse:
+        jkw = {"autodiff": jnls.JacobianPolicy(mode="sparse")}
+        tkw = {"autodiff": tnls.JacobianPolicy(mode="sparse")}
+    jsol = jnls.solve(
+        jnls.NonlinearProblem(jnls.NonlinearFunction(f, sparsity=empty),
+                              jnp.ones(0, jnp.float64)),
+        jnls.NewtonRaphson(linsolve=jnls.LinearSolver("gmres"), **jkw))
+    tfun = tnls.NonlinearFunction(f, sparsity=empty)
+    tsol = tnls.solve(
+        tnls.NonlinearProblem(tfun, torch.ones(0, dtype=torch.float64)),
+        tnls.NewtonRaphson(linsolve=tnls.LinearSolver("gmres"), **tkw))
+    out = interop.solution_to_numpy(tsol)
+    assert out["retcode"] == int(jsol.retcode) == int(tnls.ReturnCode.Success)
+    assert out["stats"] == _jax_stats(jsol) == dict.fromkeys(
+        ("nf", "njacs", "nfactors", "nsolve", "nsteps"), 0)
+    for key in ("u", "resid"):
+        ref = np.asarray(getattr(jsol, key))
+        assert out[key].shape == ref.shape == (0,)
+        assert out[key].dtype == ref.dtype == np.float64
+    assert tsol.counters == {"jvp": 0, "krylov_iters": 0, "host_syncs": 0}
+    assert tfun not in solve_mod._SPARSE_PLANS
+
+
 def test_jax_and_port_take_the_same_numpy_state():
     N = 16
     jprob = jbru.make_problem(N, jnp.float32)
