@@ -56,7 +56,8 @@ check raises, so the script exits non-zero.
    Jacobians, no K4 launch, and the root, permuted back, within rel-inf
    1e-8 of phase 6's.  Then K5 and its selection are checked and timed on
    this route's own tables (the permuted pattern, the Jacobian at the root
-   as data), f32 and f64;
+   as data), f32 and f64; K5 here and in phases 12 and 13 also launched
+   twice (bit-equal) and timed beside the index_select yardstick;
 8. 3D kernels: K9 (rd3d_jvp_blocked: bz 4 and 8, double_buffer off and
    on) and K10 (rd3d_jvp_scaled: bz 4 and 8) on the card against their
    plain versions — 256³ and (40, 72, 100) (ny, nx not multiples of a
@@ -99,15 +100,16 @@ check raises, so the script exits non-zero.
    problem at 96³ f32 with its unknowns numbered by
    ``np.random.default_rng(42).permutation``, which the JAX package sends
    to its "scatter" tier (3 column parts, one R plan each): K8
-   (scatter_expand, scatter_regroup) in every product.  Checks: the tier
-   and parts; Success; expand launches = 3 × products, regroup launches =
-   the chain lengths' sum × products, selection launches = 2 × Jacobians,
-   no K4, CSR K5, K7 or K9 launch; the root, permuted back, within rel-inf
-   1e-4 of the natural-order solve at 96³ in the same phase (the DIA tier,
-   K4).  Then warm walls and the device profile; K8 against its plain
-   versions on the route's own tables, f32 and f64, timed (expand and
-   regroup launches of one product, and the whole product) beside K5 on
-   the same matrix and cuSPARSE;
+   (scatter_spmv_part, one launch a part) in every product.  Checks: the
+   tier and parts; Success; K8 launches = 3 × products, selection
+   launches = 2 × Jacobians, no K4, CSR K5, K7 or K9 launch; the root,
+   permuted back, within rel-inf 1e-4 of the natural-order solve at 96³
+   in the same phase (the DIA tier, K4).  Then warm walls and the device
+   profile; K8's product on the route's own tables, f32 and f64, bit for
+   bit against its sequential reference (the plain products, each R level
+   summed slot by slot, the parts added in order), then K5 on the same
+   matrix as CSR, each timed beside cuSPARSE of A and the index_select
+   yardstick (YARDSTICK);
 14. the bf16 path (counters at 0 just before each run, read just after):
    the flagship's solve with ``krylov_basis_dtype="bf16"`` — run (a) with
    K1, run (b) with K3 as the problem's jvp (docs/solvers.md's
@@ -144,7 +146,8 @@ check raises, so the script exits non-zero.
    launch, no K4, K7 or K8 launch.  Then K6 against its plain version at
    nrhs 8 and 37, f32 and f64, seeded X, timed beside cuSPARSE (BSR ×
    dense, or CSR × dense on the expanded pattern where torch refuses it)
-   and K5 on the expanded pattern once per column;
+   and K5 on the expanded pattern once per column (with its index_select
+   yardstick);
 18. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
@@ -200,8 +203,7 @@ LIBRARY_NOTE = ("no single PyTorch call computes this fused stencil JVP "
 RD3D_SHAPES = ((256, 256, 256), (40, 72, 100))
 DEVICE_GROUPS = {"K9 rd3d_jvp": ("rd3d_kernel",),
                  "K7 band_spmv": ("band_spmv",),
-                 "K8 scatter_expand": ("scatter_expand",),
-                 "K8 scatter_regroup": ("scatter_regroup",),
+                 "K8 scatter_spmv_part": ("scatter_part",),
                  "K4 dia_spmv": ("dia_spmv",),
                  "K5 gather_spmv": ("csr_spmv",),
                  "K5 selection": ("csr_select",), "cuFFT": ("fft",),
@@ -214,8 +216,7 @@ SPMV_REPLACES = {
     "gather_spmv": "nonlinearsolve_tpu/ops/pallas_spmv.py:391",
     "gather_select": "nonlinearsolve_tpu/ops/pallas_spmv.py:391",
     "band_spmv": "nonlinearsolve_tpu/ops/pallas_spmv_stream.py:339",
-    "scatter_expand": "nonlinearsolve_tpu/ops/pallas_spmv_scatter.py:409",
-    "scatter_regroup": "nonlinearsolve_tpu/ops/pallas_spmv_scatter.py:409",
+    "scatter_spmv_part": "nonlinearsolve_tpu/ops/pallas_spmv_scatter.py:409",
 }
 SPMV_LIBRARY = {
     "dia_spmv": "cuSPARSE CSR matvec of the same matrix "
@@ -224,15 +225,19 @@ SPMV_LIBRARY = {
     "gather_select": "torch.take of the zero-extended values",
     "band_spmv": "cuSPARSE CSR matvec of the same matrix "
                  "(torch.sparse_csr_tensor @ x)",
-    "scatter_expand": "cuSPARSE CSR matvec of each part's G (one nonzero a "
-                      "row, A's data), summed over the parts",
-    "scatter_regroup": "cuSPARSE CSR matvec of each part's R chain (unit "
-                       "data), summed over the parts",
-    "scatter_spmv": "cuSPARSE CSR matvec of the same matrix "
-                    "(torch.sparse_csr_tensor @ x)",
+    "scatter_spmv_part": "cuSPARSE CSR matvec of A, the whole product "
+                         "(torch.sparse_csr_tensor @ x)",
     "bsr_spmm": "cuSPARSE BSR x dense (torch.sparse_bsr_tensor @ X); where "
                 "torch refuses it, CSR x dense on the expanded pattern "
                 "(torch.sparse_csr_tensor @ X)",
+}
+# The cost of a product's scattered x reads alone, beside K5 and K8: one
+# index_select of x over the pattern's column indices.  A yardstick, never
+# called by the port.
+YARDSTICK = {
+    "gather_spmv": "torch.index_select(x, 0, indices)",
+    "scatter_spmv_part": "torch.index_select(x, 0, indices) over A's "
+                         "column indices",
 }
 LOG = {"path": None}
 
@@ -538,12 +543,13 @@ def flat(torch, out):
 
 
 def spmv_case(torch, name, tables, dname, kern, plain, library, cost, shape,
-              exact=False, extra_check=None):
+              exact=False, extra_check=None, yardstick=None):
     """One SpMV case: the kernel (or a list of launches, one a part, whose
     outputs are compared end to end) against its plain version (bit for
     bit when ``exact``, else at TOL), then its times, its bound from
-    ``cost`` = (bytes, flops), and the library call's time.  Emits and
-    returns the record; raises if the kernel disagrees."""
+    ``cost`` = (bytes, flops), the library call's time and, where given,
+    the ``yardstick`` call's (YARDSTICK).  Emits and returns the record;
+    raises if the kernel disagrees."""
     got, ref = flat(torch, kern()), flat(torch, plain())
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, ref)
@@ -564,6 +570,9 @@ def spmv_case(torch, name, tables, dname, kern, plain, library, cost, shape,
     ms_eager = event_time_ms(torch, kern)
     plain_ms = graph_time_ms(torch, plain, calls=10, replays=20)
     bms, by = roofline_ms(cost[0], cost[1], dname)
+    if yardstick is not None:
+        extra["index_select_ms"] = graph_time_ms(torch, yardstick)
+        extra["index_select"] = YARDSTICK[name]
     rec = {"phase": "kernel_check", "case": name, "tables": tables,
            "dtype": dname, "shape": shape, "max_abs_err": abs_err,
            "rel_err": rel, "tolerance": 0.0 if exact else TOL[dname],
@@ -578,6 +587,30 @@ def spmv_case(torch, name, tables, dname, kern, plain, library, cost, shape,
         raise AssertionError(f"{name} {dname} disagrees with its plain "
                              f"version: {rec}")
     return rec
+
+
+def k5_case(torch, spmv, tables, dname, indptr, indices, data, x, shape):
+    """K5 on one CSR (``shape`` = rows, columns) against its plain version
+    at TOL, a second launch bit-equal to the first, timed beside cuSPARSE
+    and the index_select yardstick."""
+    n_rows, n_cols = shape
+    nnz = indices.shape[0]
+    item = data.element_size()
+    csr_lib = torch.sparse_csr_tensor(indptr, indices, data, shape)
+
+    def twice(got):
+        again = spmv.gather_spmv(indptr, indices, data, x)
+        torch.cuda.synchronize()
+        return {"two_launches_equal": bool(torch.equal(again, got))}
+
+    return spmv_case(
+        torch, "gather_spmv", tables, dname,
+        lambda: spmv.gather_spmv(indptr, indices, data, x),
+        lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
+        lambda: csr_lib @ x,
+        (nnz * (item + 4) + (n_rows + 1) * 4 + (n_rows + n_cols) * item,
+         2 * nnz), [n_rows, n_cols, nnz], extra_check=twice,
+        yardstick=lambda: torch.index_select(x, 0, indices))
 
 
 def selection_case(torch, spmv, sel, tables, dtype, dev, rng):
@@ -671,23 +704,16 @@ def csr_kernel_checks(torch, dev, spmv, cplan, jac_data):
     records = {}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
-        item = torch.finfo(dtype).bits // 8
         data = jac_data.to(dtype).contiguous()
         x = x64.to(dtype)
-        csr_lib = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
-        rec = spmv_case(
-            torch, "gather_spmv", "csr_route_512_permuted", dname,
-            lambda: spmv.gather_spmv(indptr, indices, data, x),
-            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
-            lambda: csr_lib @ x,
-            (pat.nnz * (item + 4) + (n + 1) * 4 + 2 * n * item, 2 * pat.nnz),
-            [n, n, pat.nnz])
+        rec = k5_case(torch, spmv, "csr_route_512_permuted", dname, indptr,
+                      indices, data, x, (n, n))
         sel_rec = selection_case(torch, spmv, cplan._select,
                                  "csr_assembly_512_permuted", dtype, dev,
                                  rng)
         if dtype == torch.float64:
             records = {"gather_spmv": rec, "gather_select_csr": sel_rec}
-        del data, x, csr_lib
+        del data, x
     return records
 
 
@@ -696,7 +722,8 @@ def bsr_kernel_checks(torch, dev, spmv, Jb):
     512² Jacobian at the root, b = 2) with seeded X, nrhs 8 and 37, f32 and
     f64; timed beside cuSPARSE (BSR × dense, or CSR × dense on the expanded
     pattern where torch refuses BSR) and beside K5 on the expanded pattern
-    once per column.  Returns the records by (dtype, nrhs)."""
+    once per column, and K5's index_select yardstick there.  Returns the
+    records by (dtype, nrhs)."""
     import numpy as np
 
     n = Jb.shape[0]
@@ -739,16 +766,24 @@ def bsr_kernel_checks(torch, dev, spmv, Jb):
                 (nblocks * (b * b * item + 4) + (n // b + 1) * 4
                  + 2 * n * nrhs * item, 2 * nblocks * b * b * nrhs),
                 [n, nrhs, nblocks, b], extra_check=extra)
+            def k5_yardstick():
+                return [torch.index_select(Xt[c], 0, s_indices)
+                        for c in range(nrhs)]
+
             rec = {**rec, "nrhs": nrhs,
                    "library_call": ("bsr" if refusal is None
                                     else "csr_expanded"),
                    "library_refusal": refusal,
                    "k5_columns_ms": graph_time_ms(torch, k5_columns,
-                                                  calls=10, replays=4)}
+                                                  calls=10, replays=4),
+                   "k5_columns_index_select_ms": graph_time_ms(
+                       torch, k5_yardstick, calls=10, replays=4)}
             emit({"phase": "kernel_time_bsr", "dtype": dname, "nrhs": nrhs,
                   "library_call": rec["library_call"],
                   "library_refusal": refusal,
-                  "k5_columns_ms": rec["k5_columns_ms"]})
+                  "k5_columns_ms": rec["k5_columns_ms"],
+                  "k5_columns_index_select_ms":
+                      rec["k5_columns_index_select_ms"]})
             records[(dname, nrhs)] = rec
             del X, Xt
         del A, s_data, bsr_lib, csr_lib
@@ -870,13 +905,8 @@ def band_kernel_checks(torch, dev, spmv, spmv_stream, pattern, bplan,
             (cols.numel() * 4 + nnz * item + 2 * n * item, 2 * nnz),
             [bplan.w, bplan.n_pad, nnz], extra_check=inf_pads)
         del packed_inf
-        k5 = spmv_case(
-            torch, "gather_spmv", "band_route_256", dname,
-            lambda: spmv.gather_spmv(indptr, indices, data, x),
-            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
-            lambda: csr_lib @ x,
-            (nnz * (item + 4) + (n + 1) * 4 + 2 * n * item, 2 * nnz),
-            [n, n, nnz])
+        k5 = k5_case(torch, spmv, "band_route_256", dname, indptr, indices,
+                     data, x, (n, n))
         if dtype == torch.float32:
             records = {"band_spmv": k7, "gather_spmv_same_tables": k5}
         del data, x, packed, csr_lib
@@ -885,12 +915,14 @@ def band_kernel_checks(torch, dev, spmv, spmv_stream, pattern, bplan,
 
 def scatter_kernel_checks(torch, dev, spmv, spmv_scatter, pattern, splan,
                           jac_data):
-    """K8 on the scatter route's own tables (each part's G columns and R
-    chain, the Jacobian at the root staged by the route's selection), f32
-    and f64: the expand launches of one product, its regroup launches, and
-    the whole staged product against their plain versions; then K5 on the
-    same matrix as CSR.  Each timed beside cuSPARSE (of G, of R, of A).
-    Returns the f32 records by kernel."""
+    """K8 on the scatter route's own tables (each part's G columns, zones
+    and R positions, the Jacobian at the root staged by the route's
+    selection), f32 and f64: the product, one launch a part, bit for bit
+    against the sequential reference (``scatter_part_sequential``: the
+    plain products, each R level summed slot by slot, the parts added in
+    order); then K5 on the same matrix as CSR.  Each timed beside
+    cuSPARSE of A and the index_select yardstick.  Returns the records by
+    (kernel, dtype)."""
     import numpy as np
     n = pattern.shape[0]
     nnz = pattern.nnz
@@ -905,82 +937,31 @@ def scatter_kernel_checks(torch, dev, spmv, spmv_scatter, pattern, splan,
         data = jac_data.to(dtype).contiguous()
         x = x64.to(dtype)
         staged = splan.stage(data)
-        parts = list(zip(tables, staged))
-        p_in = [spmv_scatter.scatter_expand_plain(g, gd, x[c0:c1])
-                for (c0, c1, g, _r), gd in parts]
-        g_lib, r_lib = [], []
-        e_bytes = r_bytes = r_flops = 0
-        for ((c0, c1, g, rts), gd), p in zip(parts, p_in):
-            valid = g >= 0
-            crow = torch.cat([valid.new_zeros(1, dtype=torch.int32),
-                              torch.cumsum(valid, 0, dtype=torch.int32)])
-            g_lib.append((torch.sparse_csr_tensor(
-                crow, g[valid], gd[valid], (g.shape[0], c1 - c0)), c0, c1))
-            e_bytes += g.shape[0] * (4 + item) + int(valid.sum()) * item \
-                + (c1 - c0) * item
-            chain, length = [], p.shape[0]
-            for rp, pos in rts:
-                rows = rp.shape[0] - 1
-                chain.append(torch.sparse_csr_tensor(
-                    rp, pos, torch.ones(pos.shape[0], dtype=dtype,
-                                        device=dev), (rows, length)))
-                r_bytes += (rows + 1) * 4 + pos.shape[0] * (4 + item) \
-                    + rows * item
-                r_flops += pos.shape[0]
-                length = rows
-            r_lib.append(chain)
+        # each part: gcol, gdata, pos, rptr and zstart read once, its x
+        # columns once; y written once
+        nbytes = n * item + sum(
+            t.gcol.shape[0] * (4 + item) + t.pos.shape[0] * 4
+            + (t.rptr.shape[0] + t.zstart.shape[0]) * 4
+            + (t.c1 - t.c0) * item for t in tables)
+        flops = 2 * nnz + (len(tables) - 1) * n
 
-        def expand_all(fn):
-            return [fn(g, gd, x[c0:c1]) for (c0, c1, g, _r), gd in parts]
+        def sequential():
+            y = None
+            for t, gdata in zip(tables, staged):
+                y = spmv_scatter.scatter_part_sequential(t, gdata, x, y)
+            return y
 
-        def regroup_all(fn):
-            out = []
-            for ((_c0, _c1, _g, rts), _gd), p in zip(parts, p_in):
-                for rp, pos in rts:
-                    p = fn(rp, pos, p)
-                out.append(p)
-            return out
-
-        def regroup_lib():
-            out = []
-            for chain, p in zip(r_lib, p_in):
-                for R in chain:
-                    p = R @ p
-                out.append(p)
-            return out
-
-        expand = spmv_case(
-            torch, "scatter_expand", "scatter_route_96_permuted", dname,
-            lambda: expand_all(spmv_scatter.scatter_expand),
-            lambda: expand_all(spmv_scatter.scatter_expand_plain),
-            lambda: [G @ x[c0:c1] for G, c0, c1 in g_lib],
-            (e_bytes, nnz), [len(parts), sum(g.shape[0] for g in p_in)])
-        regroup = spmv_case(
-            torch, "scatter_regroup", "scatter_route_96_permuted", dname,
-            lambda: regroup_all(spmv_scatter.scatter_regroup),
-            lambda: regroup_all(spmv_scatter.scatter_regroup_plain),
-            regroup_lib, (r_bytes, r_flops),
-            [len(parts), sum(len(c) for c in r_lib), n])
-        mv = spmv_scatter.scatter_spmv_staged(splan, data)
         csr_lib = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
-        whole = spmv_case(
-            torch, "scatter_spmv", "scatter_route_96_permuted", dname,
-            lambda: mv(x),
-            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
-            lambda: csr_lib @ x,
-            (e_bytes + r_bytes + 3 * (len(parts) - 1) * n * item,
-             nnz + r_flops + (len(parts) - 1) * n), [n, n, nnz])
-        k5 = spmv_case(
-            torch, "gather_spmv", "scatter_route_96_permuted", dname,
-            lambda: spmv.gather_spmv(indptr, indices, data, x),
-            lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
-            lambda: csr_lib @ x,
-            (nnz * (item + 4) + (n + 1) * 4 + 2 * n * item, 2 * nnz),
-            [n, n, nnz])
-        if dtype == torch.float32:
-            records = {"scatter_expand": expand, "scatter_regroup": regroup,
-                       "scatter_spmv": whole, "gather_spmv_same_tables": k5}
-        del data, x, staged, parts, p_in, g_lib, r_lib, mv, csr_lib
+        records[("scatter_spmv_part", dname)] = spmv_case(
+            torch, "scatter_spmv_part", "scatter_route_96_permuted", dname,
+            lambda: splan.apply_staged(staged, x), sequential,
+            lambda: csr_lib @ x, (nbytes, flops),
+            [n, n, nnz, len(tables)], exact=True,
+            yardstick=lambda: torch.index_select(x, 0, indices))
+        records[("gather_spmv", dname)] = k5_case(
+            torch, spmv, "scatter_route_96_permuted", dname, indptr, indices,
+            data, x, (n, n))
+        del data, x, staged, csr_lib
     return records
 
 
@@ -1766,8 +1747,8 @@ def main(argv):
             b_launches["gather_select"] == 2 * bsol.stats.njacs > 0,
         "no K4, CSR K5, K8 or K9 launch": not any(
             b_launches[k] for k in ("dia_spmv", "gather_spmv",
-                                    "scatter_expand", "scatter_regroup",
-                                    "rd3d_jvp", "rd3d_jvp_scaled")),
+                                    "scatter_spmv_part", "rd3d_jvp",
+                                    "rd3d_jvp_scaled")),
         "root within 1e-4 of the f64 polish": b_dist <= 1e-4,
     }
     failed = [k for k, v in checks.items() if not v]
@@ -1879,10 +1860,8 @@ def main(argv):
     checks = {
         "retcode Success": ssol96.retcode == nls.ReturnCode.Success,
         "|F|_inf <= 1e-5 N": s96_resid <= abstol96,
-        "K8 expand launches == 3 x products":
-            s_launches["scatter_expand"] == 3 * products96 > 0,
-        "K8 regroup launches == chain x products":
-            s_launches["scatter_regroup"] == chain96 * products96,
+        "K8 launches == 3 parts x products":
+            s_launches["scatter_spmv_part"] == 3 * products96 > 0,
         "selection launches == 2 x Jacobians":
             s_launches["gather_select"] == 2 * ssol96.stats.njacs > 0,
         "no K4, CSR K5, K7 or K9 launch": not any(
@@ -2122,7 +2101,7 @@ def main(argv):
         "one K5 launch (the matvec)": bsr_launches["gather_spmv"] == 1,
         "no K4, K7 or K8 launch": not any(
             bsr_launches[k] for k in ("dia_spmv", "band_spmv",
-                                      "scatter_expand", "scatter_regroup")),
+                                      "scatter_spmv_part")),
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -2164,25 +2143,45 @@ def main(argv):
                     "library_note": r["library"],
                     "share_of_bound": r["share_of_bound"],
                     "shape": r["shape"], "dtype": "float64"})
-    for name, r, where, dtype_row in (
-            ("band_spmv", band_summary["band_spmv"], "band_route",
-             "float32"),
-            ("scatter_expand", scatter_summary["scatter_expand"],
-             "scatter_route", "float32"),
-            ("scatter_regroup", scatter_summary["scatter_regroup"],
-             "scatter_route", "float32")):
-        out.append({"name": name, "route": "cuda", "source": SPMV_SOURCE,
-                    "replaces": SPMV_REPLACES[name],
-                    "launches": (b_launches if where == "band_route"
-                                 else s_launches)[name],
-                    "launches_in": where, "tables": r["tables"],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"],
-                    "library_note": r["library"],
-                    "share_of_bound": r["share_of_bound"],
-                    "shape": r["shape"], "dtype": dtype_row})
+    k5_row = next(o for o in out if o["name"] == "gather_spmv")
+    k5_row["index_select_ms"] = spmv_summary["gather_spmv"]["index_select_ms"]
+    k5_row["other_tables"] = {
+        rec["tables"] + "_" + rec["dtype"]: {
+            k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                "share_of_bound", "library_ms",
+                                "index_select_ms", "max_abs_err")}
+        for rec in (scatter_summary[("gather_spmv", "float32")],
+                    band_summary["gather_spmv_same_tables"])}
+    r = band_summary["band_spmv"]
+    out.append({"name": "band_spmv", "route": "cuda", "source": SPMV_SOURCE,
+                "replaces": SPMV_REPLACES["band_spmv"],
+                "launches": b_launches["band_spmv"],
+                "launches_in": "band_route", "tables": r["tables"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "library_note": r["library"],
+                "share_of_bound": r["share_of_bound"], "shape": r["shape"],
+                "dtype": "float32"})
+    r = scatter_summary[("scatter_spmv_part", "float32")]
+    r64 = scatter_summary[("scatter_spmv_part", "float64")]
+    out.append({"name": "scatter_spmv_part", "route": "cuda",
+                "source": SPMV_SOURCE,
+                "replaces": SPMV_REPLACES["scatter_spmv_part"],
+                "launches": s_launches["scatter_spmv_part"],
+                "launches_in": "scatter_route", "tables": r["tables"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "library_note": r["library"],
+                "share_of_bound": r["share_of_bound"], "shape": r["shape"],
+                "dtype": "float32",
+                "note": "ms, bound and library for the whole product: one "
+                        "launch a part, 3 parts",
+                "index_select_ms": r["index_select_ms"],
+                "float64": {k: r64[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "share_of_bound", "library_ms", "index_select_ms")}})
     for name, path_launches_3d, where in (
             ("rd3d_jvp", launches3["rd3d_jvp"], "rd3d_solve"),
             ("rd3d_jvp_scaled", chain3_launches["rd3d_jvp_scaled"],
@@ -2234,10 +2233,13 @@ def main(argv):
                 "library_call": r["library_call"],
                 "share_of_bound": r["share_of_bound"], "shape": r["shape"],
                 "dtype": "float64", "k5_columns_ms": r["k5_columns_ms"],
+                "k5_columns_index_select_ms":
+                    r["k5_columns_index_select_ms"],
                 "other": {f"{d}_nrhs{k}": {
                     key: v[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "share_of_bound", "library_ms",
-                                            "library_call", "k5_columns_ms")}
+                                            "library_call", "k5_columns_ms",
+                                            "k5_columns_index_select_ms")}
                     for (d, k), v in bsr_summary.items()
                     if (d, k) != ("float64", 8)}})
     emit({"kernels": out})

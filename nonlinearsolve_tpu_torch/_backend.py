@@ -42,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict = {"brusselator_jvp": 0, "brusselator_jvp_scaled": 0,
                   "brusselator_jvp_bf16": 0,
                   "dia_spmv": 0, "gather_spmv": 0, "gather_select": 0,
-                  "band_spmv": 0, "scatter_expand": 0, "scatter_regroup": 0,
+                  "band_spmv": 0, "scatter_spmv_part": 0,
                   "bsr_spmm": 0,
                   "rd3d_jvp": 0, "rd3d_jvp_scaled": 0, "rd3d_jvp_halo": 0}
 HOST_SYNCS: dict = {"n": 0}

@@ -32,13 +32,18 @@
 //                    sum order on a sorted CSR).  A pad slot (col -1) is
 //                    skipped, its data never read.
 //
-// K8  scatter_expand  and  scatter_regroup  replace
-//                    nonlinearsolve_tpu/ops/pallas_spmv_scatter.py
-//                    (scatter_spmv_pallas, scatter_spmv_staged: two passes
-//                    of _ell_spmv_call):
-//                      expand   p[k] = gdata[k] * x[gcol[k]]  (0 where -1)
-//                      regroup  y[r] = sum_k p[pos[k]], indptr[r] <= k <
-//                               indptr[r+1] (unit data: no data array)
+// K8  scatter_part   replaces nonlinearsolve_tpu/ops/pallas_spmv_scatter.py
+//                    ScatterPlan.apply_staged (scatter_spmv_pallas,
+//                    scatter_spmv_staged: per column part, two passes of
+//                    _ell_spmv_call, an expand p = (G o data) x[c0:c1] and
+//                    the R chain's regroup y_p = R p, then y = sum of y_p in
+//                    part order).  One launch a part computes
+//                      y[r] (+)= sum_k gdata[pos[k]] * x[gcol[pos[k]]],
+//                               rptr[r] <= k < rptr[r+1]  (0 where gcol -1)
+//                    with each product rounded alone and each row summed in
+//                    the R chain's association (chunks of 32 positions, then
+//                    the chunk sums, ...), no FMA: y is the two passes' to
+//                    the bit.  Part 0 writes y, each later part adds to it.
 //
 // K6  bsr_spmm       replaces nonlinearsolve_tpu/ops/pallas_spmv.py
 //                    _bsr_spmm_kernel / _bsr_spmm_call (bsr_spmm_pallas):
@@ -70,39 +75,60 @@
 // 1.34 GB, ~ 401 us, where K5 on the same matrix as CSR moves 1.14 GB
 // (~ 341 us): the band sub-slots pad 7 nonzeros to 11 slots.  K8 on the
 // permuted 96^3 Jacobian (884,736 rows, 6.2M nonzeros, 3 column parts of
-// ~2.1M positions), f32: the expand and regroup passes of the three parts
-// and the parts' sum move ~ 150 MB (~ 45 us) where K5 moves ~ 60 MB
-// (~ 18 us): x (3.5 MB) sits in the 50 MB L2 here, so the locality the
-// two passes buy on a TPU buys nothing on this card.  K6 on the same 512^2
-// matrix reblocked with b = 2 (262,144 block rows, 1,310,720 blocks), f64:
+// ~2.1M positions), f32: gcol and the staged data of the 6.29M positions
+// (50.3 MB), pos (24.8 MB), the parts' rptr (10.6 MB), x and y (7.1 MB):
+// ~ 93 MB, ~ 28 us (f64 ~ 125 MB, ~ 37 us).  K6 on the same 512^2 matrix
+// reblocked with b = 2 (262,144 block rows, 1,310,720 blocks), f64:
 // data (41.9 MB) + block indices (5.2 MB) + block indptr (1.0 MB) + X and Y
 // once (33.5 MB each at nrhs 8) = 115 MB ~ 34 us; at nrhs 37 ~ 359 MB
 // ~ 107 us; 2 b^2 nrhs flops a block (84M at nrhs 8) are ~ 2.5 us of f64
-// arithmetic.  The TPU kernels
-// were shaped by the lack of scalar gathers (windowed slot-major ELL,
-// register gathers inside an (8, 128) tile); Hopper gathers through L1/L2,
-// so the port keeps the CSR and DIA layouts as they are and lets the caches
-// serve x.
+// arithmetic.  The TPU kernels were shaped by the lack of scalar gathers
+// (windowed slot-major ELL, register gathers inside an (8, 128) tile);
+// Hopper gathers through L1/L2, so the port keeps the CSR and DIA layouts
+// as they are and lets the caches serve x.
 //
-// Design: one thread per output row, 256 threads a block.  K4 walks the
-// diagonals in a loop; the offsets (at most 48, as DiaPlan allows) travel by
-// value in the kernel's parameters, so every thread of a warp reads data and
-// x at consecutive addresses (coalesced) for each diagonal.  K5 walks its
-// row's nonzeros; neighbouring threads read neighbouring CSR segments, which
-// L1 merges into lines.  x is read through the read-only path (const
-// __restrict__).  K7 is K5 on the band table: one thread per row walks its
-// w slots; the slot-major layout makes each slot's cols and data reads
-// coalesced across a warp, and its offsets are 64-bit (w * n_pad is 184.5M
-// at 256^3).  K8's expand is one thread per position, its regroup one
-// thread per output row (K5 without data).  K6 is one thread per output
-// (block row i, row r of the block, column c), c fastest: a warp's reads of
-// an X row segment are consecutive (coalesced) and its reads of a block's
-// row are one address (a broadcast); the thread walks its block row's
-// blocks in CSR order, no atomics, and its offsets are 64-bit.  No
-// shared-memory tiling, no warp-per-row split, no vector loads, no tensor
-// cores for K6: making these fast is later work.
-// a*b + c is contracted into an FMA, so the sums differ from the plain
-// versions' in the last bits.
+// What bounds K5 and K8 on a scattered pattern is not HBM but the x
+// gathers: each fetches a 32 B L2 sector for 4 or 8 useful bytes, and
+// neighbouring rows share none.  On the permuted tables a lone
+// torch.index_select of x over the column indices (the gathers and
+// nothing else) takes 90-91 % of K5's time and 79 % of K8's in f32
+// (PERF.md, kernel table).
+//
+// Design: one thread per output row, 256 threads a block, for K4, K5, K7
+// and the selection.  K4 walks the diagonals in a loop; the offsets (at
+// most 48, as DiaPlan allows) travel by value in the kernel's parameters,
+// so every thread of a warp reads data and x at consecutive addresses
+// (coalesced) for each diagonal.  K5 walks its row kCsrAhead entries at a
+// time: their indices and data, then their x gathers, then the FMAs in
+// CSR order, so that several gathers a thread are in flight and the sum
+// is the one-at-a-time FMA chain's (csr_row).  Staging the block's CSR
+// segment in shared memory, 8 loads ahead, several lanes a row, or x
+// through ld.global.nc.L1::no_allocate were each slower on one of the
+// three tables in a side-by-side timing (PERF.md, PR 7).
+// x is read through the read-only path (const __restrict__).  K7 is K5 on
+// the band table: one thread per row walks its w slots; the slot-major
+// layout makes each slot's cols and data reads coalesced across a warp,
+// and its offsets are 64-bit (w * n_pad is 184.5M at 256^3).  K8 is a
+// block of kZoneThreads per zone of the plan (rows_per_zone rows, whose
+// products are the zone's positions): the block reads the zone's gcol and
+// staged data coalesced, kAhead a thread in flight, gathers x in the
+// zone's column order and keeps the products in shared memory (at most
+// kZoneSmemBytes; a larger zone forms each product where its row reads
+// it, through L1); then each thread sums rows from there, their pos loads
+// kRowAhead ahead and the next row's rptr and y loaded during the sum.
+// The products never go to device memory, where a two-pass design (an
+// expand kernel, then a regroup kernel a level of the R chain) writes
+// and reads them back (2 x 25 MB at 96^3 f32), in 8 launches a product.
+// A part after the first is launched as a programmatic dependent of the
+// one before: it gathers its products while that one ends and waits
+// (griddepcontrol.wait) before it reads y.  K6 is one
+// thread per output (block row i, row r of the block, column c), c
+// fastest: a warp's reads of an X row segment are consecutive (coalesced)
+// and its reads of a block's row are one address (a broadcast); the
+// thread walks its block row's blocks in CSR order, no atomics, and its
+// offsets are 64-bit.  In K4, K5, K6 and K7 a*b + c is contracted into an
+// FMA, so their sums differ from the plain versions' in the last bits; K8
+// rounds each operation alone (__fmul_rn, __fadd_rn).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,6 +137,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxOffsets = 48;
+constexpr int kCsrAhead = 4;          // K5's loads in flight a thread
+constexpr int kSlots = 32;            // the plan's MAX_SLOTS: R rows chain
+constexpr int kMaxDepth = 7;          // kSlots^7 > 2^31 terms
+constexpr int kAhead = 4;             // K8's product loads in flight
+constexpr int kRowAhead = 8;          // K8's pos loads in flight a row
+constexpr int kZoneThreads = 512;     // K8's block
+constexpr int kZoneSmemBytes = 48 * 1024;   // K8's product buffer
 
 struct DiaOffsets {
   int ndiag;
@@ -133,6 +166,36 @@ dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
   y[i] = acc;
 }
 
+// K5's row walk: the row's indices and data U entries at a time, then their
+// x gathers, then the FMAs in CSR order, so that U gathers are in flight
+// and the sum is the one-at-a-time FMA chain's to the bit.
+template <typename T, int U>
+__device__ __forceinline__ T csr_row(const int* __restrict__ indices,
+                                     const T* __restrict__ data,
+                                     const T* __restrict__ x, int k0, int k1) {
+  T acc = T(0);
+  for (int k = k0; k < k1; k += U) {
+    int c[U];
+    T d[U], v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u < k1) {
+        c[u] = indices[k + u];
+        d[u] = data[k + u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u < k1) v[u] = x[c[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u < k1) acc = fma(d[u], v[u], acc);
+    }
+  }
+  return acc;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 csr_spmv_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
@@ -140,12 +203,7 @@ csr_spmv_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                 T* __restrict__ y, int n_rows) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rows) return;
-  const int k1 = indptr[r + 1];
-  T acc = T(0);
-  for (int k = indptr[r]; k < k1; ++k) {
-    acc += data[k] * x[indices[k]];
-  }
-  y[r] = acc;
+  y[r] = csr_row<T, kCsrAhead>(indices, data, x, indptr[r], indptr[r + 1]);
 }
 
 template <typename T>
@@ -174,28 +232,173 @@ band_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ data,
   y[r] = acc;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_expand_kernel(const int* __restrict__ gcol, const T* __restrict__ gdata,
-                      const T* __restrict__ x, T* __restrict__ p, int n,
-                      int n_x) {
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  if (k >= n) return;
-  const int c = gcol[k];
-  p[k] = (c >= 0 && c < n_x) ? gdata[k] * x[c] : T(0);
+// K8's arithmetic, each operation rounded alone (no FMA contraction)
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_regroup_kernel(const int* __restrict__ indptr,
-                       const int* __restrict__ pos, const T* __restrict__ p,
-                       T* __restrict__ y, int n_rows) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rows) return;
-  const int k1 = indptr[r + 1];
+// The sum of term(k) over k0 <= k < k1 as the plan's R chain associates it:
+// a row of at most kSlots terms is summed in order from 0; a longer one in
+// chunks of kSlots from its first term, the chunk sums likewise, until at
+// most kSlots sums remain.  (The plan chains every row when one row is
+// long, but a chunk of one sum adds it to 0 exactly, and a sum begun at
+// +0 is never -0, so each row's own depth gives the same bits.)
+template <typename T, typename Term>
+__device__ __forceinline__ T chain_sum(int k0, int k1, Term term) {
+  const int c = k1 - k0;
+  if (c <= kSlots) {
+    T acc = T(0);
+    for (int k = k0; k < k1; ++k) acc = add_rn(acc, term(k));
+    return acc;
+  }
+  int depth = 2;
+  for (long long cap = kSlots * kSlots; c > cap; cap *= kSlots) ++depth;
+  T acc[kMaxDepth];
+  int cnt[kMaxDepth];
+  for (int l = 0; l < depth; ++l) {
+    acc[l] = T(0);
+    cnt[l] = 0;
+  }
+  for (int k = k0; k < k1; ++k) {
+    acc[0] = add_rn(acc[0], term(k));
+    // a full chunk moves its sum one level up, and so on up the chain
+    for (int l = 0; ++cnt[l] == kSlots && l + 1 < depth; ++l) {
+      acc[l + 1] = add_rn(acc[l + 1], acc[l]);
+      acc[l] = T(0);
+      cnt[l] = 0;
+    }
+  }
+  for (int l = 0; l + 1 < depth; ++l) {
+    if (cnt[l] > 0) {
+      acc[l + 1] = add_rn(acc[l + 1], acc[l]);
+      ++cnt[l + 1];
+    }
+  }
+  return acc[depth - 1];
+}
+
+// One row of a K8 part: the sum of term(pos[k]) over k0 <= k < k1 in the
+// chain's association, a row of at most kSlots positions with kRowAhead of
+// its pos loads in flight.
+template <typename T, typename Term>
+__device__ __forceinline__ T part_row(const int* __restrict__ pos, int k0,
+                                      int k1, Term term) {
+  if (k1 - k0 > kSlots) {
+    return chain_sum<T>(k0, k1, [&](int k) { return term(pos[k]); });
+  }
   T acc = T(0);
-  for (int k = indptr[r]; k < k1; ++k) acc += p[pos[k]];
-  y[r] = acc;
+  for (int k = k0; k < k1; k += kRowAhead) {
+    int q[kRowAhead];
+#pragma unroll
+    for (int u = 0; u < kRowAhead; ++u) {
+      if (k + u < k1) q[u] = pos[k + u];
+    }
+#pragma unroll
+    for (int u = 0; u < kRowAhead; ++u) {
+      if (k + u < k1) acc = add_rn(acc, term(q[u]));
+    }
+  }
+  return acc;
+}
+
+// K8's rows of one zone, [r, r1) by kZoneThreads: each row's sum, added to y when
+// accumulating.  The next row's rptr pair and y are loaded while this row
+// sums, so a row waits on its pos loads alone.
+template <typename T, typename Term>
+__device__ __forceinline__ void part_rows(const int* __restrict__ rptr,
+                                          const int* __restrict__ pos,
+                                          T* __restrict__ y, int r, int r1,
+                                          int accumulate, int k0, int k1,
+                                          T y0, Term term) {
+  for (; r < r1; r += kZoneThreads) {
+    const int rn = r + kZoneThreads;
+    int k0n = 0, k1n = 0;
+    T yn = T(0);
+    if (rn < r1) {
+      k0n = rptr[rn];
+      k1n = rptr[rn + 1];
+      if (accumulate) yn = y[rn];
+    }
+    const T acc = part_row<T>(pos, k0, k1, term);
+    y[r] = accumulate ? add_rn(y0, acc) : acc;
+    k0 = k0n;
+    k1 = k1n;
+    y0 = yn;
+  }
+}
+
+// K8, one column part: a block per zone of rows_per_zone rows.  A zone's
+// positions [zstart[z], zstart[z+1]) are its rows' products, column-sorted;
+// the block forms them into shared memory (coalesced gcol / gdata reads,
+// kAhead a thread in flight, x gathered in column order), then each thread
+// sums rows from there at their R positions.  A zone larger than the
+// shared buffer forms each product where its row reads it (gdata, gcol
+// through L1).  Only the rows read y, the previous part's output: a part
+// launched to overlap its predecessor (programmatic dependent launch)
+// forms its products while that one ends, and waits before its rows.
+template <typename T>
+__global__ void __launch_bounds__(kZoneThreads)
+scatter_part_kernel(const int* __restrict__ gcol, const T* __restrict__ gdata,
+                    const T* __restrict__ x, const int* __restrict__ zstart,
+                    const int* __restrict__ rptr, const int* __restrict__ pos,
+                    T* __restrict__ y, int n_rows, int n_x, int rows_per_zone,
+                    int smem_elems, int accumulate) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* prod = reinterpret_cast<T*>(smem_raw);
+  // the next part may start its products now
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int z = blockIdx.x;
+  const int p0 = zstart[z];
+  const int len = zstart[z + 1] - p0;
+  const long long r_lo = static_cast<long long>(z) * rows_per_zone;
+  const int r1 = static_cast<int>(
+      r_lo + rows_per_zone < n_rows ? r_lo + rows_per_zone : n_rows);
+  const int r = static_cast<int>(r_lo) + threadIdx.x;
+  const int k0 = r < r1 ? rptr[r] : 0;
+  const int k1 = r < r1 ? rptr[r + 1] : 0;
+  if (len <= smem_elems) {
+    for (int i0 = threadIdx.x; i0 < len; i0 += kZoneThreads * kAhead) {
+      int c[kAhead];
+      T d[kAhead], v[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int i = i0 + u * kZoneThreads;
+        c[u] = i < len ? gcol[p0 + i] : -1;
+        d[u] = i < len ? gdata[p0 + i] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        v[u] = (c[u] >= 0 && c[u] < n_x) ? mul_rn(d[u], x[c[u]]) : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int i = i0 + u * kZoneThreads;
+        if (i < len) prod[i] = v[u];
+      }
+    }
+    __syncthreads();
+  }
+  // the previous grid on the stream has ended and its y is visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const T y0 = (accumulate && r < r1) ? y[r] : T(0);
+  if (len <= smem_elems) {
+    part_rows<T>(rptr, pos, y, r, r1, accumulate, k0, k1, y0,
+                 [&](int q) { return prod[q - p0]; });
+  } else {
+    part_rows<T>(rptr, pos, y, r, r1, accumulate, k0, k1, y0, [&](int q) {
+      const int c = gcol[q];
+      return (c >= 0 && c < n_x) ? mul_rn(gdata[q], x[c]) : T(0);
+    });
+  }
 }
 
 template <typename T>
@@ -279,28 +482,39 @@ int launch_band(const void* cols, const void* data, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// max_zone sizes the product buffer (at most kZoneSmemBytes): a zone past
+// it is read through L1, so y does not depend on it.
 template <typename T>
-int launch_expand(const void* gcol, const void* gdata, const void* x, void* p,
-                  int n, int n_x, void* stream) {
-  if (n < 0 || n_x < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  scatter_expand_kernel<T><<<blocks_of(n), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(gcol), static_cast<const T*>(gdata),
-      static_cast<const T*>(x), static_cast<T*>(p), n, n_x);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_regroup(const void* indptr, const void* pos, const void* p, void* y,
-                   int n_rows, void* stream) {
-  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows == 0) return 0;
-  scatter_regroup_kernel<T><<<blocks_of(n_rows), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const int*>(pos),
-      static_cast<const T*>(p), static_cast<T*>(y), n_rows);
-  return static_cast<int>(cudaGetLastError());
+int launch_scatter_part(const void* gcol, const void* gdata, const void* x,
+                        const void* zstart, const void* rptr, const void* pos,
+                        void* y, int n_zones, int n_rows, int n_x,
+                        int rows_per_zone, int max_zone, int accumulate,
+                        int overlap, void* stream) {
+  if (n_zones < 0 || n_rows < 0 || n_x < 0 || rows_per_zone < 1 ||
+      max_zone < 0 ||
+      static_cast<long long>(n_zones) * rows_per_zone < n_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_zones == 0 || n_rows == 0) return 0;
+  const int cap = kZoneSmemBytes / static_cast<int>(sizeof(T));
+  const int smem_elems = max_zone < cap ? max_zone : cap;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_zones));
+  cfg.blockDim = dim3(kZoneThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_elems) * sizeof(T);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = overlap ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, scatter_part_kernel<T>, static_cast<const int*>(gcol),
+      static_cast<const T*>(gdata), static_cast<const T*>(x),
+      static_cast<const int*>(zstart), static_cast<const int*>(rptr),
+      static_cast<const int*>(pos), static_cast<T*>(y), n_rows, n_x,
+      rows_per_zone, smem_elems, accumulate);
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 template <typename T>
@@ -370,24 +584,24 @@ int band_spmv_f64(const void* cols, const void* data, const void* x, void* y,
   return launch_band<double>(cols, data, x, y, n_rows, n_x, n_pad, w, stream);
 }
 
-int scatter_expand_f32(const void* gcol, const void* gdata, const void* x,
-                       void* p, int n, int n_x, void* stream) {
-  return launch_expand<float>(gcol, gdata, x, p, n, n_x, stream);
+int scatter_part_f32(const void* gcol, const void* gdata, const void* x,
+                     const void* zstart, const void* rptr, const void* pos,
+                     void* y, int n_zones, int n_rows, int n_x,
+                     int rows_per_zone, int max_zone, int accumulate,
+                     int overlap, void* stream) {
+  return launch_scatter_part<float>(gcol, gdata, x, zstart, rptr, pos, y,
+                                    n_zones, n_rows, n_x, rows_per_zone,
+                                    max_zone, accumulate, overlap, stream);
 }
 
-int scatter_expand_f64(const void* gcol, const void* gdata, const void* x,
-                       void* p, int n, int n_x, void* stream) {
-  return launch_expand<double>(gcol, gdata, x, p, n, n_x, stream);
-}
-
-int scatter_regroup_f32(const void* indptr, const void* pos, const void* p,
-                        void* y, int n_rows, void* stream) {
-  return launch_regroup<float>(indptr, pos, p, y, n_rows, stream);
-}
-
-int scatter_regroup_f64(const void* indptr, const void* pos, const void* p,
-                        void* y, int n_rows, void* stream) {
-  return launch_regroup<double>(indptr, pos, p, y, n_rows, stream);
+int scatter_part_f64(const void* gcol, const void* gdata, const void* x,
+                     const void* zstart, const void* rptr, const void* pos,
+                     void* y, int n_zones, int n_rows, int n_x,
+                     int rows_per_zone, int max_zone, int accumulate,
+                     int overlap, void* stream) {
+  return launch_scatter_part<double>(gcol, gdata, x, zstart, rptr, pos, y,
+                                     n_zones, n_rows, n_x, rows_per_zone,
+                                     max_zone, accumulate, overlap, stream);
 }
 
 int bsr_spmm_f32(const void* indptr, const void* indices, const void* data,

@@ -55,10 +55,8 @@ _SIGNATURES = {
     "csr_select_f64": [_VP] * 3 + [_I, _I, _VP],
     "band_spmv_f32": [_VP] * 4 + [_I, _I, ctypes.c_longlong, _I, _VP],
     "band_spmv_f64": [_VP] * 4 + [_I, _I, ctypes.c_longlong, _I, _VP],
-    "scatter_expand_f32": [_VP] * 4 + [_I, _I, _VP],
-    "scatter_expand_f64": [_VP] * 4 + [_I, _I, _VP],
-    "scatter_regroup_f32": [_VP] * 4 + [_I, _VP],
-    "scatter_regroup_f64": [_VP] * 4 + [_I, _VP],
+    "scatter_part_f32": [_VP] * 7 + [_I] * 7 + [_VP],
+    "scatter_part_f64": [_VP] * 7 + [_I] * 7 + [_VP],
     "bsr_spmm_f32": [_VP] * 5 + [_I, _I, _I, _VP],
     "bsr_spmm_f64": [_VP] * 5 + [_I, _I, _I, _VP],
 }

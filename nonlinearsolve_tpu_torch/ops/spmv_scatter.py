@@ -1,4 +1,4 @@
-"""The two-pass expand/regroup SpMV tier, kernel K8 (the port of
+"""The expand/regroup SpMV tier, kernel K8 (the port of
 ``ops/pallas_spmv_scatter.py``).
 
 For patterns without structure the JAX package factors the product:
@@ -17,22 +17,30 @@ so the port's tier and y are the JAX package's.  Per part the port keeps
 
 - ``gcol``: (P,) int32, the G column of each position, −1 in zone pads;
 - each R plan as an int32 CSR (``indptr``, positions);
+- ``zstart``: each zone's first G position, and the part's CSR ``indptr``
+  over A's rows (K8's tables, ``PartTables``);
 - ``gsrc``: the CSR position of each G position (``nnz`` in pads), which
   ``stage`` applies once per Jacobian, for all parts in one launch of K5's
   selection.
 
 K8 (``csrc/spmv.cu``) replaces ``ops/pallas_spmv_scatter.py``
-``scatter_spmv_pallas`` / ``scatter_spmv_staged``, two passes of the TPU's
-ELL kernel: ``scatter_expand(gcol, gdata, x)`` (one thread a position,
-p = 0 in pads) and ``scatter_regroup(indptr, pos, p)`` (one thread an
-output row, summing p at its positions in ascending order; no data array,
-R's data are ones).  ``apply_staged`` runs, per part, one expand and one
-regroup per R plan of the chain, then adds the parts' outputs.  The custom
-VJP and ``stage_unit`` are not ported (ROADMAP A.28; the port's
+``ScatterPlan.apply_staged`` (``scatter_spmv_pallas`` /
+``scatter_spmv_staged``), two passes of the TPU's ELL kernel a part.  The
+port fuses them: ``scatter_spmv_part`` is one launch a part, a block per
+zone, which forms the zone's products in shared memory and sums each row
+from there, so p never goes to device memory.  Part 0 writes y, each
+later part adds to it.  The products are rounded one by one and each row
+summed in the R chain's association with no FMA, so y is bit-equal to
+the two passes (``scatter_part_plain``, the CPU path:
+``scatter_expand_plain`` then ``scatter_regroup_plain``) and to
+``scatter_part_sequential``, the reference the card is held to.  The
+custom VJP and ``stage_unit`` are not ported (ROADMAP A.28; the port's
 ``StaticSelection`` stays on ``gather_select``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -107,8 +115,10 @@ class _TwoPassPart:
         if best is None:
             return
         for k in ("g_plan", "r_plans", "sigma", "P", "B", "cost",
-                  "table_bytes", "gcol", "pos_sorted", "r_tables"):
+                  "table_bytes", "gcol", "pos_sorted", "r_tables",
+                  "zstart"):
             setattr(self, k, best[k])
+        self.indptr = np.asarray(indptr, np.int32)
         self.n_rows = n_rows
         self.n_cols = n_cols
         self.nnz = nnz
@@ -187,10 +197,13 @@ class _TwoPassPart:
             table_bytes += 8 * rp.table_size
         gcol = np.full(P, -1, np.int32)
         gcol[pos_sorted] = g_indices
+        # every row's zone, the ones past the last nonzero's empty
+        zones = np.full(-(-n_rows // B) + 1, P, np.int64)
+        zones[:nblocks] = zstart
         return {"g_plan": g_plan, "r_plans": r_plans, "sigma": order,
                 "P": P, "B": B, "cost": cost, "eff_cost": eff,
                 "table_bytes": table_bytes, "gcol": gcol,
-                "pos_sorted": pos_sorted,
+                "pos_sorted": pos_sorted, "zstart": zones.astype(np.int32),
                 "r_tables": [(np.asarray(ip, np.int32),
                               np.asarray(ix, np.int32))
                              for ip, ix in r_tables]}
@@ -272,15 +285,18 @@ class ScatterPlan:
         return self._sel
 
     def tables(self, device) -> list:
-        """Per part, ``(c0, c1, gcol, [(indptr, pos), ...])`` as int32
-        tensors on ``device`` (cached)."""
+        """Per part, its ``PartTables`` on ``device`` (cached)."""
         key = torch.device(device)
         if key not in self._tables:
+            def dev(a):
+                return torch.as_tensor(a, device=key)
             self._tables[key] = [
-                (c0, c1, torch.as_tensor(part.gcol, device=key),
-                 [(torch.as_tensor(ip, device=key),
-                   torch.as_tensor(ix, device=key))
-                  for ip, ix in part.r_tables])
+                PartTables(c0, c1, dev(part.gcol),
+                           [(dev(ip), dev(ix)) for ip, ix in part.r_tables],
+                           tuple(int(np.diff(ip).max())
+                                 for ip, _ix in part.r_tables),
+                           dev(part.zstart), dev(part.indptr), part.B,
+                           int(np.diff(part.zstart).max()))
                 for (c0, c1, _sel, part) in self.parts]
         return self._tables[key]
 
@@ -296,14 +312,47 @@ class ScatterPlan:
         return out
 
     def apply_staged(self, staged, x):
-        """y = Σ_parts R·((G∘data)·x[c0:c1]) with the staged G data."""
-        y = None
-        for (c0, c1, gcol, rts), gdata in zip(self.tables(x.device), staged):
-            p = scatter_expand(gcol, gdata, x[c0:c1])
-            for indptr, pos in rts:
-                p = scatter_regroup(indptr, pos, p)
-            y = p if y is None else y + p
+        """y = Σ_parts R·((G∘data)·x[c0:c1]) with the staged G data, the
+        parts added in order (one K8 launch a part)."""
+        parts = list(zip(self.tables(x.device), staged))
+        if not parts or x.device.type == "cpu":
+            y = None
+            for t, gdata in parts:
+                y = scatter_spmv_part(t, gdata, x, y)
+            return y
+        y = _check_part(*parts[0], x, None)
+        for t, gdata in parts[1:]:
+            _check_part(t, gdata, x, y)
+        # back to back on the stream, nothing launched between them: each
+        # part after the first may overlap the one before
+        for i, (t, gdata) in enumerate(parts):
+            _launch_part(t, gdata, x, y, accumulate=i > 0, overlap=i > 0)
         return y
+
+
+class PartTables(NamedTuple):
+    """One part's device tables.  ``gcol``: (P,) int32, the G column of
+    each position, −1 in zone pads; ``r_tables``: the R chain, each an
+    int32 CSR ``(indptr, pos)`` (the first one's ``pos``, the G position
+    of each of the part's nonzeros in CSR order, is K8's ``pos``);
+    ``r_widths``: each R level's longest row; ``zstart``: (n_zones + 1,)
+    int32, the first G position of each zone of ``rows_per_zone`` rows (P
+    for the zones past the last nonzero);
+    ``rptr``: the part's CSR indptr over A's rows; ``max_zone``: the
+    largest zone's positions."""
+    c0: int
+    c1: int
+    gcol: torch.Tensor
+    r_tables: list
+    r_widths: tuple
+    zstart: torch.Tensor
+    rptr: torch.Tensor
+    rows_per_zone: int
+    max_zone: int
+
+    @property
+    def pos(self):
+        return self.r_tables[0][1]
 
 
 _SCATTER_PLAN_CACHE: dict = {}
@@ -338,58 +387,116 @@ def scatter_regroup_plain(indptr, pos, p):
         0, rows, p.index_select(0, pos.long()))
 
 
-def scatter_expand(gcol, gdata, x):
-    """``p[k] = gdata[k]·x[gcol[k]]``, 0 where ``gcol[k] == -1``; ``gcol``
-    int32 (P,), ``gdata`` (P,), ``x`` (n_cols,)."""
-    if x.device.type == "cpu":
-        return scatter_expand_plain(gcol, gdata, x)
-    dtype = _value_dtype(x)
-    _check("x", x, dtype, x.device, 1)
-    _check("gdata", gdata, dtype, x.device, 1)
-    _check("gcol", gcol, torch.int32, x.device, 1)
-    if gcol.shape != gdata.shape:
-        raise ValueError("gcol and gdata differ in length")
-    n = gcol.shape[0]
-    _fits_int32("P", n)
-    _fits_int32("n_cols", x.shape[0])
-    p = torch.empty(n, dtype=dtype, device=x.device)
-    lib = _lib()
-    rc = getattr(lib, f"scatter_expand_{_SUFFIX[dtype]}")(
-        _backend.ptr(gcol), _backend.ptr(gdata), _backend.ptr(x),
-        _backend.ptr(p), n, x.shape[0], _backend.stream_handle(x))
-    _backend.check_launch(lib, rc, "scatter_expand")
-    _backend.count_launch("scatter_expand")
-    return p
-
-
-def scatter_regroup(indptr, pos, p):
-    """``y[r] = Σ p[pos[k]]`` over ``indptr[r] <= k < indptr[r+1]``;
-    ``indptr`` and ``pos`` int32."""
-    if p.device.type == "cpu":
-        return scatter_regroup_plain(indptr, pos, p)
-    dtype = _value_dtype(p)
-    _check("p", p, dtype, p.device, 1)
-    _check("indptr", indptr, torch.int32, p.device, 1)
-    _check("pos", pos, torch.int32, p.device, 1)
+def slot_sum_plain(indptr, pos, p, width):
+    """``y[r] = Σ p[pos[k]]`` over ``indptr[r] <= k < indptr[r+1]``, one
+    slot at a time in R's order (a loop over the ``width`` slots of the
+    longest row, vectorised across rows): a sum in the same order as
+    ``scatter_regroup_plain`` on the CPU that is also deterministic on the
+    card, where ``index_add_`` adds by atomics in no fixed order."""
     n_rows = indptr.shape[0] - 1
+    start = indptr[:-1].long()
+    counts = indptr[1:].long() - start
+    acc = torch.zeros(n_rows, dtype=p.dtype, device=p.device)
+    pad = p.shape[0]
+    p_ext = torch.cat([p, p.new_zeros(1)])
+    last = max(pos.shape[0] - 1, 0)
+    # a pad slot adds +0, which leaves a sum begun at +0 as it is
+    for s in range(width):
+        k = torch.where(counts > s, pos.long()[(start + s).clamp(max=last)],
+                        pad)
+        acc = acc + p_ext[k]
+    return acc
+
+
+def scatter_part_plain(t: PartTables, gdata, x, y=None):
+    """K8's plain version, the two passes: ``scatter_expand_plain``, the R
+    chain by ``scatter_regroup_plain``, then ``y + p``."""
+    p = scatter_expand_plain(t.gcol, gdata, x[t.c0:t.c1])
+    for indptr, pos in t.r_tables:
+        p = scatter_regroup_plain(indptr, pos, p)
+    return p if y is None else y + p
+
+
+def scatter_part_sequential(t: PartTables, gdata, x, y=None):
+    """The sequential reference of one part: ``scatter_expand_plain``'s
+    products, each R level of the chain summed by ``slot_sum_plain``, then
+    ``y + p``.  K8 equals it bit for bit, on the card and off it."""
+    p = scatter_expand_plain(t.gcol, gdata, x[t.c0:t.c1])
+    for (indptr, pos), width in zip(t.r_tables, t.r_widths):
+        p = slot_sum_plain(indptr, pos, p, width)
+    return p if y is None else y + p
+
+
+def scatter_spmv_part(t: PartTables, gdata, x, y=None):
+    """One column part of the product: ``R·((G∘gdata)·x[c0:c1])``, or,
+    when ``y`` is given, that added to ``y`` in place (and ``y``
+    returned).  ``gdata`` (P,) is the part's staged G data, ``x``
+    (n_cols,) the whole vector.  The products are rounded one by one and
+    each row summed in the R chain's association, with no FMA:
+    ``scatter_part_sequential``'s bits."""
+    if x.device.type == "cpu":
+        p = scatter_part_plain(t, gdata, x)
+        return p if y is None else y.add_(p)
+    out = _check_part(t, gdata, x, y)
+    _launch_part(t, gdata, x, out, accumulate=y is not None, overlap=False)
+    return out
+
+
+def _check_part(t: PartTables, gdata, x, y):
+    """Refuses what K8 does not take; returns the output, ``y`` or a new
+    vector."""
+    dtype = _value_dtype(x)
+    dev = x.device
+    _check("x", x, dtype, dev, 1)
+    _check("gdata", gdata, dtype, dev, 1)
+    for name in ("gcol", "zstart", "rptr", "pos"):
+        _check(name, getattr(t, name), torch.int32, dev, 1)
+    if t.gcol.shape != gdata.shape:
+        raise ValueError("gcol and gdata differ in length")
+    if not 0 <= t.c0 <= t.c1 <= x.shape[0]:
+        raise ValueError(f"columns [{t.c0}, {t.c1}) outside x of length "
+                         f"{x.shape[0]}")
+    n_rows = t.rptr.shape[0] - 1
+    n_zones = t.zstart.shape[0] - 1
+    if n_zones * t.rows_per_zone < n_rows:
+        raise ValueError(f"{n_zones} zones of {t.rows_per_zone} rows do not "
+                         f"cover {n_rows} rows")
+    _fits_int32("P", t.gcol.shape[0])
+    _fits_int32("nnz", t.pos.shape[0])
     _fits_int32("n_rows", n_rows)
-    y = torch.empty(n_rows, dtype=dtype, device=p.device)
-    lib = _lib()
-    rc = getattr(lib, f"scatter_regroup_{_SUFFIX[dtype]}")(
-        _backend.ptr(indptr), _backend.ptr(pos), _backend.ptr(p),
-        _backend.ptr(y), n_rows, _backend.stream_handle(p))
-    _backend.check_launch(lib, rc, "scatter_regroup")
-    _backend.count_launch("scatter_regroup")
+    if y is None:
+        return torch.empty(n_rows, dtype=dtype, device=dev)
+    _check("y", y, dtype, dev, 1)
+    if y.shape[0] != n_rows:
+        raise ValueError(f"y has {y.shape[0]} rows, expected {n_rows}")
     return y
 
 
+def _launch_part(t: PartTables, gdata, x, y, *, accumulate, overlap):
+    """K8 on one part of checked tables: writes ``y``, or adds to it when
+    ``accumulate``.  ``overlap`` only where the last launch on the stream
+    was the previous part of the same product, which writes none of this
+    part's inputs but ``y``: the launch then forms its products while that
+    one ends (a programmatic dependent launch) and waits for it before it
+    reads ``y``."""
+    lib = _lib()
+    rc = getattr(lib, f"scatter_part_{_SUFFIX[y.dtype]}")(
+        _backend.ptr(t.gcol), _backend.ptr(gdata),
+        _backend.ptr(x[t.c0:t.c1]), _backend.ptr(t.zstart),
+        _backend.ptr(t.rptr), _backend.ptr(t.pos), _backend.ptr(y),
+        t.zstart.shape[0] - 1, y.shape[0], t.c1 - t.c0, t.rows_per_zone,
+        t.max_zone, int(accumulate), int(overlap), _backend.stream_handle(x))
+    _backend.check_launch(lib, rc, "scatter_spmv_part")
+    _backend.count_launch("scatter_spmv_part")
+
+
 def scatter_spmv(plan: ScatterPlan, csr_data, x):
-    """y = A·x through the two-pass tier (staging, then K8's passes)."""
+    """y = A·x through the two-pass tier (staging, then K8 a part)."""
     return plan.apply_staged(plan.stage(csr_data), x)
 
 
 def scatter_spmv_staged(plan: ScatterPlan, csr_data):
-    """Staged closure: the G data once, then K8's passes per product."""
+    """Staged closure: the G data once, then K8 a part per product."""
     staged = plan.stage(csr_data)
 
     def mv(x):

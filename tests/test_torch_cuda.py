@@ -203,6 +203,37 @@ def test_gather_spmv_on_an_unstructured_pattern_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_gather_spmv_edges_on_card(cuda, dtype):
+    """K5 on 1001 rows (not a whole number of blocks), 200 of them empty
+    and one of 5000 entries (longer than a block's staging chunk), and
+    rows of 7 scattered columns: at TOL of its plain version, and two
+    launches bit-equal."""
+    from nonlinearsolve_tpu_torch.ops import spmv
+    from nonlinearsolve_tpu_torch.ops.sparse import CSR
+    rng = np.random.default_rng(13)
+    n, m = 1001, 60000
+    counts = np.full(n, 7)
+    counts[300:500] = 0
+    counts[777] = 5000
+    rows = np.repeat(np.arange(n), counts)
+    cols = rng.integers(0, m, size=rows.size)
+    A = CSR.from_pattern(rows, cols, (n, m))
+    assert np.diff(A.indptr)[777] > 2048
+    assert np.diff(A.indptr)[300:500].max() == 0
+    gen = torch.Generator().manual_seed(13)
+    data = torch.randn(A.nnz, generator=gen, dtype=TORCH_DT[dtype]).to(cuda)
+    x = torch.randn(m, generator=gen, dtype=TORCH_DT[dtype]).to(cuda)
+    indptr, indices = A.device_tables(cuda)
+    launches = dict(_backend.LAUNCHES)
+    y = spmv.gather_spmv(indptr, indices, data, x)
+    assert torch.equal(spmv.gather_spmv(indptr, indices, data, x), y)
+    assert _backend.LAUNCHES["gather_spmv"] == launches["gather_spmv"] + 2
+    assert not bool(y[300:500].any())
+    _close(y, spmv.gather_spmv_plain(indptr, indices, data, x), dtype)
+
+
+@pytest.mark.cuda
 def test_spmv_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from nonlinearsolve_tpu_torch.ops import spmv
     x = torch.ones(8, dtype=torch.float64, device=cuda)
@@ -263,8 +294,9 @@ def test_sparse_solve_on_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K7 (band_spmv) and K8 (scatter_expand, scatter_regroup): rel-inf 1e-12
-# (f64) / 1e-5 (f32) of max|y| against their plain versions on the card
+# K7 (band_spmv): rel-inf 1e-12 (f64) / 1e-5 (f32) of max|y| against its
+# plain version on the card; K8 (scatter_spmv_part): bit for bit against
+# its sequential reference
 # ---------------------------------------------------------------------------
 
 def _periodic7(N, perm=None):
@@ -316,44 +348,69 @@ def test_band_spmv_matches_plain_on_card(cuda, dtype):
         launches["gather_select"] + 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_scatter_kernels_match_plain_on_card(cuda, dtype, monkeypatch):
-    """Dense rows (a chained R) and column parts (the x cap lowered)."""
+def _scatter_case(name, monkeypatch):
+    """A CSR pattern and its scatter plan: ``parts`` (dense rows, a chained
+    R of depth 2, column parts with the x cap lowered), ``depth3`` (a row
+    of 1100 positions: R chained twice), ``big-zone`` (rows of 100: zones
+    of 12,800 positions, past K8's 48 KB product buffer in f32 and f64)."""
     from nonlinearsolve_tpu_torch.ops import spmv, spmv_scatter as tsc
     from nonlinearsolve_tpu_torch.ops.sparse import CSR
-    monkeypatch.setattr(spmv, "MAX_X_ELEMS_VMEM", 2048)
     rng = np.random.default_rng(4)
-    rows = np.concatenate([np.repeat(np.arange(512), 3),
-                           np.repeat(np.arange(4), 100)])
-    cols = rng.integers(0, 4096, size=rows.size)
-    A = CSR.from_pattern(rows, cols, (512, 4096))
+    if name == "parts":
+        monkeypatch.setattr(spmv, "MAX_X_ELEMS_VMEM", 2048)
+        shape = (512, 4096)
+        rows = np.concatenate([np.repeat(np.arange(512), 3),
+                               np.repeat(np.arange(4), 100)])
+        cols = rng.integers(0, 4096, size=rows.size)
+    elif name == "depth3":
+        shape = (600, 3000)
+        rows = np.concatenate([np.repeat(np.arange(600), 7),
+                               np.full(1100, 300)])
+        cols = np.concatenate([rng.integers(0, 3000, size=4200),
+                               rng.choice(3000, 1100, replace=False)])
+    else:
+        shape = (256, 20000)
+        rows = np.repeat(np.arange(256), 100)
+        cols = rng.integers(0, 20000, size=rows.size)
+    A = CSR.from_pattern(rows, cols, shape)
     plan = tsc.ScatterPlan(A.indptr, A.indices, *A.shape)
-    assert plan.ok and len(plan.parts) >= 2
-    assert any(len(p.r_plans) >= 2 for (*_, p) in plan.parts)
+    assert plan.ok
+    depth = max(len(p.r_plans) for (*_, p) in plan.parts)
+    if name == "parts":
+        assert len(plan.parts) >= 2 and depth == 2
+    elif name == "depth3":
+        assert depth == 3
+    else:
+        assert max(int(np.diff(p.zstart).max())
+                   for (*_, p) in plan.parts) * 4 > 48 * 1024
+    return A, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["parts", "depth3", "big-zone"])
+def test_scatter_kernels_match_plain_on_card(cuda, name, dtype, monkeypatch):
+    """K8, one launch a part, bit-equal to the sequential reference (the
+    plain products, each R level summed slot by slot, the parts added in
+    order), and at TOL of K5's plain version of A·x."""
+    from nonlinearsolve_tpu_torch.ops import spmv, spmv_scatter as tsc
+    A, plan = _scatter_case(name, monkeypatch)
     gen = torch.Generator().manual_seed(12)
     data = torch.randn(A.nnz, generator=gen, dtype=TORCH_DT[dtype]).to(cuda)
     x = torch.randn(A.shape[1], generator=gen,
                     dtype=TORCH_DT[dtype]).to(cuda)
-    launches = dict(_backend.LAUNCHES)
     staged = plan.stage(data)
-    n_regroup = 0
-    for (c0, c1, gcol, rts), gdata in zip(plan.tables(cuda), staged):
-        p = tsc.scatter_expand(gcol, gdata, x[c0:c1])
-        _close(p, tsc.scatter_expand_plain(gcol, gdata, x[c0:c1]), dtype)
-        for indptr, pos in rts:
-            q = tsc.scatter_regroup(indptr, pos, p)
-            _close(q, tsc.scatter_regroup_plain(indptr, pos, p), dtype)
-            p = q
-            n_regroup += 1
+    launches = dict(_backend.LAUNCHES)
+    y = y_ref = None
+    for t, gdata in zip(plan.tables(cuda), staged):
+        y = tsc.scatter_spmv_part(t, gdata, x, y)
+        y_ref = tsc.scatter_part_sequential(t, gdata, x, y_ref)
+    assert torch.equal(y, y_ref)
+    assert torch.equal(tsc.scatter_spmv(plan, data, x), y)
     indptr, indices = A.device_tables(cuda)
-    _close(tsc.scatter_spmv(plan, data, x),
-           spmv.gather_spmv_plain(indptr, indices, data, x), dtype)
-    parts = len(plan.parts)
-    assert _backend.LAUNCHES["scatter_expand"] == \
-        launches["scatter_expand"] + 2 * parts
-    assert _backend.LAUNCHES["scatter_regroup"] == \
-        launches["scatter_regroup"] + 2 * n_regroup
+    _close(y, spmv.gather_spmv_plain(indptr, indices, data, x), dtype)
+    assert _backend.LAUNCHES["scatter_spmv_part"] == \
+        launches["scatter_spmv_part"] + 2 * len(plan.parts)
 
 
 @pytest.mark.cuda
@@ -426,10 +483,7 @@ def test_band_and_scatter_route_solves_on_card_match_cpu(cuda, route,
     if route == "stream":
         assert lg["band_spmv"] == products > 0
     else:
-        parts = len(splan.parts)
-        chain = sum(len(pt.r_plans) for (*_, pt) in splan.parts)
-        assert lg["scatter_expand"] == parts * products > 0
-        assert lg["scatter_regroup"] == chain * products
+        assert lg["scatter_spmv_part"] == len(splan.parts) * products > 0
     assert lg["dia_spmv"] == lg["gather_spmv"] == 0
     assert not any(lc.values())
 
@@ -449,13 +503,22 @@ def test_band_and_scatter_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tst.band_spmv_packed(cols, data, x, 9)
     with pytest.raises(ValueError):
         tst.band_spmv_packed(cols, data[:, :4], x, 4)
-    gcol = torch.zeros(8, dtype=torch.int32, device=cuda)
+    i32 = torch.zeros(9, dtype=torch.int32, device=cuda)
+    t = tsc.PartTables(0, 8, i32[:8], [(i32, i32[:8])], (0,), i32[:2], i32,
+                       8, 8)
+    tsc.scatter_spmv_part(t, x, x)
     with pytest.raises(ValueError):
-        tsc.scatter_expand(gcol.cpu(), x, x)
+        tsc.scatter_spmv_part(t._replace(gcol=i32[:8].cpu()), x, x)
     with pytest.raises(ValueError):
-        tsc.scatter_expand(gcol[:4], x, x)
+        tsc.scatter_spmv_part(t._replace(gcol=i32[:4]), x, x)
     with pytest.raises(TypeError):
-        tsc.scatter_regroup(gcol[:3].long(), gcol, x)
+        tsc.scatter_spmv_part(t._replace(rptr=i32.long()), x, x)
+    with pytest.raises(ValueError):
+        tsc.scatter_spmv_part(t._replace(c1=9), x, x)
+    with pytest.raises(ValueError):
+        tsc.scatter_spmv_part(t._replace(rows_per_zone=4), x, x)
+    with pytest.raises(ValueError):
+        tsc.scatter_spmv_part(t, x, x, y=x[:4])
 
 
 # ---------------------------------------------------------------------------

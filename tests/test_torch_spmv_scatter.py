@@ -1,4 +1,4 @@
-"""The port's two-pass tier (kernel K8's plain versions,
+"""The port's expand/regroup tier (kernel K8's plain versions,
 ``ops/spmv_scatter.py``) against the JAX package, on the CPU (f64).
 
 ``scatter_spmv`` (the plain expand and regroup on the CPU) against
@@ -129,8 +129,9 @@ def test_plain_expand_and_regroup():
     gcol = torch.tensor([2, -1, 0, 1], dtype=torch.int32)
     gdata = torch.tensor([1.5, float("inf"), -2.0, 4.0], dtype=torch.float64)
     x = torch.tensor([3.0, 0.5, 2.0], dtype=torch.float64)
-    p = tsc.scatter_expand(gcol, gdata, x)
+    p = tsc.scatter_expand_plain(gcol, gdata, x)
     assert p.tolist() == [3.0, 0.0, -6.0, 2.0]
     indptr = torch.tensor([0, 2, 2, 4], dtype=torch.int32)
     pos = torch.tensor([0, 3, 1, 2], dtype=torch.int32)
-    assert tsc.scatter_regroup(indptr, pos, p).tolist() == [5.0, 0.0, -6.0]
+    assert tsc.scatter_regroup_plain(indptr, pos, p).tolist() == \
+        [5.0, 0.0, -6.0]
