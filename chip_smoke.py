@@ -14,8 +14,17 @@ check raises, so the script exits non-zero.
    all started together, each timed;
 3. kernels: K1 (brusselator_jvp) and K2 (brusselator_jvp_scaled, planar
    and interleaved) on the card against their plain PyTorch versions —
-   N=512 and N=2048, f32 and f64, and a NaN that must come out of K2's
-   absmax.  Then K4 (dia_spmv) and K5's unit-data variant (gather_select)
+   N=512 and N=2048, f32 and f64, K2's max equal to max|out| of its own
+   output exactly, and a NaN that must come out of K2's absmax; K2 in a
+   CUDA graph replayed 200 times with a new inv_scale each time (every
+   replay's max exact), and two such graphs replayed side by side on two
+   streams (each max exact: launches share no state).  First
+   ``stencil_timings``: the time of one call of each wrapper (K1, K2 with a
+   float and a tensor inv_scale, K3, the bf16 matvec on an f32 tangent) at
+   N=512 and 2048, the launches of each call (the nodes it puts in a CUDA
+   graph: one a wrapper, two for K2, whose max's word a one-thread kernel
+   zeroes first) and their device time (torch.profiler), and the chain
+   step.  Then K4 (dia_spmv) and K5's unit-data variant (gather_select)
    on the DIA route's tables (the 512² Brusselator's 11 diagonals and its
    assembly selection) with seeded data, f32 and f64, with pad slots of
    inf that K4 must not read.  Times are CUDA-event times per call over
@@ -26,9 +35,9 @@ check raises, so the script exits non-zero.
    ``torch.take``) is timed by its kernels' device time under
    torch.profiler over eager calls (the kernel is timed that way too, for
    a like-for-like pair).  K3 (brusselator_jvp_bf16) at N=512 and 2048,
-   bf16, must be bit-equal to its plain version; at N=512 it is timed
-   beside the whole bf16 matvec (``make_brusselator_jvp_bf16``'s mv: two
-   casts and K3) and K1 at f32;
+   bf16, must be bit-equal to its plain version, and the bf16 matvec
+   (``make_brusselator_jvp_bf16``'s mv, one launch of K3's f32 variant) on
+   the f32 tangent bit-equal to cast -> K3's plain version -> cast;
 4. main path, with every launch counter set to 0 just before and read just
    after: the chained, normalised matvec of the throughput row
    (bench.py:92-108, K2) and the flagship solve at bench.py:134-140's
@@ -155,6 +164,8 @@ check raises, so the script exits non-zero.
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -163,7 +174,8 @@ from concurrent.futures import ThreadPoolExecutor
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,       # H100 SXM, outside the tensor cores
               "float64": 34e12,
-              # K3 computes in f32 on the CUDA cores, rounding through bf16
+              # K3: bf16x2 on the CUDA cores, counted at the f32 rate (the
+              # bound is bytes either way)
               "bfloat16": 67e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}   # rel-inf of max|out|
 FLOPS_PER_POINT = {"brusselator_jvp": 27, "brusselator_jvp_scaled": 31,
@@ -297,20 +309,9 @@ def profiled_ms(torch, fn, calls=20):
     under torch.profiler (every kernel the call launches, summed), so the
     host's launch cost does not count.  For a library call that a CUDA
     graph may not capture."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if str(ev.device_type).endswith("CUDA"):
-            total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0)) or 0
-    return total / 1e3 / calls if total > 0 else None
+    total = sum(k["us_per_call"]
+                for k in kernels_per_call(torch, fn, calls).values())
+    return total / 1e3 if total > 0 else None
 
 
 def roofline_ms(nbytes, flops, dtype):
@@ -367,6 +368,172 @@ def warm_walls(torch, run, count=3):
     return walls
 
 
+def kernels_per_call(torch, fn, calls=20):
+    """The kernels one call of ``fn`` launches, under torch.profiler:
+    {kernel name: {"per_call": launches a call, "us_per_call": device µs a
+    call}} over ``calls`` eager calls (after three warm-up calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) or 0
+        out[ev.key] = {"per_call": ev.count / calls,
+                       "us_per_call": dt / calls}
+    return out
+
+
+def graph_nodes(torch, fn):
+    """The launches of one call of ``fn``: the nodes (kernels, memsets,
+    copies) it puts in a CUDA graph, counted by ``cuGraphGetNodes``,
+    after one call outside the capture."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    rc = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({rc})")
+    return count.value
+
+
+def sass_counts(so):
+    """Machine instructions per kernel of a built library (``cuobjdump
+    -sass``, NOPs not counted), by demangled name; {} without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.match(r"\s*Function : (\S+)", line)
+        if fn:
+            name = fn.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line) \
+                and " NOP" not in line:
+            counts[name] += 1
+    filt = shutil.which("c++filt")
+    if filt and counts:
+        names = subprocess.run([filt], input="\n".join(counts),
+                               capture_output=True, text=True).stdout.split("\n")
+        counts = dict(zip(names, counts.values()))
+    return counts
+
+
+def brusselator_inputs(torch, brusselator, dev, gen, N, dtype):
+    """Phase 3's seeded inputs: U = u0 + 0.1·noise, T noise, the default p;
+    made on the host from ``gen`` and moved to ``dev``."""
+    U = brusselator.init_u0(N, dtype, device="cpu")
+    U = U + 0.1 * torch.randn(U.shape, generator=gen, dtype=dtype)
+    T = torch.randn((N, N, 2), generator=gen, dtype=dtype)
+    p = brusselator.default_p(N, dtype, device="cpu")
+    return U.to(dev), T.to(dev), p.to(dev)
+
+
+def stencil_timings(torch, stencil, inputs, card):
+    """K1, K2 (interleaved and planar, a Python-float and a 0-d tensor
+    inv_scale) at f32 and f64, K3 and the bf16 matvec ``mv`` (f32 tangent)
+    at N=512 and 2048, and the chain step of the throughput row at N=512
+    f32: the time of one wrapper call (CUDA graph), its bound, and the
+    kernels the call launches with their device time (torch.profiler).
+    Returns {(case, N, dtype): record}."""
+    bf = torch.bfloat16
+    out = {}
+    for N in (512, 2048):
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            U, T, p = inputs(N, dtype)
+            planes = [U[..., 0].contiguous(), U[..., 1].contiguous(),
+                      T[..., 0].contiguous(), T[..., 1].contiguous()]
+            inv_t = torch.full((), 0.5, dtype=dtype, device=U.device)
+            cases = {
+                ("brusselator_jvp", dname):
+                    lambda: stencil.brusselator_jvp(U, T, p),
+                ("brusselator_jvp_scaled", dname):
+                    lambda: stencil.brusselator_jvp_scaled(U, T, p, 0.5),
+                ("brusselator_jvp_scaled_tensor_inv", dname):
+                    lambda: stencil.brusselator_jvp_scaled(U, T, p, inv_t),
+                ("brusselator_jvp_scaled_pair", dname):
+                    lambda: stencil.brusselator_jvp_scaled_pair(*planes, p,
+                                                                0.5),
+                ("brusselator_jvp_scaled_pair_tensor_inv", dname):
+                    lambda: stencil.brusselator_jvp_scaled_pair(*planes, p,
+                                                                inv_t),
+            }
+            if dtype == torch.float32:
+                Ub, Tb = U.to(bf), T.to(bf)
+                mv = stencil.make_brusselator_jvp_bf16(U, p)
+                cases[("brusselator_jvp_bf16", "bfloat16")] = (
+                    lambda: stencil.brusselator_jvp_bf16(Ub, Tb, p))
+                cases[("mv_bf16", "float32")] = lambda: mv(T)
+            for (case, cd), fn in cases.items():
+                if case == "brusselator_jvp_bf16":
+                    # U, T and out once each (2 bytes a value), p in f32
+                    bms, by = roofline_ms(
+                        3 * N * N * 2 * 2 + 4 * 4,
+                        FLOPS_PER_POINT["brusselator_jvp"] * N * N,
+                        "bfloat16")
+                elif case == "mv_bf16":
+                    # U in bf16, T and out in f32, p in f32
+                    bms, by = roofline_ms(
+                        N * N * 2 * (2 + 4 + 4) + 4 * 4,
+                        FLOPS_PER_POINT["brusselator_jvp"] * N * N,
+                        "bfloat16")
+                else:
+                    kname = ("brusselator_jvp" if case == "brusselator_jvp"
+                             else "brusselator_jvp_scaled")
+                    bms, by = bound_ms(kname, N, dname, U.element_size())
+                ms = graph_time_ms(torch, fn)
+                rec = {"phase": "stencil_timing", "case": case, "N": N,
+                       "dtype": cd, "ms": ms, "bound_ms": bms,
+                       "bound_by": by, "share_of_bound": bms / ms,
+                       "launches_per_call": graph_nodes(torch, fn),
+                       "kernels_per_call": kernels_per_call(torch, fn),
+                       "card": card}
+                emit(rec)
+                out[(case, N, cd)] = rec
+            del U, T, p, planes
+    # the chain step of bench.py:92-108 (1/s, K2, clamp), N=512 f32
+    U, T, p = inputs(512, torch.float32)
+    carry = {"c": T.clone(),
+             "s": torch.ones((), dtype=torch.float32, device=U.device)}
+
+    def chain_step():
+        carry["c"], m = stencil.brusselator_jvp_scaled(U, carry["c"], p,
+                                                       1.0 / carry["s"])
+        carry["s"] = torch.clamp(m, min=1.0)
+
+    rec = {"phase": "stencil_timing", "case": "chain_step", "N": 512,
+           "dtype": "float32",
+           "ms": graph_time_ms(torch, chain_step, calls=100, replays=4),
+           "launches_per_call": graph_nodes(torch, chain_step),
+           "kernels_per_call": kernels_per_call(torch, chain_step),
+           "card": card}
+    emit(rec)
+    out[("chain_step", 512, "float32")] = rec
+    return out
+
+
 def bound_ms(name, N, dtype, itemsize):
     # inputs read once + outputs written once: U and T (or four planes),
     # p, and out (N, N, 2); K2 also reads inv_scale, writes the max
@@ -387,56 +554,163 @@ def rd3d_bound_ms(name, numel, dtype, itemsize):
     return roofline_ms(nbytes, FLOPS_PER_POINT[name] * numel, dtype)
 
 
-def k3_kernel_checks(torch, stencil, inputs):
+def bit_equal(torch, a, b):
+    """Equal bit for bit (so -0 is not +0); a NaN matches any NaN."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.float64: torch.int64}
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.view(ints[a.dtype])[~na], b.view(ints[b.dtype])[~nb]))
+
+
+def k3_kernel_checks(torch, stencil, inputs, timings):
     """K3 against its plain version on the card, bit for bit, at N=512 and
-    2048 (bf16 state and tangent from phase 3's seeded f32 inputs, f32 p);
-    the N=512 case timed beside the whole bf16 matvec ``mv(T)`` (the two
-    casts and K3) and K1 at f32 on the same inputs.  Returns the N=512
-    record."""
+    2048 (bf16 state and tangent from phase 3's seeded f32 inputs, f32 p),
+    and the bf16 matvec ``mv(T)`` on the f32 tangent (one launch of K3's f32
+    variant) against cast -> K3's plain version -> cast, bit for bit.  The
+    times are ``stencil_timings``'s; the plain version is timed here at
+    N=512.  Returns the records by N."""
     bf = torch.bfloat16
-    summary = None
+    summary = {}
     for N in (512, 2048):
         U, T, p = inputs(N, torch.float32)
         Ub, Tb = U.to(bf), T.to(bf)
         got = stencil.brusselator_jvp_bf16(Ub, Tb, p)
         ref = stencil.brusselator_jvp_bf16_plain(Ub, Tb, p)
+        mv = stencil.make_brusselator_jvp_bf16(U, p)
+        mv_got = mv(T)
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, ref)
-        differing = int((got != ref).sum())
-        # the fallback bar if not bit-equal: 1 bf16 ulp of max|out|
-        scale = float(ref.float().abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        differing = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+        mv_equal = bit_equal(torch, mv_got, ref.float())
+        t = timings[("brusselator_jvp_bf16", N, "bfloat16")]
+        t_mv = timings[("mv_bf16", N, "float32")]
         rec = {"phase": "kernel_check", "case": "brusselator_jvp_bf16",
                "N": N, "dtype": "bfloat16", "bit_equal": differing == 0,
                "differing_values": differing, "max_abs_err": abs_err,
-               "rel_err": rel, "bf16_ulp_of_max": ulp,
-               "ok": differing == 0}
+               "rel_err": rel, "mv_bit_equal": mv_equal,
+               "ms": t["ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"],
+               "share_of_bound": t["share_of_bound"],
+               "mv_ms": t_mv["ms"], "mv_bound_ms": t_mv["bound_ms"],
+               "mv_share_of_bound": t_mv["share_of_bound"],
+               "k1_f32_ms": timings[("brusselator_jvp", N, "float32")]["ms"],
+               "ok": differing == 0 and mv_equal}
         if N == 512:
-            mv = stencil.make_brusselator_jvp_bf16(U, p)
-            rec.update({
-                "ms": graph_time_ms(torch, lambda: stencil.brusselator_jvp_bf16(
-                    Ub, Tb, p)),
-                "plain_ms": graph_time_ms(
-                    torch, lambda: stencil.brusselator_jvp_bf16_plain(
-                        Ub, Tb, p), calls=10, replays=20),
-                "mv_ms": graph_time_ms(torch, lambda: mv(T)),
-                "k1_f32_ms": graph_time_ms(
-                    torch, lambda: stencil.brusselator_jvp(U, T, p)),
-                "mv_max_abs_err": rel_err(mv(T), ref.float())[0]})
-            rec["faster_of_mv_and_k1"] = ("mv" if rec["mv_ms"] < rec["k1_f32_ms"]
-                                          else "K1")
-            # U, T and out once each (2 bytes a value), p in f32
-            rec["bound_ms"], rec["bound_by"] = roofline_ms(
-                3 * N * N * 2 * 2 + 4 * 4,
-                FLOPS_PER_POINT["brusselator_jvp"] * N * N, "bfloat16")
-            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-            summary = rec
+            rec["plain_ms"] = graph_time_ms(
+                torch, lambda: stencil.brusselator_jvp_bf16_plain(Ub, Tb, p),
+                calls=10, replays=20)
+        summary[N] = rec
         emit(rec)
-        if differing:
-            raise AssertionError(f"K3 N={N} is not bit-equal to its plain "
-                                 f"version: {rec}")
-        del U, T, p, Ub, Tb, got, ref
+        if not rec["ok"]:
+            raise AssertionError(f"K3 N={N} (or its f32 variant) is not "
+                                 f"bit-equal to its plain version: {rec}")
+        del U, T, p, Ub, Tb, got, ref, mv_got
     return summary
+
+
+def k2_graph_replay_checks(torch, stencil, inputs, replays=200):
+    """K2 captured in a CUDA graph (both layouts, f32 and f64, N=512, a 0-d
+    tensor inv_scale), replayed ``replays`` times with a new inv_scale each
+    time: every replay's max must equal max|out| of its own output exactly
+    (the max's word is zeroed in the graph too), and the last replay's out
+    and max must match the plain version at TOL."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        U, T, p = inputs(512, dtype)
+        planes = [x[..., k].contiguous() for x in (U, T) for k in (0, 1)]
+        inv = torch.ones((), dtype=dtype, device=U.device)
+        calls = {
+            "interleaved": lambda: stencil.brusselator_jvp_scaled(U, T, p,
+                                                                  inv),
+            "planar": lambda: stencil.brusselator_jvp_scaled_pair(
+                *planes, p, inv)}
+        for layout, fn in calls.items():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                res = fn()
+            out = res[0] if layout == "interleaved" else torch.stack(
+                res[:2], -1)
+            mx = res[-1]
+            exact = 0
+            for _ in range(replays):
+                s = float(rng.uniform(0.1, 4.0))
+                inv.fill_(s)
+                graph.replay()
+                if layout == "planar":
+                    out = torch.stack(res[:2], -1)
+                exact += bool(torch.equal(mx, out.abs().max()))
+            ref, mx_ref = stencil.brusselator_jvp_scaled_plain(U, T, p, s)
+            err = rel_err(out, ref)[1]
+            mx_err = rel_err(mx, mx_ref)[1]
+            rec = {"phase": "kernel_check_k2_graph", "layout": layout,
+                   "N": 512, "dtype": dname, "replays": replays,
+                   "max_exact_replays": exact, "rel_err": err,
+                   "absmax_rel_err": mx_err, "tolerance": TOL[dname],
+                   "ok": exact == replays and err <= TOL[dname]
+                   and mx_err <= TOL[dname]}
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"K2 under graph replay: {rec}")
+            del graph
+        del U, T, p, planes
+    k2_side_by_side_check(torch, stencil, inputs, rng)
+
+
+def k2_side_by_side_check(torch, stencil, inputs, rng, replays=100):
+    """Two CUDA graphs of K2 (N=512 f32, two tangents, a 0-d tensor
+    inv_scale each), captured on PyTorch's one capture stream and replayed
+    side by side on two streams ``replays`` times with new inv_scales: each
+    replay's max must equal max|out| of its own output exactly (launches
+    share no state), and the last replay's out must match the plain
+    version at TOL."""
+    U, T, p = inputs(512, torch.float32)
+    tangents = [T, torch.flip(T, (0,)).contiguous()]
+    invs = [torch.ones((), dtype=torch.float32, device=U.device)
+            for _ in tangents]
+    graphs, results = [], []
+    for Tk, inv in zip(tangents, invs):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            stencil.brusselator_jvp_scaled(U, Tk, p, inv)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            results.append(stencil.brusselator_jvp_scaled(U, Tk, p, inv))
+        graphs.append(graph)
+    streams = [torch.cuda.Stream() for _ in graphs]
+    exact = 0
+    scales = [1.0, 1.0]
+    for _ in range(replays):
+        scales = [float(rng.uniform(0.1, 4.0)) for _ in graphs]
+        for inv, sc in zip(invs, scales):
+            inv.fill_(sc)
+        torch.cuda.synchronize()
+        for graph, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        exact += all(bool(torch.equal(mx, out.abs().max()))
+                     for out, mx in results)
+    err = max(rel_err(out, stencil.brusselator_jvp_scaled_plain(
+        U, Tk, p, sc)[0])[1] for (out, _), Tk, sc in zip(results, tangents,
+                                                          scales))
+    rec = {"phase": "kernel_check_k2_side_by_side", "N": 512,
+           "dtype": "float32", "graphs": len(graphs), "replays": replays,
+           "max_exact_replays": exact, "rel_err": err,
+           "tolerance": TOL["float32"],
+           "ok": exact == replays and err <= TOL["float32"]}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"K2 graphs side by side: {rec}")
 
 
 def k11_kernel_checks(torch, dev, stencil3d):
@@ -1145,19 +1419,33 @@ def main(argv):
     for name, (so, secs) in built.items():
         ptxas = [ln.strip() for ln in _backend.BUILD_LOGS.get(name, "")
                  .splitlines() if "registers" in ln or "spill" in ln]
-        emit({"phase": "build", "source": name, "seconds": secs,
-              "library": so.name, "ptxas": ptxas})
+        rec = {"phase": "build", "source": name, "seconds": secs,
+               "library": so.name, "ptxas": ptxas}
+        if name == "stencil":
+            rec["sass_instructions"] = sass_counts(so)
+        emit(rec)
     emit({"phase": "build", "seconds": build_s})
 
     # --- 3. kernels against their plain versions ---------------------------
     gen = torch.Generator().manual_seed(0)
 
     def inputs(N, dtype):
-        U = brusselator.init_u0(N, dtype, device="cpu")
-        U = U + 0.1 * torch.randn(U.shape, generator=gen, dtype=dtype)
-        T = torch.randn((N, N, 2), generator=gen, dtype=dtype)
-        p = brusselator.default_p(N, dtype, device="cpu")
-        return U.to(dev), T.to(dev), p.to(dev)
+        return brusselator_inputs(torch, brusselator, dev, gen, N, dtype)
+
+    timings = stencil_timings(torch, stencil, inputs, card)
+    # the launches of a wrapper call: one for K1, K3 and the bf16 matvec on
+    # an f32 tangent; two for K2 (its max's word zeroed, then K2), with a
+    # float and a tensor inv_scale, both layouts
+    per_call = {f"{case} N={N} {d}": r["launches_per_call"]
+                for (case, N, d), r in timings.items()
+                if case != "chain_step"}
+    expected = {key: 2 if key.startswith("brusselator_jvp_scaled") else 1
+                for key in per_call}
+    emit({"phase": "kernels_per_wrapper_call", "counts": per_call,
+          "ok": per_call == expected})
+    if per_call != expected:
+        raise AssertionError(f"a wrapper launched other than {expected}: "
+                             f"{per_call}")
 
     summary = {}
     for N in (512, 2048):
@@ -1193,25 +1481,26 @@ def main(argv):
                     out_ref = torch.stack(ref[:2], -1)
                     mx_err = rel_err(got[2], ref[2])[1]
                 abs_err, rel = rel_err(out, out_ref)
-                ok = rel <= TOL[dname] and mx_err <= TOL[dname]
-                kname = ("brusselator_jvp" if case == "brusselator_jvp"
-                         else "brusselator_jvp_scaled")
-                ms = graph_time_ms(torch, kern)
+                # K2's max is max|out| of its own output, exactly
+                own_max = (case == "brusselator_jvp" or bool(
+                    torch.equal(got[-1], out.abs().max())))
+                ok = rel <= TOL[dname] and mx_err <= TOL[dname] and own_max
+                t = timings[(case, N, dname)]
                 plain_ms = graph_time_ms(torch, plain, calls=10, replays=20)
-                bms, by = bound_ms(kname, N, dname, U.element_size())
                 rec = {"phase": "kernel_check", "case": case, "N": N,
                        "dtype": dname, "max_abs_err": abs_err,
                        "rel_err": rel, "absmax_rel_err": mx_err,
-                       "tolerance": TOL[dname], "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bms,
-                       "bound_by": by, "share_of_bound": bms / ms,
-                       "ok": ok}
+                       "absmax_equals_own_max": own_max,
+                       "tolerance": TOL[dname], "ms": t["ms"],
+                       "plain_ms": plain_ms, "bound_ms": t["bound_ms"],
+                       "bound_by": t["bound_by"],
+                       "share_of_bound": t["share_of_bound"], "ok": ok}
                 emit(rec)
                 if not ok:
                     raise AssertionError(f"{case} N={N} {dname} disagrees "
                                          f"with its plain version: {rec}")
-                if N == 512 and dtype == torch.float32 and case in REPLACES:
-                    summary[case] = rec
+                if dtype == torch.float32:
+                    summary[(case, N)] = rec
             # a NaN in the tangent must reach K2's absmax
             Tn = T.clone()
             Tn[7, 11, 1] = float("nan")
@@ -1225,7 +1514,8 @@ def main(argv):
             if not nan_ok:
                 raise AssertionError("K2's absmax dropped a NaN")
             del U, T, p, planes, Tn
-    k3_summary = k3_kernel_checks(torch, stencil, inputs)
+    k2_graph_replay_checks(torch, stencil, inputs)
+    k3_summary = k3_kernel_checks(torch, stencil, inputs, timings)
 
     from nonlinearsolve_tpu_torch.ops.sparse_jac import plan_sparse_jacobian
     spmv_summary = sparse_kernel_checks(torch, dev, spmv, brusselator,
@@ -2113,17 +2403,29 @@ def main(argv):
 
     # --- 18. summary -------------------------------------------------------
     out = []
+    timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
-        r = summary[name]
-        out.append({"name": name, "route": "cuda", "source": SOURCE,
-                    "replaces": REPLACES[name], "launches": launches[name],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": None,
-                    "library_note": LIBRARY_NOTE,
-                    "share_of_bound": r["share_of_bound"],
-                    "shape": [N, N, 2], "dtype": "float32",
-                    "note": "operands of 6 MiB are L2-resident at N=512"})
+        r = summary[(name, 512)]
+        row = {"name": name, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None,
+               "library_note": LIBRARY_NOTE,
+               "share_of_bound": r["share_of_bound"],
+               "shape": [N, N, 2], "dtype": "float32",
+               "note": "operands of 6 MiB are L2-resident at N=512",
+               "N2048": {k: summary[(name, 2048)][k] for k in timing_keys}}
+        if name == "brusselator_jvp_scaled":
+            row["chain_step_ms_graph"] = chain_graph_ms
+            row["kernels_per_wrapper_call"] = timings[
+                ("brusselator_jvp_scaled", 512, "float32")]["launches_per_call"]
+            row["tensor_inv_scale_ms"] = timings[
+                ("brusselator_jvp_scaled_tensor_inv", 512, "float32")]["ms"]
+            row["planar"] = {
+                f"N{n}": {k: summary[("brusselator_jvp_scaled_pair", n)][k]
+                          for k in timing_keys} for n in (512, 2048)}
+        out.append(row)
     path_launches = {"dia_spmv": sparse_launches["dia_spmv"],
                      "gather_select": sparse_launches["gather_select"],
                      "gather_spmv": csr_launches["gather_spmv"]}
@@ -2196,7 +2498,9 @@ def main(argv):
                     "share_of_bound": r["share_of_bound"],
                     "shape": r["shape"], "dtype": "float32",
                     "config": r["config"]})
-    r = k3_summary
+    r = k3_summary[512]
+    mv_keys = ("ms", "bound_ms", "share_of_bound", "mv_ms", "mv_bound_ms",
+               "mv_share_of_bound", "k1_f32_ms")
     out.append({"name": "brusselator_jvp_bf16", "route": "cuda",
                 "source": SOURCE, "replaces": REPLACES["brusselator_jvp_bf16"],
                 "launches": bf16_launches["b"]["brusselator_jvp_bf16"],
@@ -2207,7 +2511,10 @@ def main(argv):
                 "library_note": LIBRARY_NOTE,
                 "share_of_bound": r["share_of_bound"], "shape": [N, N, 2],
                 "dtype": "bfloat16", "bit_equal": r["bit_equal"],
-                "mv_ms": r["mv_ms"], "k1_f32_ms": r["k1_f32_ms"]})
+                "mv_ms": r["mv_ms"], "mv_bound_ms": r["mv_bound_ms"],
+                "mv_bit_equal": r["mv_bit_equal"],
+                "k1_f32_ms": r["k1_f32_ms"],
+                "N2048": {k: k3_summary[2048][k] for k in mv_keys}})
     r = k11_summary["whole_256"]
     out.append({"name": "rd3d_jvp_halo", "route": "cuda", "source": SOURCE_3D,
                 "replaces": REPLACES["rd3d_jvp_halo"],

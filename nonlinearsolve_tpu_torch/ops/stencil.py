@@ -5,14 +5,18 @@ K1 ``brusselator_jvp(U, T, p)`` replaces ``ops/pallas_stencil.py``
 ``_brusselator_jvp_kernel`` (the Jv of every GMRES iteration on the main
 path).  K2 ``brusselator_jvp_scaled(U, T, p, inv_scale)`` and
 ``brusselator_jvp_scaled_pair(u, v, tu, tv, p, inv_scale)`` replace
-``_brusselator_jvp_scaled_kernel`` (the chained, normalised matvec).  K3
+``_brusselator_jvp_scaled_kernel`` (the chained, normalised matvec): the
+launcher zeroes the max's word with a one-thread kernel, then K2's blocks
+``atomicMax`` into it; a Python-float ``inv_scale`` goes by value (nothing
+to fill).  K3
 ``brusselator_jvp_bf16(U, T, p)`` is K1 on bf16 state and tangent with f32
-``p`` (the JAX kernel at bf16); ``make_brusselator_jvp_bf16(U, p)`` is the
-JAX package's mixed-precision matvec factory around it.  All are CUDA C++
-for ``sm_90a`` in ``csrc/stencil.cu``; that file's header says what bounds
-them on the H100 (bytes: at f32 N=512 about 4 MiB read and 2 MiB written
-per call, all resident in the 50 MB L2) and what the simple design does
-about it (nothing yet).
+``p`` (the JAX kernel at bf16), on bf16x2 arithmetic;
+``brusselator_jvp_bf16_f32(U, T, p)`` is its variant for an f32 tangent
+(rounded to bf16 on read, the result widened to f32), and
+``make_brusselator_jvp_bf16(U, p)`` is the JAX package's mixed-precision
+matvec factory around the two.  All are CUDA C++ for ``sm_90a`` in
+``csrc/stencil.cu``; that file's header says what bounds them on the H100
+(bytes) and what each design does about it.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, written with
 ``torch.roll``) for a tensor on the CPU, and only there.  For a CUDA tensor
@@ -31,14 +35,18 @@ from .. import _backend
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "brusselator_jvp_f32": [_VP, _VP, _VP, _VP, _I, _VP],
     "brusselator_jvp_f64": [_VP, _VP, _VP, _VP, _I, _VP],
     "brusselator_jvp_bf16": [_VP, _VP, _VP, _VP, _I, _VP],
-    "brusselator_jvp_scaled_f32": [_VP] * 6 + [_I, _VP],
-    "brusselator_jvp_scaled_f64": [_VP] * 6 + [_I, _VP],
-    "brusselator_jvp_scaled_pair_f32": [_VP] * 9 + [_I, _VP],
-    "brusselator_jvp_scaled_pair_f64": [_VP] * 9 + [_I, _VP],
+    "brusselator_jvp_bf16_f32t": [_VP, _VP, _VP, _VP, _I, _VP],
+    "brusselator_jvp_scaled_f32": [_VP] * 4 + [_D] + [_VP] * 2 + [_I, _VP],
+    "brusselator_jvp_scaled_f64": [_VP] * 4 + [_D] + [_VP] * 2 + [_I, _VP],
+    "brusselator_jvp_scaled_pair_f32":
+        [_VP] * 6 + [_D] + [_VP] * 3 + [_I, _VP],
+    "brusselator_jvp_scaled_pair_f64":
+        [_VP] * 6 + [_D] + [_VP] * 3 + [_I, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -93,6 +101,12 @@ def brusselator_jvp_bf16_plain(U, T, p):
     ou, ov = _jvp_planes(U[..., 0], U[..., 1], T[..., 0], T[..., 1],
                          al, ap1, A)
     return torch.stack([ou, ov], dim=-1)
+
+
+def brusselator_jvp_bf16_f32_plain(U, T, p):
+    """The f32-tangent variant's plain version: ``T`` (f32) cast to bf16,
+    K3's plain version, the result cast back to f32."""
+    return brusselator_jvp_bf16_plain(U, T.to(torch.bfloat16), p).float()
 
 
 def brusselator_jvp_scaled_pair_plain(u, v, tu, tv, p, inv_scale):
@@ -155,12 +169,23 @@ def _dtype_of(x):
 
 
 def _inv_scale_tensor(inv_scale, dtype, device):
+    """inv_scale as a 0-d tensor in ``dtype`` on ``device``."""
     if isinstance(inv_scale, torch.Tensor):
         if inv_scale.numel() != 1 or inv_scale.device != device:
             raise ValueError("inv_scale must be a scalar on the state's "
                              "device")
         return inv_scale.reshape(()).to(dtype).contiguous()
     return torch.full((), float(inv_scale), dtype=dtype, device=device)
+
+
+def _inv_scale_args(inv_scale, dtype, device):
+    """K2's inv_scale as the kernel takes it: a 0-d tensor by pointer (kept
+    alive by the caller until the launch), a Python number by value.
+    Returns ``(tensor or None, pointer, value)``."""
+    if isinstance(inv_scale, torch.Tensor):
+        inv = _inv_scale_tensor(inv_scale, dtype, device)
+        return inv, _backend.ptr(inv), 0.0
+    return None, ctypes.c_void_p(None), float(inv_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -211,15 +236,43 @@ def brusselator_jvp_bf16(U, T, p):
     return out
 
 
+def brusselator_jvp_bf16_f32(U, T, p):
+    """K3 on an f32 tangent in one launch: ``U`` (N, N, 2) bf16, ``T``
+    (N, N, 2) f32, rounded to bf16 on read (nearest even, as
+    ``.to(torch.bfloat16)``), ``p`` f32; the bf16 result comes back widened
+    to f32.  Bit for bit ``brusselator_jvp_bf16(U, T.to(bf16), p).float()``.
+    Counted as a ``brusselator_jvp_bf16`` launch."""
+    if U.device.type == "cpu":
+        return brusselator_jvp_bf16_f32_plain(U, T, p)
+    N = _grid_n("U", U, 3)
+    _check_state("U", U, (N, N, 2), torch.bfloat16, U.device)
+    _check_state("T", T, (N, N, 2), torch.float32, U.device)
+    _check_p(p, torch.float32, U.device)
+    out = torch.empty_like(T)
+    lib = _lib()
+    rc = lib.brusselator_jvp_bf16_f32t(
+        _backend.ptr(U), _backend.ptr(T), _backend.ptr(p), _backend.ptr(out),
+        N, _backend.stream_handle(U))
+    _backend.check_launch(lib, rc, "brusselator_jvp_bf16_f32")
+    _backend.count_launch("brusselator_jvp_bf16")
+    return out
+
+
 def make_brusselator_jvp_bf16(U, p):
     """Mixed-precision matvec factory (``ops/pallas_stencil.py``'s): returns
     ``mv(T) -> J·T`` with the state cast to bf16 once, here, and ``p`` to
-    f32.  ``mv`` casts ``T`` to bf16, runs K3 and casts the result back to
-    ``T``'s dtype, so a Krylov basis around it keeps its own dtype."""
+    f32.  ``mv`` computes in bf16 and returns ``T``'s dtype, so a Krylov
+    basis around it keeps its own: an f32 tangent takes K3's f32 variant
+    (one launch), a bf16 tangent K3 itself, any other dtype the cast to
+    bf16, K3 and the cast back."""
     Ub = U.to(torch.bfloat16).contiguous()
     p32 = p.to(torch.float32).contiguous()
 
     def mv(T):
+        if T.dtype == torch.float32:
+            return brusselator_jvp_bf16_f32(Ub, T.contiguous(), p32)
+        if T.dtype == torch.bfloat16:
+            return brusselator_jvp_bf16(Ub, T.contiguous(), p32)
         out = brusselator_jvp_bf16(Ub, T.to(torch.bfloat16).contiguous(), p32)
         return out.to(T.dtype)
 
@@ -240,12 +293,12 @@ def brusselator_jvp_scaled(U, T, p, inv_scale):
     _check_state("U", U, (N, N, 2), dtype, U.device)
     _check_state("T", T, (N, N, 2), dtype, U.device)
     _check_p(p, dtype, U.device)
-    inv = _inv_scale_tensor(inv_scale, dtype, U.device)
+    inv, inv_ptr, inv_val = _inv_scale_args(inv_scale, dtype, U.device)
     out = torch.empty_like(U)
-    mx = torch.zeros((), dtype=dtype, device=U.device)
+    mx = torch.empty((), dtype=dtype, device=U.device)
     lib = _lib()
     rc = getattr(lib, f"brusselator_jvp_scaled_{_SUFFIX[dtype]}")(
-        _backend.ptr(U), _backend.ptr(T), _backend.ptr(p), _backend.ptr(inv),
+        _backend.ptr(U), _backend.ptr(T), _backend.ptr(p), inv_ptr, inv_val,
         _backend.ptr(out), _backend.ptr(mx), N, _backend.stream_handle(U))
     _backend.check_launch(lib, rc, "brusselator_jvp_scaled")
     _backend.count_launch("brusselator_jvp_scaled")
@@ -262,14 +315,14 @@ def brusselator_jvp_scaled_pair(u, v, tu, tv, p, inv_scale):
     for name, x in (("u", u), ("v", v), ("tu", tu), ("tv", tv)):
         _check_state(name, x, (N, N), dtype, u.device, paired=False)
     _check_p(p, dtype, u.device)
-    inv = _inv_scale_tensor(inv_scale, dtype, u.device)
+    inv, inv_ptr, inv_val = _inv_scale_args(inv_scale, dtype, u.device)
     ou = torch.empty_like(u)
     ov = torch.empty_like(u)
-    mx = torch.zeros((), dtype=dtype, device=u.device)
+    mx = torch.empty((), dtype=dtype, device=u.device)
     lib = _lib()
     rc = getattr(lib, f"brusselator_jvp_scaled_pair_{_SUFFIX[dtype]}")(
         _backend.ptr(u), _backend.ptr(v), _backend.ptr(tu), _backend.ptr(tv),
-        _backend.ptr(p), _backend.ptr(inv), _backend.ptr(ou),
+        _backend.ptr(p), inv_ptr, inv_val, _backend.ptr(ou),
         _backend.ptr(ov), _backend.ptr(mx), N, _backend.stream_handle(u))
     _backend.check_launch(lib, rc, "brusselator_jvp_scaled_pair")
     _backend.count_launch("brusselator_jvp_scaled")

@@ -37,8 +37,12 @@ def _inputs(N, dtype, seed, device):
     U = tbru.init_u0(N, dt, device="cpu") \
         + 0.1 * torch.randn((N, N, 2), generator=gen, dtype=dt)
     T = torch.randn((N, N, 2), generator=gen, dtype=dt)
-    p = tbru.default_p(N, dt, device="cpu")
-    return U.to(device), T.to(device), p.to(device)
+    return U.to(device), T.to(device), _p(N, dt).to(device)
+
+
+def _p(N, dtype):
+    """``brusselator.default_p``'s (A, B, alpha, dx), with dx = 1 at N=1."""
+    return torch.tensor([3.4, 1.0, 10.0, 1.0 / max(N - 1, 1)], dtype=dtype)
 
 
 def _close(got, ref, dtype):
@@ -86,6 +90,195 @@ def test_inv_scale_tensor_on_card(cuda):
     ref, m_r = tst.brusselator_jvp_scaled_plain(U, T, p, 0.125)
     _close(out, ref, "float64")
     np.testing.assert_allclose(float(m), float(m_r), rtol=1e-12)
+
+
+K2_NS = [1, 2, 3, 37, 512, 513, 2048]
+_BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+         torch.float64: torch.int64}
+
+
+def _bit_equal(a, b):
+    """Equal bit for bit (so -0 is not +0); a NaN matches any NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.view(_BITS[a.dtype])[~na], b.view(_BITS[b.dtype])[~nb]))
+
+
+def _k2_call(layout, U, T, p, inv, plain=False):
+    """K2, or its plain version, in either layout: (out (N, N, 2), max)."""
+    if layout == "interleaved":
+        fn = (tst.brusselator_jvp_scaled_plain if plain
+              else tst.brusselator_jvp_scaled)
+        return fn(U, T, p, inv)
+    fn = (tst.brusselator_jvp_scaled_pair_plain if plain
+          else tst.brusselator_jvp_scaled_pair)
+    planes = [x[..., k].contiguous() for x in (U, T) for k in (0, 1)]
+    ou, ov, mx = fn(*planes, p, inv)
+    return torch.stack([ou, ov], -1), mx
+
+
+def _launches(fn):
+    """The launches of one call of ``fn``: the nodes (kernels, memsets,
+    copies) it puts in a CUDA graph, counted by ``cuGraphGetNodes``."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    assert libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                  None, ctypes.byref(count)) == 0
+    return count.value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N", K2_NS)
+def test_k2_matches_plain_and_its_own_max_on_card(cuda, N, dtype, layout):
+    """K2 against its plain version at the tolerances above, from one row
+    up to N=2048 (odd N: rows not 16-byte aligned); its max equals max|out|
+    of its own output exactly; a Python-float and a tensor inv_scale give
+    the same bits."""
+    U, T, p = _inputs(N, dtype, 100 + N, cuda)
+    out, mx = _k2_call(layout, U, T, p, 0.5)
+    ref, mx_ref = _k2_call(layout, U, T, p, 0.5, plain=True)
+    _close(out, ref, dtype)
+    np.testing.assert_allclose(float(mx), float(mx_ref), rtol=MAX_RTOL[dtype])
+    assert float(mx) == float(out.abs().max())
+    inv_t = torch.tensor(0.5, dtype=TORCH_DT[dtype], device=cuda)
+    out_t, mx_t = _k2_call(layout, U, T, p, inv_t)
+    assert _bit_equal(out_t, out) and _bit_equal(mx_t, mx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_k2_graph_replays_on_card(cuda, dtype, layout):
+    """Three K2 calls captured in one CUDA graph, replayed 120 times with
+    a new inv_scale each time: every replay's max is max|out| of its own
+    output (a launch keeps nothing for the next) and out is the plain
+    version's."""
+    U, T, p = _inputs(300, dtype, 7, cuda)
+    inv = torch.tensor(1.0, dtype=TORCH_DT[dtype], device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _k2_call(layout, U, T, p, inv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [_k2_call(layout, U, T, p, inv) for _ in range(3)]
+    rng = np.random.default_rng(0)
+    for k in range(120):
+        s = float(rng.uniform(0.1, 4.0))
+        inv.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, mx in outs:
+            assert float(mx) == float(out.abs().max()), (k, s)
+        if k % 20 == 0:
+            ref, mx_ref = _k2_call(layout, U, T, p, s, plain=True)
+            _close(outs[0][0], ref, dtype)
+            np.testing.assert_allclose(float(outs[0][1]), float(mx_ref),
+                                       rtol=MAX_RTOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+def test_k2_graphs_replayed_side_by_side_on_card(cuda, layout):
+    """Two K2 graphs, both captured on PyTorch's one capture stream (two
+    tangents, a tensor inv_scale each), replayed at once on two streams
+    100 times with new inv_scales: each max is max|out| of its own output,
+    each out the plain version's (launches share no state)."""
+    U, T, p = _inputs(512, "float32", 12, cuda)
+    tangents = [T, torch.flip(T, (0,)).contiguous()]
+    invs = [torch.tensor(1.0, device=cuda) for _ in tangents]
+    graphs, outs = [], []
+    for Tk, inv in zip(tangents, invs):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _k2_call(layout, U, Tk, p, inv)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(_k2_call(layout, U, Tk, p, inv))
+        graphs.append(graph)
+    streams = [torch.cuda.Stream() for _ in graphs]
+    rng = np.random.default_rng(1)
+    for k in range(100):
+        scales = [float(rng.uniform(0.1, 4.0)) for _ in graphs]
+        for inv, sc in zip(invs, scales):
+            inv.fill_(sc)
+        torch.cuda.synchronize()
+        for graph, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        for out, mx in outs:
+            assert float(mx) == float(out.abs().max()), k
+        if k % 25 == 0:
+            for (out, mx), Tk, sc in zip(outs, tangents, scales):
+                ref, mx_ref = _k2_call(layout, U, Tk, p, sc, plain=True)
+                _close(out, ref, "float32")
+                np.testing.assert_allclose(float(mx), float(mx_ref),
+                                           rtol=MAX_RTOL["float32"])
+
+
+@pytest.mark.cuda
+def test_k2_on_many_streams_at_once_on_card(cuda):
+    """K2 issued on 80 streams without waiting between them (more streams
+    than any per-stream table would hold): every max is max|out| of its
+    own output."""
+    U, T, p = _inputs(64, "float32", 13, cuda)
+    streams = [torch.cuda.Stream() for _ in range(80)]
+    torch.cuda.synchronize()
+    outs = []
+    for k, st in enumerate(streams):
+        with torch.cuda.stream(st):
+            outs.append(tst.brusselator_jvp_scaled(U, T, p, 0.1 + 0.05 * k))
+    torch.cuda.synchronize()
+    for k, (out, mx) in enumerate(outs):
+        assert float(mx) == float(out.abs().max()), k
+        ref, mx_ref = tst.brusselator_jvp_scaled_plain(U, T, p, 0.1 + 0.05 * k)
+        _close(out, ref, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_k2_nan_tangent_reaches_the_max_on_card(cuda, dtype, layout):
+    U, T, p = _inputs(513, dtype, 8, cuda)
+    T[400, 17, 1] = float("nan")
+    out, mx = _k2_call(layout, U, T, p, 0.5)
+    assert torch.isnan(mx) and torch.isnan(out).any()
+
+
+@pytest.mark.cuda
+def test_k2_is_two_kernels_a_call_on_card(cuda):
+    """Two launches a wrapper call, the one-thread kernel that zeroes the
+    max and K2, for a Python-float and a tensor inv_scale (no fill for
+    it), both layouts."""
+    U, T, p = _inputs(512, "float32", 9, cuda)
+    inv_t = torch.tensor(0.25, device=cuda)
+    for layout in ("interleaved", "planar"):
+        for inv in (0.25, inv_t):
+            planes = [x[..., k].contiguous() for x in (U, T) for k in (0, 1)]
+            if layout == "interleaved":
+                n = _launches(
+                    lambda: tst.brusselator_jvp_scaled(U, T, p, inv))
+            else:
+                n = _launches(
+                    lambda: tst.brusselator_jvp_scaled_pair(*planes, p, inv))
+            assert n == 2, (layout, inv)
 
 
 @pytest.mark.cuda
@@ -663,6 +856,78 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         tst.brusselator_jvp_bf16(U.to(bf), T.to(bf).cpu(), p)
     with pytest.raises(ValueError):
         tst.brusselator_jvp_bf16(U.to(bf), T.to(bf).transpose(0, 1), p)
+
+
+# ±0, values near the bf16 maximum (sums and products overflow to ±inf,
+# and inf - inf gives NaN), bf16 subnormals, and mixed signs
+EDGE_POOL = [0.0, -0.0, 3.3e38, -3.3e38, 1.7e38, -2.6e38, 1e-39, -1e-39,
+             9.2e-41, -9.2e-41, 1.0, -1.0, 2.0, 0.5]
+
+
+def _edge_inputs(N, seed, device, mode):
+    """U, T (N, N, 2) f32 and p f32 from a seed (tests/
+    test_torch_stencil_redesign.py's inputs): "edges" draws a fifth of the
+    values from EDGE_POOL; "tiny" scales T by 1e-38 (bf16 subnormals) with a
+    fifth ±0, and al = 1e-3."""
+    rng = np.random.default_rng(seed)
+
+    def one(scale, pool):
+        x = rng.standard_normal((N, N, 2)) * scale
+        mask = rng.random((N, N, 2)) < 0.2
+        x[mask] = rng.choice(pool, int(mask.sum()))
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    pool = EDGE_POOL if mode == "edges" else [0.0, -0.0]
+    U = one(1.0, pool)
+    T = one(1e-38 if mode == "tiny" else 10.0, pool)
+    p = torch.tensor([3.4, 1.0, 1e-3 if mode == "tiny" else 10.0,
+                      1.0 if mode == "tiny" else 1.0 / max(N - 1, 1)],
+                     dtype=torch.float32, device=device)
+    return U, T, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["seeded", "edges", "tiny"])
+@pytest.mark.parametrize("N", K2_NS)
+def test_k3_and_its_f32_variant_bit_equal_on_card(cuda, N, mode):
+    """K3 (bf16x2 arithmetic) against its plain version, and the bf16
+    matvec on an f32 tangent (one launch of K3's f32 variant) against
+    cast -> K3's plain version -> cast, bit for bit (NaN for NaN), from
+    one row up to N=2048, odd N included; with edge values and subnormal
+    results too."""
+    U, T, p = (_inputs(N, "float32", 50 + N, cuda) if mode == "seeded"
+               else _edge_inputs(N, 50 + N, cuda, mode))
+    bf = torch.bfloat16
+    Ub, Tb = U.to(bf), T.to(bf)
+    got = tst.brusselator_jvp_bf16(Ub, Tb, p)
+    ref = tst.brusselator_jvp_bf16_plain(Ub, Tb, p)
+    assert got.dtype == bf and _bit_equal(got, ref)
+    mv = tst.make_brusselator_jvp_bf16(U, p)
+    launches = dict(_backend.LAUNCHES)
+    out = mv(T)
+    assert _backend.LAUNCHES["brusselator_jvp_bf16"] == \
+        launches["brusselator_jvp_bf16"] + 1
+    ref32 = tst.brusselator_jvp_bf16_plain(Ub, T.to(bf), p).to(torch.float32)
+    assert out.dtype == torch.float32 and _bit_equal(out, ref32)
+    out_b = mv(Tb)
+    assert out_b.dtype == bf and _bit_equal(out_b, ref)
+    if mode == "edges" and N >= 37:
+        assert not torch.isfinite(ref.float()).all()
+    if mode == "tiny" and N >= 37:
+        mag = ref.float().abs()
+        assert ((mag > 0) & (mag < 1.1754944e-38)).any()
+
+
+@pytest.mark.cuda
+def test_bf16_matvec_is_one_kernel_for_an_f32_tangent_on_card(cuda):
+    U, T, p = _inputs(512, "float32", 11, cuda)
+    mv = tst.make_brusselator_jvp_bf16(U, p)
+    Tb = T.to(torch.bfloat16)
+    assert _launches(lambda: mv(T)) == 1
+    assert _launches(lambda: mv(Tb)) == 1
+    out64 = mv(T.double())
+    assert out64.dtype == torch.float64
+    assert torch.equal(out64, mv(T).double())
 
 
 @pytest.mark.cuda
