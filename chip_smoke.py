@@ -156,7 +156,9 @@ check raises, so the script exits non-zero.
    nrhs 8 and 37, f32 and f64, seeded X, timed beside cuSPARSE (BSR ×
    dense, or CSR × dense on the expanded pattern where torch refuses it)
    and K5 on the expanded pattern once per column (with its index_select
-   yardstick);
+   yardstick); each record carries K6's launch plan
+   (``spmv.bsr_spmm_plan``) and staged chunk, and the kernels line names
+   K6's design;
 18. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
@@ -243,6 +245,11 @@ SPMV_LIBRARY = {
                 "torch refuses it, CSR x dense on the expanded pattern "
                 "(torch.sparse_csr_tensor @ X)",
 }
+# K6's design (csrc/spmv.cu), which the kernels line names
+K6_DESIGN = ("a team of lanes a block row, lanes over X's columns (16-byte "
+             "loads where aligned), the thread block's blocks staged in "
+             "shared memory, X loaded blocks ahead; bit-equal to one thread "
+             "an output summing in block order")
 # The cost of a product's scattered x reads alone, beside K5 and K8: one
 # index_select of x over the pattern's column indices.  A yardstick, never
 # called by the port.
@@ -1044,7 +1051,10 @@ def bsr_kernel_checks(torch, dev, spmv, Jb):
                 return [torch.index_select(Xt[c], 0, s_indices)
                         for c in range(nrhs)]
 
-            rec = {**rec, "nrhs": nrhs,
+            plan = spmv.bsr_spmm_plan(b, nrhs, item, X.data_ptr())
+            rec = {**rec, "nrhs": nrhs, "plan": plan._asdict(),
+                   "stage_blocks": spmv.bsr_stage_blocks(
+                       Jb.indptr, b, item, plan.team_shift),
                    "library_call": ("bsr" if refusal is None
                                     else "csr_expanded"),
                    "library_refusal": refusal,
@@ -1053,6 +1063,7 @@ def bsr_kernel_checks(torch, dev, spmv, Jb):
                    "k5_columns_index_select_ms": graph_time_ms(
                        torch, k5_yardstick, calls=10, replays=4)}
             emit({"phase": "kernel_time_bsr", "dtype": dname, "nrhs": nrhs,
+                  "plan": rec["plan"], "stage_blocks": rec["stage_blocks"],
                   "library_call": rec["library_call"],
                   "library_refusal": refusal,
                   "k5_columns_ms": rec["k5_columns_ms"],
@@ -2530,7 +2541,8 @@ def main(argv):
                                        "share_of_bound")}})
     r = bsr_summary[("float64", 8)]
     out.append({"name": "bsr_spmm", "route": "cuda", "source": SPMV_SOURCE,
-                "replaces": REPLACES["bsr_spmm"],
+                "replaces": REPLACES["bsr_spmm"], "design": K6_DESIGN,
+                "plan": r["plan"], "stage_blocks": r["stage_blocks"],
                 "launches": bsr_launches["bsr_spmm"],
                 "launches_in": "block_sparse", "tables": r["tables"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2545,7 +2557,8 @@ def main(argv):
                 "other": {f"{d}_nrhs{k}": {
                     key: v[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "share_of_bound", "library_ms",
-                                            "library_call", "k5_columns_ms",
+                                            "library_call", "plan",
+                                            "k5_columns_ms",
                                             "k5_columns_index_select_ms")}
                     for (d, k), v in bsr_summary.items()
                     if (d, k) != ("float64", 8)}})

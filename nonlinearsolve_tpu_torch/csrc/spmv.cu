@@ -58,7 +58,10 @@
 //                    layout, not its function.  An empty block row writes 0;
 //                    every entry of a block is multiplied, zeros included, so
 //                    a NaN in X reaches every row whose block row references
-//                    it, as the dense block product does.
+//                    it, as the dense block product does.  Each output is one
+//                    fma() chain in that order from +0, the contraction nvcc
+//                    makes of one thread an output's acc += d * x, so the
+//                    kernel's bits do not depend on its team shape.
 //
 // Bound on the H100: bytes, for all of them.  At the 512^2 Brusselator
 // (n = 524,288, 11 diagonals, 3,145,728 nonzeros) in f64, reading every input
@@ -82,8 +85,16 @@
 // data (41.9 MB) + block indices (5.2 MB) + block indptr (1.0 MB) + X and Y
 // once (33.5 MB each at nrhs 8) = 115 MB ~ 34 us; at nrhs 37 ~ 359 MB
 // ~ 107 us; 2 b^2 nrhs flops a block (84M at nrhs 8) are ~ 2.5 us of f64
-// arithmetic.  The TPU kernels were shaped by the lack of scalar gathers
-// (windowed slot-major ELL, register gathers inside an (8, 128) tile);
+// arithmetic: 0.73 flop a byte, where the card's f64 units need about 10
+// to be the limit.  Tensor cores do not pay for K6: at b = 2 a block holds
+// 4 values, so an f64 DMMA m8n8k4 fragment would be more than 90 %
+// padding, and the product is bound by the memory system, not by
+// arithmetic.  Its X is read about five times (each block column is
+// referenced by five block rows), from L2 where the rows lie 2N apart, so
+// L2 traffic and the latency of each team's dependent loads (indptr, the
+// staged blocks, then X) decide its time.  The TPU kernels were shaped by
+// the lack of scalar gathers (windowed slot-major ELL, register gathers
+// inside an (8, 128) tile);
 // Hopper gathers through L1/L2, so the port keeps the CSR and DIA layouts
 // as they are and lets the caches serve x.
 //
@@ -121,14 +132,28 @@
 // and reads them back (2 x 25 MB at 96^3 f32), in 8 launches a product.
 // A part after the first is launched as a programmatic dependent of the
 // one before: it gathers its products while that one ends and waits
-// (griddepcontrol.wait) before it reads y.  K6 is one
-// thread per output (block row i, row r of the block, column c), c
-// fastest: a warp's reads of an X row segment are consecutive (coalesced)
-// and its reads of a block's row are one address (a broadcast); the
-// thread walks its block row's blocks in CSR order, no atomics, and its
-// offsets are 64-bit.  In K4, K5, K6 and K7 a*b + c is contracted into an
-// FMA, so their sums differ from the plain versions' in the last bits; K8
-// rounds each operation alone (__fmul_rn, __fadd_rn).
+// (griddepcontrol.wait) before it reads y.  K6 is a team of T lanes a
+// block row, lanes over X's columns, 256 / T consecutive block rows a
+// thread block (ops/spmv.py bsr_spmm_plan picks T, the columns a load and
+// the slots a lane from b, nrhs, the dtype and X's address): each lane
+// holds b rows of its columns, so the team reads an X row segment once,
+// coalesced, for all b rows of a block, 16 bytes a lane where nrhs and X
+// allow (4 f32 or 2 f64 columns).  The thread block first copies its rows'
+// blocks and block indices (one contiguous segment of each) into shared
+// memory, coalesced, 16 bytes a thread, so no lane repeats another's load
+// of them (in chunks where a segment passes kBsrStageBytes); each lane
+// then loads the X of A blocks before their FMAs (bsr_ahead).  No integer
+// division: the grid maps onto block rows and a thread onto its team and
+// lane by shifts and masks; offsets that can pass 2^31 are 64-bit.  A
+// block size other than 1, 2, 3, 4 or 8 takes bsr_spmm_any_kernel: a team
+// a (block row, row of the block), blocks read in place.  A team wider
+// than 8 lanes holds fewer rows a thread block and was slower, as were
+// the blocks read in place by each lane, handed round by __shfl_sync,
+// more blocks in flight, or more thread blocks an SM at fewer registers
+// (bench/k6_designs.cu; PERF.md).  In K4, K5 and K7 a*b + c is
+// contracted into an FMA, so their sums differ from the plain versions'
+// in the last bits; K6's FMAs are written out (fma()), one chain an
+// output; K8 rounds each operation alone (__fmul_rn, __fadd_rn).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,6 +169,8 @@ constexpr int kAhead = 4;             // K8's product loads in flight
 constexpr int kRowAhead = 8;          // K8's pos loads in flight a row
 constexpr int kZoneThreads = 512;     // K8's block
 constexpr int kZoneSmemBytes = 48 * 1024;   // K8's product buffer
+constexpr int kBsrThreads = 256;            // K6's block
+constexpr int kBsrStageBytes = 48 * 1024;   // K6's staged blocks, at most
 
 struct DiaOffsets {
   int ndiag;
@@ -401,25 +428,240 @@ scatter_part_kernel(const int* __restrict__ gcol, const T* __restrict__ gdata,
   }
 }
 
+// K6's loads: V consecutive values of T as one load or store (16 bytes at
+// most; the caller guarantees the alignment).
+template <typename T, int V> struct VecOf;
+template <> struct VecOf<float, 1> { using type = float; };
+template <> struct VecOf<float, 2> { using type = float2; };
+template <> struct VecOf<float, 4> { using type = float4; };
+template <> struct VecOf<double, 1> { using type = double; };
+template <> struct VecOf<double, 2> { using type = double2; };
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, T (&v)[V]) {
+  using W = typename VecOf<T, V>::type;
+  const W w = __ldg(reinterpret_cast<const W*>(p));
+  const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+  for (int m = 0; m < V; ++m) v[m] = e[m];
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const T (&v)[V]) {
+  using W = typename VecOf<T, V>::type;
+  W w;
+  T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+  for (int m = 0; m < V; ++m) e[m] = v[m];
+  *reinterpret_cast<W*>(p) = w;
+}
+
+// K6's X values a lane holds for one block, B x V x C, at most (the
+// launcher refuses a plan past it: more registers cost occupancy), and its
+// blocks in flight: A blocks of them, at most 16 values (the B x B block is
+// read from shared memory as it is used).
+constexpr int kBsrMaxValues = 8;
+constexpr int bsr_ahead(int per_block) {
+  return per_block >= 8 ? 2 : per_block >= 4 ? 4 : 8;
+}
+
+// Copy blocks [s0, s1) of the tables into the stage: coalesced over the
+// thread block, 16 bytes a thread where the data segment is aligned.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void bsr_stage(const int* __restrict__ indices,
+                                          const T* __restrict__ data,
+                                          int* s_idx, T* s_data, int s0,
+                                          int s1, int bb) {
+  constexpr int kW = 16 / static_cast<int>(sizeof(T));   // 4 or 2
+  constexpr int kWShift = kW == 4 ? 2 : 1;
+  const T* src = data + static_cast<long long>(s0) * bb;
+  const int n_el = (s1 - s0) * bb;
+  int e0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    using W = typename VecOf<T, kW>::type;
+    const int nv = n_el >> kWShift;
+    for (int q = threadIdx.x; q < nv; q += kBsrThreads) {
+      reinterpret_cast<W*>(s_data)[q] = __ldg(reinterpret_cast<const W*>(src) + q);
+    }
+    e0 = nv << kWShift;
+  }
+  for (int e = e0 + threadIdx.x; e < n_el; e += kBsrThreads) {
+    s_data[e] = __ldg(src + e);
+  }
+  for (int e = threadIdx.x; e < s1 - s0; e += kBsrThreads) {
+    s_idx[e] = __ldg(indices + s0 + e);
+  }
+}
+
+// One lane's walk over staged blocks [k0, k1) of its block row: A blocks'
+// indices, then their X loads (V columns a load, C slots `slot` columns
+// apart from column c0), then each block's B x B values from the stage and
+// the FMAs, block by block, j ascending: each output one FMA chain.
+template <typename T, int B, int V, int C, int A>
+__device__ __forceinline__ void bsr_walk(const int* s_idx, const T* s_data,
+                                         int k0, int k1,
+                                         const T* __restrict__ X, int nrhs,
+                                         int c0, int slot,
+                                         T (&acc)[B][C][V]) {
+  constexpr int kW = 16 / static_cast<int>(sizeof(T));
+  for (int k = k0; k < k1; k += A) {
+    int bc[A];
+#pragma unroll
+    for (int u = 0; u < A; ++u) bc[u] = k + u < k1 ? s_idx[k + u] : 0;
+    T xv[A][B][C][V];
+#pragma unroll
+    for (int u = 0; u < A; ++u)
+#pragma unroll
+      for (int j = 0; j < B; ++j)
+#pragma unroll
+        for (int s = 0; s < C; ++s) {
+          const int c = c0 + s * slot;
+          if (k + u < k1 && c < nrhs) {
+            load_vec<T, V>(X + (static_cast<long long>(bc[u]) * B + j) * nrhs + c,
+                           xv[u][j][s]);
+          } else {
+#pragma unroll
+            for (int m = 0; m < V; ++m) xv[u][j][s][m] = T(0);
+          }
+        }
+#pragma unroll
+    for (int u = 0; u < A; ++u) {
+      if (k + u < k1) {
+        const T* p = s_data + (k + u) * (B * B);
+        T d[B * B];
+        if constexpr ((B * B) % kW == 0) {
+          using W = typename VecOf<T, kW>::type;
+#pragma unroll
+          for (int q = 0; q < B * B; q += kW) {
+            const W w = *reinterpret_cast<const W*>(p + q);
+            const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+            for (int m = 0; m < kW; ++m) d[q + m] = e[m];
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < B * B; ++q) d[q] = p[q];
+        }
+#pragma unroll
+        for (int r = 0; r < B; ++r)
+#pragma unroll
+          for (int j = 0; j < B; ++j)
+#pragma unroll
+            for (int s = 0; s < C; ++s)
+#pragma unroll
+              for (int m = 0; m < V; ++m)
+                acc[r][s][m] = fma(d[r * B + j], xv[u][j][s][m], acc[r][s][m]);
+      }
+    }
+  }
+}
+
+// K6 for b = B in {1, 2, 3, 4, 8}: a team of 2^team_shift lanes a block row,
+// kBsrThreads >> team_shift consecutive block rows a thread block.  Lane l
+// holds columns p0 + s * V * T + l * V + [0, V), s < C, of each pass p0 (V * C
+// * T columns), B rows each.  The thread block's rows own one contiguous
+// segment of the tables; it is copied into shared memory in chunks of at
+// most stage_blocks blocks (once for all passes when it fits in one), and
+// each lane walks its row's blocks in the chunk (bsr_walk).  Each output is
+// one FMA chain in block order k, then j ascending, from +0: the sum of one
+// thread an output, to the bit.
+template <typename T, int B, int V, int C, int A>
+__global__ void __launch_bounds__(kBsrThreads)
 bsr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                 const T* __restrict__ data, const T* __restrict__ X,
-                T* __restrict__ Y, long long n_out, int b, int nrhs) {
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= n_out) return;
-  const long long row = t / nrhs;          // scalar row i*b + r
-  const int c = static_cast<int>(t - row * nrhs);
-  const long long i = row / b;
-  const int r = static_cast<int>(row - i * b);
-  const int k1 = indptr[i + 1];
-  T acc = T(0);
-  for (int k = indptr[i]; k < k1; ++k) {
-    const T* d = data + (static_cast<long long>(k) * b + r) * b;
-    const T* x = X + static_cast<long long>(indices[k]) * b * nrhs + c;
-    for (int j = 0; j < b; ++j) acc += d[j] * x[static_cast<long long>(j) * nrhs];
+                T* __restrict__ Y, int n_brows, int nrhs, int team_shift,
+                int stage_blocks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_data = reinterpret_cast<T*>(smem_raw);
+  int* s_idx = reinterpret_cast<int*>(s_data + stage_blocks * (B * B));
+  const int rows = kBsrThreads >> team_shift;
+  const long long i0 = static_cast<long long>(blockIdx.x) * rows;
+  const int i_end = static_cast<int>(i0 + rows < n_brows ? i0 + rows : n_brows);
+  const int i = static_cast<int>(i0) + (threadIdx.x >> team_shift);
+  const int lane = threadIdx.x & ((1 << team_shift) - 1);
+  const bool live = i < n_brows;
+  const int kA = indptr[i0];
+  const int kB = indptr[i_end];
+  const int k0 = live ? indptr[i] : kA;
+  const int k1 = live ? indptr[i + 1] : kA;
+  const bool one_chunk = kB - kA <= stage_blocks;
+  const int slot = V << team_shift;
+  T* Yrow = Y + static_cast<long long>(i) * B * nrhs;
+  for (int p0 = 0; p0 < nrhs; p0 += C * slot) {   // the same for all threads
+    const int c0 = p0 + lane * V;
+    T acc[B][C][V];
+#pragma unroll
+    for (int r = 0; r < B; ++r)
+#pragma unroll
+      for (int s = 0; s < C; ++s)
+#pragma unroll
+        for (int m = 0; m < V; ++m) acc[r][s][m] = T(0);
+    for (int s0 = kA; s0 < kB; s0 += stage_blocks) {
+      const int s1 = kB - s0 < stage_blocks ? kB : s0 + stage_blocks;
+      if (p0 == 0 || !one_chunk) {
+        __syncthreads();                 // the last chunk's readers are done
+        bsr_stage<T>(indices, data, s_idx, s_data, s0, s1, B * B);
+        __syncthreads();
+      }
+      const int lo = k0 > s0 ? k0 : s0;
+      const int hi = k1 < s1 ? k1 : s1;
+      if (lo < hi) {
+        bsr_walk<T, B, V, C, A>(s_idx, s_data, lo - s0, hi - s0, X, nrhs, c0,
+                                slot, acc);
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < B; ++r)
+#pragma unroll
+        for (int s = 0; s < C; ++s) {
+          const int c = c0 + s * slot;
+          if (c < nrhs) {
+            store_vec<T, V>(Yrow + static_cast<long long>(r) * nrhs + c,
+                            acc[r][s]);
+          }
+        }
+    }
   }
-  Y[t] = acc;
+}
+
+// K6 for any other b: a thread block of (T, ry, rz) threads, T = blockDim.x
+// lanes a team over the columns (one a lane in each pass), a team a pair
+// (block row i, row r of the block): ry rows r of each of rz block rows, r
+// walking by ry where b > ry, so that a block row's teams share their
+// blocks and X rows in L1.  The lane reads each block's row r and the X
+// values it meets in place (read-only path), the next block's index during
+// this one's; the same sum order.
+template <typename T>
+__global__ void __launch_bounds__(kBsrThreads)
+bsr_spmm_any_kernel(const int* __restrict__ indptr,
+                    const int* __restrict__ indices, const T* __restrict__ data,
+                    const T* __restrict__ X, T* __restrict__ Y, int n_brows,
+                    int b, int nrhs) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.z + threadIdx.z;
+  if (i >= n_brows) return;
+  const int k0 = indptr[i];
+  const int k1 = indptr[i + 1];
+  const long long bb = static_cast<long long>(b) * b;
+  for (int r = threadIdx.y; r < b; r += blockDim.y) {
+    T* Yr = Y + (i * b + r) * nrhs;
+    for (int c = threadIdx.x; c < nrhs; c += blockDim.x) {
+      T acc = T(0);
+      int bc = k0 < k1 ? __ldg(indices + k0) : 0;
+      for (int k = k0; k < k1; ++k) {
+        const int bc_next = k + 1 < k1 ? __ldg(indices + k + 1) : 0;
+        const T* d = data + k * bb + static_cast<long long>(r) * b;
+        const T* x = X + static_cast<long long>(bc) * b * nrhs + c;
+        for (int j = 0; j < b; ++j) {
+          acc = fma(__ldg(d + j), __ldg(x + static_cast<long long>(j) * nrhs),
+                    acc);
+        }
+        bc = bc_next;
+      }
+      Yr[c] = acc;
+    }
+  }
 }
 
 inline unsigned blocks_of(int n) {
@@ -517,23 +759,132 @@ int launch_scatter_part(const void* gcol, const void* gdata, const void* x,
   return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
+template <typename T, int B, int V, int C>
+int launch_bsr_team(const void* indptr, const void* indices, const void* data,
+                    const void* X, void* Y, int n_brows, int b, int nrhs,
+                    int team_shift, int stage_blocks, void* stream) {
+  const int rows = kBsrThreads >> team_shift;
+  const unsigned grid =
+      static_cast<unsigned>((static_cast<long long>(n_brows) + rows - 1) / rows);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (B * V * C > kBsrMaxValues || (B == 0 && V * C > 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);   // not instantiated
+  } else if constexpr (B == 0) {
+    const int lanes = 1 << team_shift;
+    const int ry = b < kBsrThreads / lanes ? b : kBsrThreads / lanes;
+    const int rz = kBsrThreads / (lanes * ry);
+    const unsigned groups =
+        static_cast<unsigned>((static_cast<long long>(n_brows) + rz - 1) / rz);
+    bsr_spmm_any_kernel<T><<<groups, dim3(lanes, ry, rz), 0, st>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(X),
+        static_cast<T*>(Y), n_brows, b, nrhs);
+  } else {
+    const size_t smem =
+        static_cast<size_t>(stage_blocks) * (B * B * sizeof(T) + sizeof(int));
+    bsr_spmm_kernel<T, B, V, C, bsr_ahead(B * V * C)>
+        <<<grid, kBsrThreads, smem, st>>>(
+            static_cast<const int*>(indptr), static_cast<const int*>(indices),
+            static_cast<const T*>(data), static_cast<const T*>(X),
+            static_cast<T*>(Y), n_brows, nrhs, team_shift, stage_blocks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int B, int V>
+int launch_bsr_c(int cols_per_lane, const void* indptr, const void* indices,
+                 const void* data, const void* X, void* Y, int n_brows, int b,
+                 int nrhs, int team_shift, int stage_blocks, void* stream) {
+  switch (cols_per_lane) {
+    case 1:
+      return launch_bsr_team<T, B, V, 1>(indptr, indices, data, X, Y, n_brows,
+                                         b, nrhs, team_shift, stage_blocks,
+                                         stream);
+    case 2:
+      return launch_bsr_team<T, B, V, 2>(indptr, indices, data, X, Y, n_brows,
+                                         b, nrhs, team_shift, stage_blocks,
+                                         stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int B>
+int launch_bsr_v(int vec, int cols_per_lane, const void* indptr,
+                 const void* indices, const void* data, const void* X, void* Y,
+                 int n_brows, int b, int nrhs, int team_shift,
+                 int stage_blocks, void* stream) {
+  switch (vec) {
+    case 1:
+      return launch_bsr_c<T, B, 1>(cols_per_lane, indptr, indices, data, X, Y,
+                                   n_brows, b, nrhs, team_shift, stage_blocks,
+                                   stream);
+    case 2:
+      return launch_bsr_c<T, B, 2>(cols_per_lane, indptr, indices, data, X, Y,
+                                   n_brows, b, nrhs, team_shift, stage_blocks,
+                                   stream);
+    case 4:
+      if constexpr (sizeof(T) == 4) {
+        return launch_bsr_c<T, B, 4>(cols_per_lane, indptr, indices, data, X,
+                                     Y, n_brows, b, nrhs, team_shift,
+                                     stage_blocks, stream);
+      }
+      [[fallthrough]];
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K6 with the wrapper's plan (ops/spmv.py bsr_spmm_plan): vec columns a
+// load (X and Y aligned to vec values, nrhs a multiple of vec), cols_per_lane
+// slots a lane, teams of 2^team_shift lanes, chunks of stage_blocks blocks in
+// shared memory (at least 1 where there are blocks, at most kBsrStageBytes).
+// b = 1, 2, 3, 4 and 8 have their own instantiation; any other b takes the
+// generic kernel (vec 1, one slot a lane, nothing staged: stage_blocks 0).
 template <typename T>
 int launch_bsr_spmm(const void* indptr, const void* indices, const void* data,
                     const void* X, void* Y, int n_brows, int b, int nrhs,
-                    void* stream) {
-  if (n_brows < 0 || b < 1 || nrhs < 0) {
+                    int vec, int cols_per_lane, int team_shift,
+                    int stage_blocks, void* stream) {
+  const long long stage_bytes =
+      static_cast<long long>(stage_blocks) *
+      (static_cast<long long>(b) * b * static_cast<long long>(sizeof(T)) + 4);
+  const long long align = static_cast<long long>(vec) * sizeof(T);
+  const bool staged = b == 1 || b == 2 || b == 3 || b == 4 || b == 8;
+  if (n_brows < 0 || b < 1 || nrhs < 0 || vec < 1 || team_shift < 0 ||
+      team_shift > 5 || stage_blocks < 0 || stage_bytes > kBsrStageBytes ||
+      (staged ? stage_blocks < 1 : stage_blocks != 0) || nrhs % vec != 0 ||
+      reinterpret_cast<uintptr_t>(X) % static_cast<uintptr_t>(align) != 0 ||
+      reinterpret_cast<uintptr_t>(Y) % static_cast<uintptr_t>(align) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_out = static_cast<long long>(n_brows) * b * nrhs;
-  if (n_out == 0) return 0;
-  const long long grid = (n_out + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  bsr_spmm_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const int*>(indices),
-      static_cast<const T*>(data), static_cast<const T*>(X),
-      static_cast<T*>(Y), n_out, b, nrhs);
-  return static_cast<int>(cudaGetLastError());
+  if (n_brows == 0 || nrhs == 0) return 0;
+  switch (b) {
+    case 1:
+      return launch_bsr_v<T, 1>(vec, cols_per_lane, indptr, indices, data, X,
+                                Y, n_brows, b, nrhs, team_shift, stage_blocks,
+                                stream);
+    case 2:
+      return launch_bsr_v<T, 2>(vec, cols_per_lane, indptr, indices, data, X,
+                                Y, n_brows, b, nrhs, team_shift, stage_blocks,
+                                stream);
+    case 3:
+      return launch_bsr_v<T, 3>(vec, cols_per_lane, indptr, indices, data, X,
+                                Y, n_brows, b, nrhs, team_shift, stage_blocks,
+                                stream);
+    case 4:
+      return launch_bsr_v<T, 4>(vec, cols_per_lane, indptr, indices, data, X,
+                                Y, n_brows, b, nrhs, team_shift, stage_blocks,
+                                stream);
+    case 8:
+      return launch_bsr_v<T, 8>(vec, cols_per_lane, indptr, indices, data, X,
+                                Y, n_brows, b, nrhs, team_shift, stage_blocks,
+                                stream);
+    default:
+      return launch_bsr_v<T, 0>(vec, cols_per_lane, indptr, indices, data, X,
+                                Y, n_brows, b, nrhs, team_shift, stage_blocks,
+                                stream);
+  }
 }
 
 }  // namespace
@@ -605,17 +956,21 @@ int scatter_part_f64(const void* gcol, const void* gdata, const void* x,
 }
 
 int bsr_spmm_f32(const void* indptr, const void* indices, const void* data,
-                 const void* X, void* Y, int n_brows, int b, int nrhs,
+                 const void* X, void* Y, int n_brows, int b, int nrhs, int vec,
+                 int cols_per_lane, int team_shift, int stage_blocks,
                  void* stream) {
   return launch_bsr_spmm<float>(indptr, indices, data, X, Y, n_brows, b, nrhs,
+                                vec, cols_per_lane, team_shift, stage_blocks,
                                 stream);
 }
 
 int bsr_spmm_f64(const void* indptr, const void* indices, const void* data,
-                 const void* X, void* Y, int n_brows, int b, int nrhs,
+                 const void* X, void* Y, int n_brows, int b, int nrhs, int vec,
+                 int cols_per_lane, int team_shift, int stage_blocks,
                  void* stream) {
-  return launch_bsr_spmm<double>(indptr, indices, data, X, Y, n_brows, b, nrhs,
-                                 stream);
+  return launch_bsr_spmm<double>(indptr, indices, data, X, Y, n_brows, b,
+                                 nrhs, vec, cols_per_lane, team_shift,
+                                 stage_blocks, stream);
 }
 
 }  // extern "C"

@@ -14,8 +14,9 @@ their bounds and design):
   ``y[i] = values[src[i]]``, 0 where ``src[i] == n_src`` (a pad): the
   static selection of ``ops/selection.py``.
 - K6 ``bsr_spmm(bsr, X)``: ``Y = A·X`` for A in BSR and a dense
-  multi-RHS X, each block row's blocks in CSR order.  It replaces
-  ``ops/pallas_spmv.py`` ``_bsr_spmm_call`` (``bsr_spmm_pallas``).
+  multi-RHS X, each block row's blocks in CSR order, launched with the
+  team shape ``bsr_spmm_plan`` picks.  It replaces ``ops/pallas_spmv.py``
+  ``_bsr_spmm_call`` (``bsr_spmm_pallas``).
 
 ``bsr_spmv`` (``BSR.matvec`` on the card) is K5 on the scalar pattern that
 ``bsr_scalar_pattern`` expands from the blocks, as the JAX package's
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,8 +59,8 @@ _SIGNATURES = {
     "band_spmv_f64": [_VP] * 4 + [_I, _I, ctypes.c_longlong, _I, _VP],
     "scatter_part_f32": [_VP] * 7 + [_I] * 7 + [_VP],
     "scatter_part_f64": [_VP] * 7 + [_I] * 7 + [_VP],
-    "bsr_spmm_f32": [_VP] * 5 + [_I, _I, _I, _VP],
-    "bsr_spmm_f64": [_VP] * 5 + [_I, _I, _I, _VP],
+    "bsr_spmm_f32": [_VP] * 5 + [_I] * 7 + [_VP],
+    "bsr_spmm_f64": [_VP] * 5 + [_I] * 7 + [_VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_OFFSETS = 48            # the kernel's by-value offset table
@@ -288,10 +290,80 @@ def bsr_spmm_plain(bsr, X):
     return out.index_add_(0, brow, prods).to(X.dtype).reshape(n, X.shape[1])
 
 
+# K6's launch: csrc/spmv.cu instantiates its kernel for these block sizes
+# (any other b takes the generic one, one column a load, nothing staged),
+# holds at most BSR_MAX_VALUES values of X a lane for each block, and stages
+# a thread block's blocks in shared memory in chunks of at most
+# BSR_STAGE_BYTES.
+BSR_BLOCK_SIZES = (1, 2, 3, 4, 8)
+BSR_THREADS = 256
+BSR_MAX_VALUES = 8
+BSR_STAGE_BYTES = 48 * 1024
+
+
+class BsrPlan(NamedTuple):
+    """K6's launch: the instantiated block size (0: the generic kernel),
+    X's and Y's values a load or store, column slots a lane, and a team of
+    ``2**team_shift`` lanes a block row (``BSR_THREADS >> team_shift``
+    block rows a thread block).  Lane l of a team computes the columns
+    ``p + s·vec·2**team_shift + l·vec + [0, vec)`` for ``s < cols_per_lane``,
+    in passes ``p`` of ``vec·cols_per_lane·2**team_shift`` columns."""
+    block: int
+    vec: int
+    cols_per_lane: int
+    team_shift: int
+
+
+def bsr_spmm_plan(b: int, nrhs: int, itemsize: int, x_addr: int) -> BsrPlan:
+    """K6's plan for block size ``b``, ``nrhs`` columns of ``itemsize``
+    bytes and an X at address ``x_addr``: 16-byte loads (4 f32 or 2 f64
+    columns; else 2 f32) where nrhs and X's address allow them; then for
+    g column groups (of vec columns) one pass of the smallest team that
+    covers them where g ≤ 8, else teams of 8 lanes with two slots a lane
+    in passes of 16 groups, or, where a lane cannot hold two slots and in
+    the generic kernel, the smallest team of at most 32 lanes that covers
+    them.  Narrow teams keep 32 or more block rows in a thread block, over
+    which its staging is spread (``bench/k6_designs.cu`` times the
+    alternatives)."""
+    block = b if b in BSR_BLOCK_SIZES else 0
+    vec = 1
+    for v in (16 // itemsize, 2):
+        if (block and v > 1 and nrhs % v == 0 and x_addr % (v * itemsize) == 0
+                and block * v <= BSR_MAX_VALUES):
+            vec = v
+            break
+    groups = max(1, -(-nrhs // vec))
+    if groups <= 8:
+        cols, team = 1, groups
+    elif block and block * vec * 2 <= BSR_MAX_VALUES:
+        cols, team = 2, 8
+    else:
+        cols, team = 1, min(groups, 32)
+    return BsrPlan(block, vec, cols, (team - 1).bit_length())
+
+
+def bsr_stage_blocks(indptr, b: int, itemsize: int, team_shift: int) -> int:
+    """K6's chunk of blocks in shared memory: the most that any thread
+    block's ``BSR_THREADS >> team_shift`` block rows hold (so that each
+    thread block stages its blocks once), at least 1 and at most as many
+    as ``BSR_STAGE_BYTES`` takes (a thread block with more stages them in
+    chunks); 0 for a block size the generic kernel takes (nothing
+    staged)."""
+    if b not in BSR_BLOCK_SIZES:
+        return 0
+    rows = BSR_THREADS >> team_shift
+    ptr = np.asarray(indptr, np.int64)
+    starts = np.arange(0, len(ptr) - 1, rows)
+    ends = np.minimum(starts + rows, len(ptr) - 1)
+    most = int((ptr[ends] - ptr[starts]).max(initial=0))
+    return max(1, min(most, BSR_STAGE_BYTES // (b * b * itemsize + 4)))
+
+
 def bsr_spmm(bsr, X):
     """``Y = A·X`` for A in BSR (``data`` (nblocks, b, b)) and a dense X
-    (n_cols, nrhs) of the data's dtype: K6.  An empty Y (no rows or no
-    columns) comes back without a launch."""
+    (n_cols, nrhs) of the data's dtype: K6, launched with
+    ``bsr_spmm_plan``.  An empty Y (no rows or no columns) comes back
+    without a launch."""
     data = bsr.data
     if X.dtype != data.dtype:
         raise TypeError(f"X has dtype {X.dtype} and the BSR data "
@@ -316,10 +388,17 @@ def bsr_spmm(bsr, X):
     if Y.numel() == 0:
         return Y
     indptr, indices, _cols, _brow = bsr.device_tables(X.device)
+    item = X.element_size()
+    plan = bsr_spmm_plan(b, nrhs, item, X.data_ptr())
+    key = ("k6_stage", plan.team_shift, item)
+    if key not in bsr._shared:
+        bsr._shared[key] = bsr_stage_blocks(bsr.indptr, b, item,
+                                            plan.team_shift)
     lib = _lib()
     rc = getattr(lib, f"bsr_spmm_{_SUFFIX[dtype]}")(
         _backend.ptr(indptr), _backend.ptr(indices), _backend.ptr(data),
-        _backend.ptr(X), _backend.ptr(Y), n // b, b, nrhs,
+        _backend.ptr(X), _backend.ptr(Y), n // b, b, nrhs, plan.vec,
+        plan.cols_per_lane, plan.team_shift, bsr._shared[key],
         _backend.stream_handle(X))
     _backend.check_launch(lib, rc, "bsr_spmm")
     _backend.count_launch("bsr_spmm")

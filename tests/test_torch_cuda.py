@@ -1057,16 +1057,18 @@ def test_distributed_layer_at_world_size_one_on_card(cuda):
 # fixed order); BSR.matvec on the card is K5 on the expanded pattern
 # ---------------------------------------------------------------------------
 
-def _bsr(nbr, nbc, b, dtype, seed, device, empty_row=None):
+def _bsr(nbr, nbc, b, dtype, seed, device, empty_row=None, long_row=None):
     """A seeded block-sparse matrix with explicit zeros inside its blocks,
-    as the port's BSR on ``device``."""
+    as the port's BSR on ``device``; block row ``long_row`` holds 70
+    blocks (more than a team's 32 lanes)."""
     from nonlinearsolve_tpu_torch.ops.sparse import BSR, CSR
     rng = np.random.default_rng(seed)
     A = np.zeros((nbr * b, nbc * b))
     for i in range(nbr):
         if i == empty_row:
             continue
-        for j in rng.choice(nbc, size=int(rng.integers(1, 6)), replace=False):
+        count = 70 if i == long_row else int(rng.integers(1, 6))
+        for j in rng.choice(nbc, size=count, replace=False):
             A[i * b:(i + 1) * b, j * b:(j + 1) * b] = \
                 rng.standard_normal((b, b))
     A[rng.random(A.shape) < 0.2] = 0.0
@@ -1077,11 +1079,15 @@ def _bsr(nbr, nbc, b, dtype, seed, device, empty_row=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("nrhs", [1, 8, 37])
-@pytest.mark.parametrize("b", [1, 2, 3, 4])
+@pytest.mark.parametrize("nrhs", [1, 2, 8, 31, 32, 33, 37, 64, 100])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8])
 def test_bsr_spmm_matches_plain_on_card(cuda, b, nrhs, dtype):
+    """Every instantiated block size and the generic one (b = 5), at the
+    column counts where the team, the 16-byte loads, the column slots and
+    the passes change, with an empty block row and one of 70 blocks."""
     from nonlinearsolve_tpu_torch.ops import spmv
-    A, rng = _bsr(300, 280, b, dtype, 7 * b + nrhs, cuda, empty_row=5)
+    A, rng = _bsr(300, 280, b, dtype, 7 * b + nrhs, cuda, empty_row=5,
+                  long_row=9)
     X = torch.tensor(rng.standard_normal((A.shape[1], nrhs)),
                      dtype=TORCH_DT[dtype], device=cuda)
     launches = _backend.LAUNCHES["bsr_spmm"]
@@ -1090,6 +1096,67 @@ def test_bsr_spmm_matches_plain_on_card(cuda, b, nrhs, dtype):
     assert Y.dtype == X.dtype and Y.shape == (A.shape[0], nrhs)
     _close(Y, spmv.bsr_spmm_plain(A, X), dtype)
     assert bool((Y[5 * b:6 * b] == 0).all())        # the empty block row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("nrhs", [8, 64])
+def test_bsr_spmm_x_off_16_byte_alignment_on_card(cuda, nrhs, dtype):
+    """An X one value past a 16-byte boundary (nrhs a multiple of 4) is
+    read one column a load: its Y equals the aligned X's bit for bit (each
+    output is the same FMA chain) and the plain version at RTOL."""
+    from nonlinearsolve_tpu_torch.ops import spmv
+    A, rng = _bsr(300, 280, 2, dtype, 11 + nrhs, cuda, empty_row=5,
+                  long_row=9)
+    X = torch.tensor(rng.standard_normal((A.shape[1], nrhs)),
+                     dtype=TORCH_DT[dtype], device=cuda)
+    Xm = torch.empty(X.numel() + 1, dtype=X.dtype, device=cuda)[1:].view(
+        X.shape)
+    Xm.copy_(X)
+    item = X.element_size()
+    assert spmv.bsr_spmm_plan(2, nrhs, item, X.data_ptr()).vec > 1
+    assert spmv.bsr_spmm_plan(2, nrhs, item, Xm.data_ptr()).vec == 1
+    Ym = spmv.bsr_spmm(A, Xm)
+    assert torch.equal(Ym, spmv.bsr_spmm(A, X))
+    _close(Ym, spmv.bsr_spmm_plain(A, X), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("b,nrhs", [(1, 1), (2, 8), (2, 37), (3, 33),
+                                    (4, 100), (5, 31), (8, 64)])
+def test_bsr_spmm_exact_products_equal_plain_bit_for_bit_on_card(
+        cuda, b, nrhs, dtype):
+    """Entries 0, ±1, ±2 and ±0.5 and an X of small integers: every product
+    and every partial sum is exact, so Y equals the plain version bit for
+    bit in any sum order.  Block rows 0-7 hold 60 blocks each, so at b = 8
+    their thread block has more blocks than one chunk of the stage holds
+    and stages them in chunks; block row 20 is empty."""
+    from nonlinearsolve_tpu_torch.ops import spmv
+    from nonlinearsolve_tpu_torch.ops.sparse import BSR
+    rng = np.random.default_rng(b * 100 + nrhs)
+    nbr = nbc = 200
+    counts = rng.integers(1, 6, nbr)
+    counts[:8] = 60
+    counts[20] = 0
+    indices = np.concatenate([np.sort(rng.choice(nbc, int(c), replace=False))
+                              for c in counts]).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    values = np.array([0.0, 1.0, -1.0, 2.0, -2.0, 0.5, -0.5])
+    data = torch.tensor(rng.choice(values, (len(indices), b, b)),
+                        dtype=TORCH_DT[dtype], device=cuda)
+    A = BSR(data, indices, indptr, (nbr * b, nbc * b), b)
+    X = torch.tensor(rng.integers(-8, 9, (nbc * b, nrhs)),
+                     dtype=TORCH_DT[dtype], device=cuda)
+    plan = spmv.bsr_spmm_plan(b, nrhs, X.element_size(), X.data_ptr())
+    stage = spmv.bsr_stage_blocks(indptr, b, X.element_size(),
+                                  plan.team_shift)
+    rows = spmv.BSR_THREADS >> plan.team_shift
+    if b == 8:
+        assert indptr[min(rows, nbr)] > stage     # several chunks
+    Y = spmv.bsr_spmm(A, X)
+    assert torch.equal(Y, spmv.bsr_spmm_plain(A, X))
+    assert bool((Y[20 * b:21 * b] == 0).all())
 
 
 @pytest.mark.cuda
