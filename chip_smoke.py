@@ -159,7 +159,32 @@ check raises, so the script exits non-zero.
    yardstick); each record carries K6's launch plan
    (``spmv.bsr_spmm_plan``) and staged chunk, and the kernels line names
    K6's design;
-18. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+18. the dense Brusselator, the tutorial's dense rung (counters at 0 just
+   before each run, read just after): ``make_problem(32)``, f64, 2048
+   unknowns, a 2048×2048 forward-AD Jacobian, abstol 1e-10, solved by
+   NewtonRaphson (LU through cuSOLVER), TrustRegion, LevenbergMarquardt
+   (at abstol 1e-8: at 1e-10 it stalls at the floor of its least-squares
+   step, in the JAX package too) and PseudoTransient(alpha_initial=10).
+   Checks: Success for each, each
+   root within 1e-8 (inf-norm) of the sparse-AD root (phase 6's colored
+   Jacobian, GMRES + FFT) and of the matrix-free Newton–GMRES–FFT root at
+   the same N (tests/test_golden_models.py:48-70's ladder), no custom
+   kernel launched.  Then NewtonRaphson at N=64 (8192 unknowns, a 512 MiB
+   Jacobian; abstol 1e-9, above the f64 floor of |F| there).  For each
+   run: the warm wall (median of 3; LevenbergMarquardt's third warm solve
+   is its profiled one), NLStats, host syncs, the device time by class
+   (the Jacobian's batched residual, timed alone; the dense linear algebra
+   by kernel name; the rest) and the idle share;
+19. the 23-problem suite on the card (counters at 0 just before, read just
+   after): NewtonRaphson, TrustRegion and LevenbergMarquardt on the 23
+   problems, f64, maxiters 10000, ‖f(u*)‖∞ ≤ 1e-4 as
+   tests/test_23_problems.py holds it; each broken set equal to the JAX
+   package's CASES row (NR {1}, TR {11, 21}, LM {11, 21}), NR's problem
+   1 (10000 steps) left to tests/test_torch_cuda.py.  Then
+   GaussNewton, LevenbergMarquardt and TrustRegion on the 8 NLLS problems,
+   each sum of squares held as tests/test_nlls_problems.py holds it
+   (except that file's BROKEN pairs, which are reported);
+20. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -328,14 +353,19 @@ def roofline_ms(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_device(torch, run):
+def profile_device(torch, run, groups=None, host_events=True):
     """Run ``run()`` once under torch.profiler: its wall time, the device's
-    busy time (summed kernel time), the device time by DEVICE_GROUPS (a
-    kernel goes to the first group one of whose substrings its name holds,
-    else to "other") and the top kernels by device time."""
+    busy time (summed kernel time), the device time by ``groups``
+    (DEVICE_GROUPS by default; a kernel goes to the first group one of
+    whose substrings its name holds, else to "other") and the top kernels
+    by device time.  ``host_events=False`` records the device's kernels
+    only (a run of many seconds makes the host's events slow to sort)."""
+    groups = DEVICE_GROUPS if groups is None else groups
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_events:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -352,7 +382,7 @@ def profile_device(torch, run):
     busy_ms = sum(kernels.values())
     by_group = {}
     for key, ms in kernels.items():
-        name = next((g for g, subs in DEVICE_GROUPS.items()
+        name = next((g for g, subs in groups.items()
                      if any(sub in key.lower() for sub in subs)), "other")
         by_group[name] = by_group.get(name, 0.0) + ms
     return {"profiled_solve_s": wall,
@@ -1368,6 +1398,209 @@ def sparse_alg(nls, fft_poisson_preconditioner, N, perm=None, dev=None):
         linsolve=nls.LinearSolver(method="gmres", restart=8,
                                   krylov_maxiter=100, precond_fn=M),
         forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+
+
+# the dense path's device time by class: cuSOLVER / cuBLAS kernels by name
+DENSE_GROUPS = {"dense linear algebra": (
+    "getrf", "getrs", "laswp", "trsm", "trsv", "potrf", "potrs", "svd",
+    "gesvd", "geqrf", "ormqr", "orgqr", "larf", "iamax", "gemm", "gemv",
+    "xmma", "cutlass", "syrk", "ger_", "swap", "scal", "cusolver",
+    "cublas")}
+
+
+def dense_run_report(torch, nls, _backend, name, prob, alg, jac_fn,
+                     card, profile_last_warm=False, **kw):
+    """One dense solve: counters at 0 just before and read just after, the
+    first solve timed, then the warm wall (median of 3), the device time
+    by class (the Jacobian timed alone × njacs; the dense linear algebra by
+    kernel name; the rest) and the idle share of a profiled solve — with
+    ``profile_last_warm`` (a solve of many seconds) the third warm solve
+    is the profiled one."""
+    t_report = time.perf_counter()
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    sol = nls.solve(prob, alg, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+    if sol.retcode != nls.ReturnCode.Success:
+        raise AssertionError(f"dense {name}: {sol.retcode.name}")
+    walls = warm_walls(torch, lambda: nls.solve(prob, alg, **kw),
+                       count=2 if profile_last_warm else 3)
+    prof = profile_device(torch, lambda: nls.solve(prob, alg, **kw),
+                          groups=DENSE_GROUPS, host_events=False)
+    if profile_last_warm:
+        walls.append(prof["profiled_solve_s"])
+    # the Jacobian's kernels alone, one evaluation, × the Jacobians
+    jac = profile_device(torch, lambda: jac_fn(sol.u), groups={},
+                         host_events=False)
+    jac_ms = (jac["device_busy_ms"] * sol.stats.njacs
+              if isinstance(jac["device_busy_ms"], float) else "not measured")
+    by_class = dict(prof["device_ms_by_group"])
+    if isinstance(jac_ms, float):
+        by_class["jacobian (batched residual, timed alone x njacs)"] = jac_ms
+        by_class["the rest"] = by_class.pop("other", 0.0) - jac_ms
+    rec = {"phase": "dense_brusselator", "run": name,
+           "n": int(prob.u0.numel()), "retcode": sol.retcode.name,
+           "resid_inf": float(sol.resid.abs().max()),
+           "stats": vars(sol.stats),
+           "host_syncs": sol.counters["host_syncs"],
+           "custom_kernel_launches": launches, "first_solve_s": first_s,
+           "warm_wall_s": walls, "warm_wall_s_median": sorted(walls)[1],
+           "device_ms_by_class": by_class,
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_idle_share": prof["device_idle_share"],
+           "profiled_solve_s": prof["profiled_solve_s"],
+           "top_device_ms": prof["top_device_ms"],
+           "report_s": time.perf_counter() - t_report, "card": card}
+    emit(rec)
+    if launches:
+        raise AssertionError(f"dense {name} launched custom kernels: "
+                             f"{launches}")
+    return sol
+
+
+def dense_brusselator_phase(torch, nls, _backend, brusselator,
+                            fft_poisson_preconditioner, card):
+    """Phase 18 (see the module docstring)."""
+    from nonlinearsolve_tpu_torch.core.descent import DescentCtx
+    from nonlinearsolve_tpu_torch.core.jacobian import construct_jacobian
+    dev, f64 = torch.device("cuda"), torch.float64
+    t_phase = time.perf_counter()
+
+    def jac_of(prob):
+        ctx = DescentCtx(f_flat=lambda u: brusselator.brusselator_2d(
+            u, prob.p), n_in=prob.u0.numel(), n_out=prob.u0.numel())
+        return construct_jacobian(nls.JacobianPolicy(), None, ctx, None)[0]
+
+    N = 32
+    pm = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
+                                    shift=3.0, n_components=2)
+    gmres = nls.LinearSolver(method="gmres", restart=30, precond_fn=pm)
+    t_refs = time.perf_counter()
+    mf = nls.solve(brusselator.make_problem(N, f64, kernel_jvp=True),
+                   nls.NewtonRaphson(linsolve=gmres), abstol=1e-10)
+    sp = nls.solve(flat_problem(nls, brusselator, N, f64, dev),
+                   nls.NewtonRaphson(autodiff=nls.JacobianPolicy(
+                       mode="sparse"), linsolve=gmres), abstol=1e-10)
+    if not (mf.success and sp.success):
+        raise AssertionError(f"dense rung references: matrix-free "
+                             f"{mf.retcode.name}, sparse {sp.retcode.name}")
+    refs = {"matrix_free": mf.u, "sparse_ad": sp.u.reshape(N, N, 2)}
+    refs_s = time.perf_counter() - t_refs
+    prob = brusselator.make_problem(N, f64)
+    jac_fn = jac_of(prob)
+    # LevenbergMarquardt at 1e-8: at 1e-10 it stalls at the floor of its
+    # least-squares step, in the JAX package too (N=8, 16 on the CPU)
+    algs = {"NewtonRaphson": (nls.NewtonRaphson(), 1e-10),
+            "TrustRegion": (nls.TrustRegion(), 1e-10),
+            "LevenbergMarquardt": (nls.LevenbergMarquardt(), 1e-8),
+            "PseudoTransient": (nls.PseudoTransient(alpha_initial=10.0),
+                                1e-10)}
+    dists = {}
+    for name, (alg, abstol) in algs.items():
+        # LM's step is a 4096×2048 SVD (about 0.5 s): a cap on its steps
+        # bounds the phase if it ever left its 28-step course
+        lm = name == "LevenbergMarquardt"
+        sol = dense_run_report(torch, nls, _backend, name, prob, alg,
+                               jac_fn, card, abstol=abstol,
+                               maxiters=60 if lm else 1000,
+                               profile_last_warm=lm)
+        dists[name] = {k: float((sol.u - r).abs().max())
+                       for k, r in refs.items()}
+    emit({"phase": "dense_brusselator_ladder", "N": N,
+          "root_inf_distance": dists, "limit": 1e-8,
+          "reference_stats": {"matrix_free": vars(mf.stats),
+                              "sparse_ad": vars(sp.stats)},
+          "references_s": refs_s})
+    far = {k: v for k, v in dists.items()
+           if not max(v.values()) <= 1e-8}
+    if far:
+        raise AssertionError(f"dense roots off the ladder: {far}")
+    # N=64 at 1e-9: the f64 floor of |F| grows with α/dx² (4.7e-11 at the
+    # N=32 root; at 1e-10, N=64 stalls on it)
+    prob64 = brusselator.make_problem(64, f64)
+    dense_run_report(torch, nls, _backend, "NewtonRaphson N=64", prob64,
+                     nls.NewtonRaphson(), jac_of(prob64), card,
+                     abstol=1e-9)
+    emit({"phase": "dense_brusselator_done",
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+
+
+# tests/test_23_problems.py CASES rows of the dense surface
+ROWS_23 = {"NewtonRaphson": {1}, "TrustRegion": {11, 21},
+           "LevenbergMarquardt": {11, 21}}
+# NewtonRaphson's problem 1 runs all 10000 steps (about 30 s on the card):
+# tests/test_torch_cuda.py holds it to the row, not this phase
+ROWS_23_ON_CARD_TESTS = {"NewtonRaphson": {1}}
+# tests/test_nlls_problems.py: the pairs it skips as hard starts
+NLLS_BROKEN = {("powell_badly_scaled", "gauss_newton"),
+               ("freudenstein_roth", "gauss_newton"),
+               ("box_3d", "gauss_newton"), ("box_3d", "trustregion"),
+               ("freudenstein_roth", "trustregion"),
+               ("freudenstein_roth", "lm")}
+
+
+def problems23_phase(torch, nls, _backend, card):
+    """Phase 19 (see the module docstring)."""
+    from nonlinearsolve_tpu_torch.models.nlls_problems import NLLS_PROBLEMS
+    from nonlinearsolve_tpu_torch.models.problems23 import PROBLEMS_23
+    dev, f64 = torch.device("cuda"), torch.float64
+    t_phase = time.perf_counter()
+    make = {"NewtonRaphson": nls.NewtonRaphson, "TrustRegion":
+            nls.TrustRegion, "LevenbergMarquardt": nls.LevenbergMarquardt}
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    syncs0 = _backend.HOST_SYNCS["n"]
+    failed = []
+    for row, expected in ROWS_23.items():
+        t0 = time.perf_counter()
+        broken, steps = set(), {}
+        skip = ROWS_23_ON_CARD_TESTS.get(row, set())
+        expected = expected - skip
+        for tp in PROBLEMS_23:
+            if tp.index in skip:
+                continue
+            sol = nls.solve(nls.NonlinearProblem(
+                tp.f, torch.tensor(tp.start, dtype=f64, device=dev)),
+                make[row](), maxiters=10000)
+            if not float(tp.f(sol.u).abs().max()) <= 1e-4:
+                broken.add(tp.index)
+            steps[tp.index] = sol.stats.nsteps
+        emit({"phase": "problems23", "row": row, "broken": sorted(broken),
+              "expected": sorted(expected),
+              "in_tests_test_torch_cuda": sorted(skip), "nsteps": steps,
+              "seconds": time.perf_counter() - t0, "card": card})
+        if broken != expected:
+            failed.append(row)
+    t0 = time.perf_counter()
+    nlls = {"gauss_newton": nls.GaussNewton, "lm": nls.LevenbergMarquardt,
+            "trustregion": nls.TrustRegion}
+    ssq_rows = []
+    for name, f, u0, _, expected_ssq in NLLS_PROBLEMS:
+        for alg, mk in nlls.items():
+            sol = nls.solve(nls.NonlinearLeastSquaresProblem(
+                f, torch.tensor(u0, dtype=f64, device=dev)), mk(),
+                maxiters=1000)
+            ssq = float((sol.resid ** 2).sum())
+            ok = ssq < max(1e-9, expected_ssq * 1.01 + 1e-9)
+            ssq_rows.append({"problem": name, "alg": alg, "ssq": ssq,
+                             "retcode": sol.retcode.name, "ok": ok,
+                             "skipped_in_jax_test":
+                                 (name, alg) in NLLS_BROKEN})
+            if not ok and (name, alg) not in NLLS_BROKEN:
+                failed.append(f"nlls {name}/{alg}")
+    launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+    emit({"phase": "nlls", "results": ssq_rows,
+          "seconds": time.perf_counter() - t0,
+          "host_syncs": _backend.HOST_SYNCS["n"] - syncs0,
+          "custom_kernel_launches": launches,
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    if launches:
+        failed.append(f"custom kernels launched: {launches}")
+    if failed:
+        raise AssertionError(f"23-problem / NLLS phase failed: {failed}")
 
 
 def main(argv):
@@ -2412,7 +2645,14 @@ def main(argv):
           "phase_seconds": time.perf_counter() - t_phase, "card": card})
     del J, compressed, S, Y, Jb, D
 
-    # --- 18. summary -------------------------------------------------------
+    # --- 18. the dense Brusselator (the tutorial's dense rung) -------------
+    dense_brusselator_phase(torch, nls, _backend, brusselator,
+                            fft_poisson_preconditioner, card)
+
+    # --- 19. the 23-problem suite and the NLLS classics --------------------
+    problems23_phase(torch, nls, _backend, card)
+
+    # --- 20. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):

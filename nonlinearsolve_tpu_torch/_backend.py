@@ -122,6 +122,31 @@ def fetch(*tensors: torch.Tensor) -> list:
     return out
 
 
+class PendingReads:
+    """Device scalars waiting for a host read.  ``defer`` queues one under a
+    key; the next ``read`` — whoever makes it — takes the queued scalars
+    along in the same ``fetch`` and keeps their host values in ``values``.
+    So a step's own flags ride on the first read its line search makes."""
+
+    def __init__(self):
+        self._queue: list = []
+        self.values: dict = {}
+
+    def defer(self, key, t: torch.Tensor) -> None:
+        self._queue.append((key, t))
+
+    def read(self, *tensors: torch.Tensor) -> list:
+        """The host values of ``tensors`` (as ``fetch`` gives them), in one
+        host sync with the queued scalars."""
+        queued = self._queue
+        if not queued and not tensors:
+            return []
+        self._queue = []
+        host = fetch(*[t for _, t in queued], *tensors)
+        self.values.update((k, v) for (k, _), v in zip(queued, host))
+        return host[len(queued):]
+
+
 # ---------------------------------------------------------------------------
 # kernel build and load
 # ---------------------------------------------------------------------------

@@ -1,21 +1,106 @@
-"""Jacobian policy (the port of ``core/autodiff.py``'s ``JacobianPolicy``:
-its fields and ``mode``).  Dense forward / reverse / finite-difference
-Jacobians are ROADMAP A.32."""
+"""Jacobian policies and dense Jacobians (the port of ``core/autodiff.py``).
+
+``JacobianPolicy`` picks the route; ``construct_dense_jacobian_fn`` builds
+the dense ``(n_out, n_in)`` Jacobian of the residual with ``torch.func``:
+forward mode (``jacfwd``, or ``vmap`` of ``jvp`` over chunks of the
+identity), reverse mode (``jacrev``) or forward differences (``vmap`` over
+the columns).  The residual may take a shaped state: its Jacobian comes
+back as ``out_shape + in_shape`` and ``core/jacobian.py`` makes it 2-D.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
+
+
+def pickchunksize(n: int, threshold: int = 12) -> int:
+    """ForwardDiff.pickchunksize: the smallest chunk ≤ ``threshold`` that
+    splits ``n`` into equal-ish batches."""
+    if n <= threshold:
+        return n
+    nchunks = -(-n // threshold)
+    return -(-n // nchunks)
 
 
 @dataclasses.dataclass(frozen=True)
 class JacobianPolicy:
     """mode: 'auto' | 'forward' | 'reverse' | 'finite' | 'analytic' |
-    'operator' | 'sparse'.  The port builds the matrix-free operator
-    ('operator', or 'auto' with a Krylov linear solver) and the colored
-    sparse-AD Jacobian ('sparse', or 'auto' with a sparsity pattern and a
-    non-Krylov solver)."""
+    'operator' | 'sparse'.
+
+    'auto' takes the matrix-free operator with a Krylov linear solver, the
+    colored sparse-AD Jacobian when the problem has a sparsity pattern, and
+    otherwise a dense AD Jacobian: forward mode, or reverse mode when the
+    output is much smaller than the input (``resolve``).
+    ``fd_rel_step``: the relative step of 'finite' (√eps by default).
+    ``chunk_size``: forward-mode tangents ``chunk_size`` at a time — peak
+    tangent memory chunk × n_out instead of n_in × n_out."""
 
     mode: str = "auto"
     fd_rel_step: Optional[float] = None
     chunk_size: Optional[int] = None
+
+    def resolve(self, n_in: int, n_out: int) -> str:
+        if self.mode != "auto":
+            return self.mode
+        # forward mode costs ~ n_in passes, reverse ~ n_out
+        if n_out * 4 < n_in:
+            return "reverse"
+        return "forward"
+
+
+def _chunked_jacfwd(f_flat: Callable, u: torch.Tensor, chunk: int,
+                    n_out: int) -> torch.Tensor:
+    """Forward-mode Jacobian of a flat ``u`` in tangent batches of
+    ``chunk`` (the JAX package's ``lax.map`` over chunks)."""
+    n = u.shape[0]
+    nchunks = -(-n // chunk)
+
+    def one_chunk(tangents):
+        return torch.func.vmap(
+            lambda t: torch.func.jvp(f_flat, (u,), (t,))[1])(tangents)
+
+    eye = torch.eye(n, dtype=u.dtype, device=u.device)
+    cols = [one_chunk(eye[c * chunk:(c + 1) * chunk]).reshape(-1, n_out)
+            for c in range(nchunks)]
+    return torch.cat(cols, dim=0).T
+
+
+def _finite_diff_jacobian(f_flat: Callable, u: torch.Tensor, rel_step):
+    """Forward differences, vmapped over the columns of a flat ``u``."""
+    fu = f_flat(u)
+    eps = torch.finfo(u.dtype).eps
+    h = (torch.sqrt(torch.tensor(eps, dtype=u.dtype, device=u.device))
+         if rel_step is None else rel_step)
+    step = h * torch.clamp(u.abs(), min=1.0)
+    eye = torch.eye(u.shape[0], dtype=u.dtype, device=u.device)
+
+    def col(e):
+        du = e * step                    # step[i] at i, zeros elsewhere
+        return (f_flat(u + du) - fu) / du.sum()
+
+    return torch.func.vmap(col, out_dims=1)(eye)
+
+
+def construct_dense_jacobian_fn(
+    f_flat: Callable, policy: JacobianPolicy, n_in: int, n_out: int,
+    analytic_jac_flat: Optional[Callable] = None,
+) -> Callable:
+    """``jac_fn(u) -> J``: the analytic Jacobian when given, otherwise AD
+    by the resolved mode.  Chunked forward mode and finite differences
+    take a flat ``u``."""
+    if analytic_jac_flat is not None:
+        return analytic_jac_flat
+    mode = policy.resolve(n_in, n_out)
+    if mode == "forward":
+        if policy.chunk_size is not None:
+            chunk = max(1, min(int(policy.chunk_size), n_in))
+            return lambda u: _chunked_jacfwd(f_flat, u, chunk, n_out)
+        return lambda u: torch.func.jacfwd(f_flat)(u)
+    if mode == "reverse":
+        return lambda u: torch.func.jacrev(f_flat)(u)
+    if mode == "finite":
+        return lambda u: _finite_diff_jacobian(f_flat, u, policy.fd_rel_step)
+    raise ValueError(f"unknown jacobian mode {mode!r}")

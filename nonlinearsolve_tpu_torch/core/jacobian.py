@@ -1,5 +1,6 @@
-"""Jacobian construction (the port of ``core/jacobian.py``): the operator
-route and the colored sparse-AD route.  The dense route is ROADMAP A.32."""
+"""Jacobian construction (the port of ``core/jacobian.py``): the policy
+router between the matrix-free operator, the colored sparse-AD Jacobian and
+a dense Jacobian (the problem's analytic ``jac``, or dense AD)."""
 
 from __future__ import annotations
 
@@ -7,14 +8,16 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from ..ops.operators import JacobianOperator
-from .autodiff import JacobianPolicy
+from .autodiff import JacobianPolicy, construct_dense_jacobian_fn
 
 
 @dataclasses.dataclass(frozen=True)
 class JacobianSpec:
     """Problem-level derivative info (from NonlinearFunction)."""
 
+    analytic: Optional[Callable] = None       # u -> (n_out, n_in) dense
     analytic_jvp: Optional[Callable] = None   # (v, u) -> J@v
+    analytic_vjp: Optional[Callable] = None   # (v, u) -> Jᵀ@v
     sparsity: Any = None                      # CSR pattern / COO / mask
     colorvec: Any = None
     sparse_plan: Any = None                   # host-built ColoredJacobian
@@ -34,13 +37,15 @@ def wants_sparse(alg, spec: JacobianSpec) -> bool:
 def construct_jacobian(policy: JacobianPolicy, linsolve, ctx,
                        spec: Optional[JacobianSpec],
                        concrete_jac: Optional[bool] = None):
-    """Returns ``(jac_fn, kind)`` with kind 'operator' or 'sparse';
-    ``jac_fn(u)`` produces the J handed to the descent."""
+    """Returns ``(jac_fn, kind)`` with kind 'operator', 'sparse' or
+    'dense'; ``jac_fn(u)`` produces the J handed to the descent (a dense
+    J is ``(n_out, n_in)``, whatever the state's shape)."""
     spec = spec or JacobianSpec()
     is_krylov = linsolve is not None and getattr(linsolve, "is_krylov", False)
     if policy.mode == "operator" or (
             is_krylov and policy.mode == "auto" and concrete_jac is not True):
-        op = JacobianOperator(ctx.f_flat, spec.analytic_jvp)
+        op = JacobianOperator(ctx.f_flat, spec.analytic_jvp,
+                              spec.analytic_vjp)
         return (lambda u: op.at(u)), "operator"
     if policy.mode == "sparse" or (
             policy.mode == "auto" and spec.sparsity is not None):
@@ -54,8 +59,16 @@ def construct_jacobian(policy: JacobianPolicy, linsolve, ctx,
                 and plan.dia_plan is not None):
             return (lambda u: plan.dia(ctx.f_flat, u)), "sparse"
         return (lambda u: plan(ctx.f_flat, u)), "sparse"
-    raise NotImplementedError(
-        f"a concrete dense Jacobian (policy mode {policy.mode!r} with linear "
-        f"solver {getattr(linsolve, 'method', None)!r}) is ROADMAP A.32; use "
-        f"LinearSolver(method='gmres'), or mode='sparse' with a sparsity "
-        f"pattern")
+
+    jac_fn = construct_dense_jacobian_fn(ctx.f_flat, policy, ctx.n_in,
+                                         ctx.n_out, spec.analytic)
+
+    # the Jacobian of a shaped residual is out_shape + in_shape: the linear
+    # algebra wants it 2-D, in C order
+    def jac_2d(u):
+        J = jac_fn(u)
+        if J.dim() != 2:
+            return J.reshape(ctx.n_out, ctx.n_in)
+        return J
+
+    return jac_2d, "dense"

@@ -1,5 +1,5 @@
-"""Problem types (the port of ``core/problems.py``): ``NonlinearFunction``
-and ``NonlinearProblem``.
+"""Problem types (the port of ``core/problems.py``): ``NonlinearFunction``,
+``NonlinearProblem`` and ``NonlinearLeastSquaresProblem``.
 
 Functions are out-of-place: ``f(u, p) -> resid`` on tensors.  ``u`` is one
 tensor of any shape (≥ 1-d); pytrees of tensors are not ported.
@@ -80,3 +80,11 @@ class NonlinearProblem:
             p if p is not None else self.p,
             lb=self.lb, ub=self.ub, **new_kwargs,
         )
+
+
+class NonlinearLeastSquaresProblem(NonlinearProblem):
+    """Minimize ``‖f(u, p)‖₂``; the residual may be non-square (m ≠ n)."""
+
+    @property
+    def is_least_squares(self) -> bool:
+        return True

@@ -1,7 +1,8 @@
 """Top-level ``solve`` (the port of ``core/solve.py``).
 
 ``solve`` checks the keyword arguments, merges call-site over problem
-kwargs and runs ``solve_nonlinear``.  The port runs the shaped path only:
+kwargs and runs ``solve_nonlinear`` on a ``NonlinearProblem`` or a
+``NonlinearLeastSquaresProblem``.  The port runs the shaped path only:
 the iterate is ``u0`` itself, one tensor of any shape (≥ 1-d), never
 flattened; an empty ``u0`` returns ``Success`` at once, as in the JAX
 package.  The engine runs under ``torch.no_grad()`` on the device that
@@ -27,7 +28,7 @@ from ..utils.norms import get_tolerance
 from .descent import DescentCtx
 from ..ops.sparse_jac import plan_sparse_jacobian
 from .jacobian import JacobianSpec, wants_sparse
-from .problems import NonlinearProblem
+from .problems import NonlinearLeastSquaresProblem, NonlinearProblem
 from .returncode import ReturnCode
 from .solution import NLStats, NonlinearSolution
 from .termination import default_termination_mode
@@ -61,10 +62,11 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
 
     kwargs: abstol, reltol, maxiters, termination_condition — merged over
     problem-level kwargs (call-site kwargs win)."""
-    if type(prob) is not NonlinearProblem:
+    if type(prob) not in (NonlinearProblem, NonlinearLeastSquaresProblem):
         raise NotImplementedError(
             f"{type(prob).__name__} is not ported: the port solves "
-            f"NonlinearProblem (the other problem types are ROADMAP A.30)")
+            f"NonlinearProblem and NonlinearLeastSquaresProblem (the other "
+            f"problem types are ROADMAP A.30)")
     merged = {**prob.kwargs, **kwargs}
     check_kwargs(merged)
     ens_only = sorted(k for k in ("trajectories", "mesh", "batch_axis")
@@ -76,7 +78,7 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
     if alg is None:
         raise NotImplementedError(
             "the default polyalgorithm is ROADMAP A.15; pass an "
-            "algorithm, e.g. NewtonRaphson(linsolve=LinearSolver('gmres'))")
+            "algorithm, e.g. NewtonRaphson() or TrustRegion()")
     if merged.pop("maxtime", None) is not None:
         raise NotImplementedError("maxtime is ROADMAP A.18")
     return solve_nonlinear(prob, alg, **merged)
@@ -109,6 +111,29 @@ def _maybe_sparse_plan(f, alg, spec, ctx, u0):
     return plans[key]
 
 
+def _null_solution(prob, abstol) -> NonlinearSolution:
+    """The empty-state solution (the JAX package's _build_null_solution),
+    returned before a sparse plan is built: rootfinding succeeds at once;
+    least squares evaluates the residual at the empty point and succeeds
+    when it is empty or ‖resid‖ < abstol (1e-6 by default)."""
+    u0 = prob.u0
+    retcode = ReturnCode.Success
+    resid = u0
+    syncs = 0
+    if prob.is_least_squares:
+        with torch.no_grad():
+            resid = prob.f.f(u0, prob.p)
+        tol = 1e-6 if abstol is None else float(abstol)
+        if resid.numel():
+            syncs = 1
+            if not bool(_backend.fetch(
+                    torch.linalg.vector_norm(resid) < tol)[0]):
+                retcode = ReturnCode.Failure
+    return NonlinearSolution(
+        u=u0, resid=resid, retcode=retcode, stats=NLStats(),
+        counters={"jvp": 0, "krylov_iters": 0, "host_syncs": syncs})
+
+
 def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
                     termination_condition=None, precondition=None,
                     postcondition=None, show_trace=False, store_trace=False,
@@ -136,19 +161,15 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
                 f"{name} requires grad: differentiating through the solve "
                 f"(the implicit-function rule) is ROADMAP A.28")
     if u0.numel() == 0:
-        # The null-u0 fast path (the JAX package's _build_null_solution for
-        # NonlinearProblem): an empty state solves trivially, before f is
-        # evaluated or a sparse plan is built.
-        return NonlinearSolution(
-            u=u0, resid=u0, retcode=ReturnCode.Success, stats=NLStats(),
-            counters={"jvp": 0, "krylov_iters": 0, "host_syncs": 0})
+        return _null_solution(prob, abstol)
     # alias_u0 has no effect: the engine never writes into u0.
 
     npdt = _backend.np_dtype(u0.dtype)
     abstol_v = npdt(get_tolerance(abstol, npdt))
     reltol_v = npdt(get_tolerance(reltol, npdt))
+    is_lsq = prob.is_least_squares
     if termination_condition is None:
-        termination_condition = default_termination_mode(False)
+        termination_condition = default_termination_mode(is_lsq)
 
     f = prob.f
 
@@ -161,12 +182,17 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
             raise NotImplementedError(
                 "the residual must return one tensor; pytree residuals are "
                 "ROADMAP A.33")
-        ctx = DescentCtx(f_flat=f_flat, n_in=u0.numel(), n_out=fu0.numel())
+        ctx = DescentCtx(f_flat=f_flat, n_in=u0.numel(), n_out=fu0.numel(),
+                         is_least_squares=is_lsq)
         sparsity = (f.sparsity if f.sparsity is not None
                     else f.jac_prototype)
         spec = JacobianSpec(
+            analytic=(None if f.jac is None else (
+                lambda u: f.jac(u, p).reshape(ctx.n_out, ctx.n_in))),
             analytic_jvp=(None if f.jvp is None
                           else (lambda v, u: f.jvp(v, u, p))),
+            analytic_vjp=(None if f.vjp is None
+                          else (lambda v, u: f.vjp(v, u, p))),
             sparsity=sparsity, colorvec=f.colorvec)
         spec = dataclasses.replace(
             spec, sparse_plan=_maybe_sparse_plan(f, alg, spec, ctx, u0))

@@ -1,13 +1,15 @@
-"""Termination conditions (the port of ``core/termination.py``): the
-absolute-norm family — ``abs_norm``, ``abs_norm_safe`` and
-``abs_norm_safe_best`` (the default, with ``max_stalled_steps=32``).  The
-relative and element-wise modes are ROADMAP A.33.
+"""Termination conditions (the port of ``core/termination.py``): the nine
+modes — ``rel``, ``abs``, ``norm``, ``rel_norm``, ``abs_norm`` and the
+``safe`` / ``safe_best`` variants of the last two — with their
+constructors, the safe modes' stall and divergence protection and the
+best-iterate retention.
 
-A check needs two norms of device tensors — the objective ‖fu‖ and, for
-the stall test, ‖u - u_prev‖.  ``termination_norms`` gives them as 0-d
-device tensors so the engine can read them in the same host sync as its
-own scalars; the rest of the logic runs on the host in the working dtype.
-The retained best iterate is a reference to a device tensor, never a copy.
+A check needs a few scalars of device tensors: the norms of ``fu`` and of
+``fu + u``, ‖u - u_prev‖ for the stall test, or (``rel``, ``abs``) the
+element-wise verdict.  ``termination_norms`` gives them as 0-d device
+tensors, so the engine reads them in the same host sync as its own
+scalars; the rest of the logic runs on the host in the working dtype.  The
+retained best iterate is a reference to a device tensor, never a copy.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ ALL_MODES = ("rel", "abs", "norm") + REL_NORM_MODES + ABS_NORM_MODES
 
 @dataclasses.dataclass(frozen=True)
 class TerminationCondition:
-    """Static termination config (defaults as the JAX package's)."""
+    """Static termination config (defaults as the JAX package's).  ``norm``
+    is 'linf' or 'l2'."""
 
     mode: str = "abs_norm_safe_best"
     norm: str = "linf"
@@ -44,10 +47,6 @@ class TerminationCondition:
     def __post_init__(self):
         if self.mode not in ALL_MODES:
             raise ValueError(f"unknown termination mode {self.mode!r}")
-        if self.mode not in ABS_NORM_MODES:
-            raise NotImplementedError(
-                f"termination mode {self.mode!r} is ROADMAP A.33; "
-                f"the port has {ABS_NORM_MODES}")
 
     @property
     def is_safe(self) -> bool:
@@ -57,9 +56,46 @@ class TerminationCondition:
     def keeps_best(self) -> bool:
         return self.mode in BEST_MODES
 
+    @property
+    def is_relative(self) -> bool:
+        return self.mode in REL_NORM_MODES
+
+    @property
+    def checks_stall(self) -> bool:
+        return self.is_safe and self.max_stalled_steps is not None
+
+
+# Constructors named after the reference's public mode types.
+def RelTerminationMode(**kw):
+    return TerminationCondition(mode="rel", **kw)
+
+
+def AbsTerminationMode(**kw):
+    return TerminationCondition(mode="abs", **kw)
+
+
+def NormTerminationMode(norm="l2", **kw):
+    return TerminationCondition(mode="norm", norm=norm, **kw)
+
+
+def RelNormTerminationMode(norm="l2", **kw):
+    return TerminationCondition(mode="rel_norm", norm=norm, **kw)
+
 
 def AbsNormTerminationMode(norm="l2", **kw):
     return TerminationCondition(mode="abs_norm", norm=norm, **kw)
+
+
+def RelNormSafeTerminationMode(norm="l2", **kw):
+    return TerminationCondition(mode="rel_norm_safe", norm=norm, **kw)
+
+
+def AbsNormSafeTerminationMode(norm="l2", **kw):
+    return TerminationCondition(mode="abs_norm_safe", norm=norm, **kw)
+
+
+def RelNormSafeBestTerminationMode(norm="l2", **kw):
+    return TerminationCondition(mode="rel_norm_safe_best", norm=norm, **kw)
 
 
 def AbsNormSafeBestTerminationMode(norm="l2", **kw):
@@ -85,62 +121,112 @@ class TermState:
     initial_objective: Any
     best_u: Any
     objectives_trace: Any
+    u0_norm: Any
     step_norm_trace: Any
 
     def replace(self, **kw) -> "TermState":
         return dataclasses.replace(self, **kw)
 
 
-def termination_norms(cfg: TerminationCondition, fu, u=None, uprev=None):
-    """The device scalars a check reads: [objective] plus ‖u - uprev‖ when
-    the stall test is on and ``uprev`` is given."""
+def termination_norms(cfg: TerminationCondition, fu, u, uprev=None, *,
+                      abstol=None, reltol=None) -> list:
+    """The device scalars one check reads, in order: the element-wise
+    verdict ('rel', 'abs'; the tolerances are needed for it), or ‖fu‖ and,
+    for the relative modes and 'norm', ‖fu + u‖; then ‖u - uprev‖ when the
+    stall test is on and ``uprev`` is given."""
+    if cfg.mode == "rel":
+        return [(fu.abs() <= float(reltol) * (u + fu).abs()).all()]
+    if cfg.mode == "abs":
+        return [(fu.abs() <= float(abstol)).all()]
     out = [apply_norm(cfg.norm, fu)]
-    if uprev is not None and cfg.is_safe and cfg.max_stalled_steps is not None:
+    if cfg.mode == "norm" or cfg.is_relative:
+        out.append(apply_norm(cfg.norm, fu, u))
+    if uprev is not None and cfg.checks_stall:
         out.append(l2_norm(u - uprev))
     return out
 
 
+def init_norms(cfg: TerminationCondition, fu, u) -> list:
+    """The device scalars ``init_termination`` reads: the objective's
+    norms (safe modes) and ‖u0‖ (relative safe modes with the stall
+    test)."""
+    if not cfg.is_safe:
+        return []
+    out = termination_norms(cfg, fu, u)
+    if cfg.is_relative and cfg.max_stalled_steps is not None:
+        out.append(l2_norm(u))
+    return out
+
+
+def _objective(cfg: TerminationCondition, norms, reltol):
+    """‖fu‖, or for the relative modes ‖fu‖ / (‖fu + u‖ + eps(reltol)) —
+    the guard is the ulp at reltol, eps(T)·reltol."""
+    if cfg.is_relative:
+        npdt = type(norms[0])
+        return norms[0] / (norms[1] + npdt(np.finfo(npdt).eps) * reltol)
+    return norms[0]
+
+
 def init_termination(cfg: TerminationCondition, fu, u, reltol, *,
                      norms=None) -> TermState:
-    """``norms``: host values of ``termination_norms(cfg, fu)`` when the
-    caller has already read them; otherwise they are read here."""
+    """``norms``: host values of ``init_norms(cfg, fu, u)`` when the caller
+    has already read them; otherwise they are read here."""
     npdt = np_dtype(u.dtype)
+    reltol = npdt(reltol)
+    u0_norm = objectives_trace = step_norm_trace = initial = None
     if cfg.is_safe:
-        objective = (norms if norms is not None
-                     else fetch(*termination_norms(cfg, fu)))[0]
-        initial, best = objective, objective
+        if norms is None:
+            norms = fetch(*init_norms(cfg, fu, u))
+        initial = _objective(cfg, norms, reltol)
+        best = initial
         objectives_trace = np.zeros(cfg.patience_steps, npdt)
-        step_norm_trace = (np.zeros(cfg.max_stalled_steps, npdt)
-                           if cfg.max_stalled_steps is not None else None)
+        if cfg.max_stalled_steps is not None:
+            step_norm_trace = np.zeros(cfg.max_stalled_steps, npdt)
+            if cfg.is_relative:
+                u0_norm = norms[-1]
     else:
-        initial = objectives_trace = step_norm_trace = None
         best = npdt(np.inf)
     return TermState(retcode=int(ReturnCode.Default), nsteps=0,
                      best_objective=best, initial_objective=initial,
                      best_u=u if cfg.keeps_best else None,
-                     objectives_trace=objectives_trace,
+                     objectives_trace=objectives_trace, u0_norm=u0_norm,
                      step_norm_trace=step_norm_trace)
 
 
+def _plain_converged(cfg: TerminationCondition, norms, abstol,
+                     reltol) -> bool:
+    if cfg.mode in ("rel", "abs"):
+        return bool(norms[0])
+    if cfg.mode == "norm":
+        return bool(norms[0] <= abstol or norms[0] <= reltol * norms[1])
+    if cfg.mode == "rel_norm":
+        return bool(norms[0] <= reltol * norms[1])
+    return bool(norms[0] <= abstol)
+
+
 def check_termination(cfg: TerminationCondition, state: TermState, fu, u,
-                      uprev, abstol, reltol, *, norms=None):
+                      uprev, abstol, reltol, *, norms=None,
+                      is_least_squares: bool = False):
     """One termination check; returns ``(stop, new_state)``.
 
     Safe-mode logic in the reference's order: non-finite → Unstable;
     protective threshold → Unstable; best retention; main criterion →
-    Success; patience → Stalled; step-norm stall → Stalled.  ``abstol`` is a
-    host scalar of the working dtype; ``norms`` as for ``init_termination``
-    (with the step norm)."""
+    Success; patience → Stalled; step-norm stall → Stalled (StalledSuccess
+    for least squares).  ``abstol`` and ``reltol`` are host scalars of the
+    working dtype; ``norms`` the host values of ``termination_norms(cfg,
+    fu, u, uprev, ...)``, read here when not given."""
     if norms is None:
-        norms = fetch(*termination_norms(cfg, fu, u, uprev))
-    objective = norms[0]
+        norms = fetch(*termination_norms(cfg, fu, u, uprev, abstol=abstol,
+                                         reltol=reltol))
     if not cfg.is_safe:
-        converged = bool(objective <= abstol)
+        converged = _plain_converged(cfg, norms, abstol, reltol)
         retcode = int(ReturnCode.Success) if converged else state.retcode
         return converged, state.replace(retcode=retcode)
 
     npdt = type(state.best_objective)
-    criteria = npdt(abstol)
+    abstol, reltol = npdt(abstol), npdt(reltol)
+    objective = _objective(cfg, norms, reltol)
+    criteria = reltol if cfg.is_relative else abstol
     stop = False
     retcode = int(ReturnCode.Failure)
 
@@ -149,7 +235,7 @@ def check_termination(cfg: TerminationCondition, state: TermState, fu, u,
 
     if cfg.protective_threshold is not None and not stop:
         if objective > (state.initial_objective
-                        * npdt(cfg.protective_threshold) * fu.numel()):
+                        * npdt(cfg.protective_threshold) * npdt(fu.numel())):
             stop, retcode = True, int(ReturnCode.Unstable)
 
     best_objective, best_u = state.best_objective, state.best_u
@@ -159,7 +245,7 @@ def check_termination(cfg: TerminationCondition, state: TermState, fu, u,
     if objective <= criteria and not stop:
         stop, retcode = True, int(ReturnCode.Success)
 
-    # patience: objectives ring, counted on non-stopping checks only
+    # patience: the objectives ring, counted on non-stopping checks only
     live = not stop
     nsteps = state.nsteps + (1 if live else 0)
     initial = (objective if live and nsteps == 1
@@ -168,7 +254,8 @@ def check_termination(cfg: TerminationCondition, state: TermState, fu, u,
     if live:
         objectives_trace = objectives_trace.copy()
         objectives_trace[(nsteps - 1) % cfg.patience_steps] = objective
-    stalled_code = int(ReturnCode.Stalled)  # StalledSuccess: least squares
+    stalled_code = int(ReturnCode.StalledSuccess if is_least_squares
+                       else ReturnCode.Stalled)
     patience_hit = False
     if (live and objective <= npdt(cfg.patience_objective_multiplier)
             * criteria and nsteps > cfg.patience_steps):
@@ -182,15 +269,21 @@ def check_termination(cfg: TerminationCondition, state: TermState, fu, u,
     if step_norm_trace is not None:
         if live:
             step_norm_trace = step_norm_trace.copy()
-            step_norm_trace[(nsteps - 1) % cfg.max_stalled_steps] = norms[1]
+            step_norm_trace[(nsteps - 1) % cfg.max_stalled_steps] = norms[-1]
+        max_step = step_norm_trace.max()
+        if cfg.is_relative:
+            stalled_step = max_step <= reltol * (max_step + state.u0_norm)
+        else:
+            stalled_step = max_step <= abstol
         if (live and not patience_hit and nsteps > cfg.max_stalled_steps
-                and step_norm_trace.max() <= abstol):
+                and stalled_step):
             stop, retcode = True, stalled_code
 
     return stop, TermState(
         retcode=retcode, nsteps=nsteps, best_objective=best_objective,
         initial_objective=initial, best_u=best_u,
-        objectives_trace=objectives_trace, step_norm_trace=step_norm_trace)
+        objectives_trace=objectives_trace, u0_norm=state.u0_norm,
+        step_norm_trace=step_norm_trace)
 
 
 def termination_result(cfg: TerminationCondition, state: TermState,

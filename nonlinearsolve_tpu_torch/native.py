@@ -1,5 +1,7 @@
 """Loader for the repo's native sparse toolkit, ``csrc/sparsetools.cpp``
-(the port's own copy of ``native.py``'s loader).
+(the port's own copy of ``native.py``'s loader), and for the port's dense
+host helper, ``nonlinearsolve_tpu_torch/csrc/densetools.cpp`` (Gauss–Jordan
+for small systems in CPU tensors, ``gauss_jordan``).
 
 The source is compiled as it is, with ``g++``, at first use into
 ``nonlinearsolve_tpu_torch/csrc/build/`` (through
@@ -124,3 +126,42 @@ def ell_plan(indptr, indices, n_rows):
     if rc < 0:
         raise ValueError(f"ell_plan refused the pattern (rc {rc})")
     return width, cols, perm, valid.astype(bool)
+
+
+DENSE_SOURCE = Path(__file__).resolve().parent / "csrc" / "densetools.cpp"
+DENSE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+_dense_lib = None
+
+
+def get_dense_lib() -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/densetools.cpp``."""
+    global _dense_lib
+    with _lock:
+        if _dense_lib is None:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found on PATH: "
+                                   "csrc/densetools.cpp cannot be built")
+            lib = ctypes.CDLL(str(_backend.compile_shared(
+                DENSE_SOURCE, "densetools", "g++", gxx, DENSE_FLAGS)))
+            for fn in (lib.gauss_jordan_f64, lib.gauss_jordan_f32):
+                fn.restype = None
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_void_p]
+            _dense_lib = lib
+    return _dense_lib
+
+
+def gauss_jordan(M):
+    """Gauss–Jordan on the augmented matrix ``M = [A | B]`` (a contiguous
+    f32 or f64 CPU tensor of n rows), in place: its last columns become
+    ``X``."""
+    import torch
+    n, w = M.shape
+    lib = get_dense_lib()
+    fn = (lib.gauss_jordan_f64 if M.dtype == torch.float64
+          else lib.gauss_jordan_f32)
+    scratch = torch.empty(3 * w, dtype=M.dtype)
+    fn(ctypes.c_void_p(M.data_ptr()), n, w,
+       ctypes.c_void_p(scratch.data_ptr()))
+    return M

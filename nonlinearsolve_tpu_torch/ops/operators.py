@@ -1,11 +1,11 @@
 """Matrix-free Jacobian operators (the port of ``ops/operators.py``).
 
-``JacobianOperator`` gives J·v of ``f_flat`` without forming J: the
-analytic ``jvp`` of the problem when it has one (on the main path, kernel
-K1), else ``torch.func.jvp`` of the residual.  The transposed products
-(VJP) come with the solvers that need them (ROADMAP A.13).  A
-``StatefulJacobianOperator`` is one bound at a linearisation point.
-``as_matvec`` also takes the sparse containers of ``ops/sparse.py``.
+``JacobianOperator`` gives J·v and Jᵀ·v of ``f_flat`` without forming J:
+the problem's analytic ``jvp`` / ``vjp`` when it has them (on the main
+path, kernel K1 for J·v), else ``torch.func.jvp`` / ``torch.func.vjp`` of
+the residual.  A ``StatefulJacobianOperator`` is one bound at a
+linearisation point.  ``mv`` / ``rmv`` apply J / Jᵀ whatever J is: a dense
+matrix (with a shaped vector), a sparse container or an operator.
 """
 
 from __future__ import annotations
@@ -16,17 +16,24 @@ import torch
 
 
 class JacobianOperator:
-    """Lazy Jacobian of ``f_flat`` providing the JVP."""
+    """Lazy Jacobian of ``f_flat`` providing the JVP and the VJP."""
 
     def __init__(self, f_flat: Callable,
-                 analytic_jvp: Optional[Callable] = None):
+                 analytic_jvp: Optional[Callable] = None,
+                 analytic_vjp: Optional[Callable] = None):
         self.f_flat = f_flat
         self.analytic_jvp = analytic_jvp
+        self.analytic_vjp = analytic_vjp
 
     def jvp(self, u, v):
         if self.analytic_jvp is not None:
             return self.analytic_jvp(v, u)
         return torch.func.jvp(self.f_flat, (u,), (v,))[1]
+
+    def vjp(self, u, v):
+        if self.analytic_vjp is not None:
+            return self.analytic_vjp(v, u)
+        return torch.func.vjp(self.f_flat, u)[1](v)[0]
 
     def at(self, u) -> "StatefulJacobianOperator":
         return StatefulJacobianOperator(self, u)
@@ -41,6 +48,9 @@ class StatefulJacobianOperator:
 
     def __call__(self, v):
         return self.op.jvp(self.u, v)
+
+    def rmatvec(self, v):
+        return self.op.vjp(self.u, v)
 
 
 def JacVecOperator(f_flat: Callable, u=None, *, analytic_jvp=None):
@@ -68,3 +78,17 @@ def mv(A, v):
     if v.dim() != 1:
         return (A @ v.reshape(-1)).reshape(v.shape)
     return A @ v
+
+
+def rmv(A, v):
+    """``Aᵀ @ v`` for a dense matrix (with a shaped ``v``; the result has
+    ``v``'s shape, as the JAX package's), a sparse container (flat ``v``)
+    or an operator."""
+    from .sparse import CSR, DIA, ELL
+    if isinstance(A, StatefulJacobianOperator):
+        return A.rmatvec(v)
+    if isinstance(A, (CSR, DIA, ELL)):
+        return A.rmatvec(v)
+    if v.dim() != 1:
+        return (A.T @ v.reshape(-1)).reshape(v.shape)
+    return A.T @ v

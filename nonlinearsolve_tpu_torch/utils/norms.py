@@ -15,6 +15,11 @@ def tree_size(x: torch.Tensor) -> int:
     return int(x.numel())
 
 
+def tree_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ aᵢbᵢ over every element (real inner product), a 0-d tensor."""
+    return torch.sum(a * b)
+
+
 def l2_norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x)
 

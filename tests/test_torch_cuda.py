@@ -1203,3 +1203,171 @@ def test_bsr_matvec_launches_gather_spmv_on_card(cuda):
            "float64")
     cpu = A.with_data(A.data.cpu())
     _close(y, cpu.matvec(x.cpu()), "float64")
+
+
+# ---------------------------------------------------------------------------
+# the dense solver surface on the card (no kernel of its own: cuSOLVER,
+# cuBLAS and tensor operations)
+# ---------------------------------------------------------------------------
+
+def _singular(n, device):
+    gen = torch.Generator().manual_seed(n)
+    A = torch.randn(n, n, generator=gen, dtype=torch.float64)
+    A[:, 1] = 0.0
+    return A.to(device), torch.ones(n, dtype=torch.float64, device=device)
+
+
+def _non_spd(n, device):
+    gen = torch.Generator().manual_seed(n + 1)
+    A = torch.randn(n, n, generator=gen, dtype=torch.float64)
+    A = A + A.T
+    A[0, 0] = -abs(float(A[0, 0])) - n
+    return A.to(device), torch.ones(n, dtype=torch.float64, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 64])
+@pytest.mark.parametrize("method", ["lu", "cholesky", "qr"])
+def test_solve_dense_singular_neither_raises_nor_syncs_on_card(cuda, n,
+                                                               method):
+    """Inside ``deferred_fallbacks()`` (the engine's way) a singular (and,
+    for Cholesky, a non-SPD) system gives non-finite values, ok = False and
+    a set flag — with no host sync (torch's sync debug mode raises on one)
+    and no exception."""
+    from nonlinearsolve_tpu_torch.ops import linear_solve as tls
+    cfg = tls.LinearSolver(method=method)
+    cases = [_singular(n, cuda)] + ([_non_spd(n, cuda)]
+                                    if method == "cholesky" else [])
+    for A, b in cases:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with tls.deferred_fallbacks() as flags:
+                x, ok = tls.solve_dense(A, b, cfg)
+                if method == "cholesky":
+                    z, okz = tls.solve_spd(A, b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert not bool(ok) and not bool(torch.isfinite(x).all())
+        assert all(bool(f) for f in flags)
+        if method == "cholesky":
+            assert not bool(okz) and not bool(torch.isfinite(z).all())
+        # the fallback, decided with its read, repairs it as on the CPU
+        w, okw = tls.solve_dense(A, b, cfg)
+        wc, okc = tls.solve_dense(A.cpu(), b.cpu(), cfg)
+        assert bool(okw) and bool(okc)
+        scale = max(float(wc.abs().max()), 1.0)
+        assert float((w.cpu() - wc).abs().max()) <= 1e-10 * scale
+
+
+@pytest.mark.cuda
+def test_lstsq_rank_deficient_matches_cpu_on_card(cuda):
+    from nonlinearsolve_tpu_torch.ops import linear_solve as tls
+    A = torch.tensor([[1.0, 2.0], [2.0, 4.0], [3.0, 6.0]],
+                     dtype=torch.float64)
+    b = torch.tensor([1.0, 0.0, 2.0], dtype=torch.float64)
+    want, _ = tls._lstsq(A, b)
+    got, _ = tls._lstsq(A.to(cuda), b.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-12 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_gauss_jordan_card_route_matches_host_on_card(cuda):
+    """The tensor-operation route on the card (a CUDA graph a shape)
+    against the host helper on the CPU, rel-inf 1e-12: the same
+    operations, but whether the card's ``addcmul`` fuses its multiply-add
+    as the host's does is the kernel's own choice, so they may differ by
+    ulps.  A second call replays the same graph on new data."""
+    from nonlinearsolve_tpu_torch.ops import linear_solve as tls
+    gen = torch.Generator().manual_seed(4)
+    for n in (1, 4, 10, 32):
+        for _ in range(2):
+            A = torch.randn(n, n, generator=gen, dtype=torch.float64)
+            b = torch.randn(n, 3, generator=gen, dtype=torch.float64)
+            want = tls.gauss_jordan_solve(A, b)
+            got = tls.gauss_jordan_solve(A.to(cuda), b.to(cuda)).cpu()
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= 1e-12, (n, err)
+
+
+# the slice's other rows of tests/test_23_problems.py CASES
+OTHER_23_ROWS = {
+    "TrustRegion-Fan": ({"radius_update_scheme": "fan"}, {11, 21}),
+    "TrustRegion-NLsolve": ({"radius_update_scheme": "nlsolve"}, {21}),
+    "TrustRegion-Bastin": ({"radius_update_scheme": "bastin"}, {21}),
+    "TrustRegion-Hei": ({"radius_update_scheme": "hei"}, {21}),
+    "TrustRegion-Yuan": ({"radius_update_scheme": "yuan"}, {8, 11, 21}),
+    "LevenbergMarquardt-Geodesic01": ({"alpha_geodesic": 0.1}, {11, 21}),
+    "LevenbergMarquardt-Cholesky": ({"linsolve": "cholesky"}, {11, 21}),
+    "PseudoTransient": ({"alpha_initial": 10.0}, {1, 8, 11}),
+    "NewtonRaphson-BackTracking": ({"linesearch": "backtracking"}, {21}),
+    # chip_smoke.py phase 19 runs NewtonRaphson on the other 22 problems
+    "NewtonRaphson-1": ({"only": 1}, {1}),
+}
+
+
+def _other_row_alg(row, kw):
+    import nonlinearsolve_tpu_torch as nls
+    if row.startswith("TrustRegion"):
+        return nls.TrustRegion(**kw)
+    if row.startswith("LevenbergMarquardt"):
+        if kw.get("linsolve") == "cholesky":
+            return nls.LevenbergMarquardt(
+                linsolve=nls.LinearSolver(method="cholesky"))
+        return nls.LevenbergMarquardt(**kw)
+    if row == "PseudoTransient":
+        return nls.PseudoTransient(**kw)
+    if row == "NewtonRaphson-1":
+        return nls.NewtonRaphson()
+    return nls.NewtonRaphson(linesearch=nls.BackTracking())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", list(OTHER_23_ROWS))
+def test_23_problem_rows_on_card(cuda, row):
+    """The slice's CASES rows that chip_smoke.py phase 19 does not run
+    (and NewtonRaphson's problem 1, which it leaves here): the port's
+    broken set on the card equals the literal set of
+    tests/test_23_problems.py (f64, maxiters 10000, ‖f(u*)‖∞ ≤ 1e-4)."""
+    import nonlinearsolve_tpu_torch as nls
+    from nonlinearsolve_tpu_torch.models.problems23 import PROBLEMS_23
+    kw, expected = OTHER_23_ROWS[row]
+    broken = set()
+    for tp in PROBLEMS_23:
+        if tp.index != kw.get("only", tp.index):
+            continue
+        sol = nls.solve(nls.NonlinearProblem(
+            tp.f, torch.tensor(tp.start, dtype=torch.float64, device=cuda)),
+            _other_row_alg(row, kw), maxiters=10000)
+        if not float(tp.f(sol.u).abs().max()) <= 1e-4:
+            broken.add(tp.index)
+    assert broken == expected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name", [
+    ("linesearch", n) for n in (
+        "BackTracking", "LiFukushimaLineSearch",
+        "RobustNonMonotoneLineSearch", "StaticLineSearch", "StrongWolfe",
+        "HagerZhang", "MoreThuente")] + [
+    ("trustregion", m) for m in (
+        "simple", "nlsolve", "nocedalwright", "hei", "yuan", "fan",
+        "bastin")])
+def test_each_globalization_solves_on_card(cuda, kind, name):
+    """NewtonRaphson with each line search, TrustRegion with each radius
+    scheme, and GaussNewton / PseudoTransient solve the quickstart
+    problem u² = 2 on the card to abstol 1e-10 (the CPU's results are in
+    tests/test_torch_globalization.py)."""
+    import nonlinearsolve_tpu_torch as nls
+    alg = (nls.TrustRegion(radius_update_scheme=name)
+           if kind == "trustregion"
+           else nls.NewtonRaphson(linesearch=getattr(nls, name)()))
+    prob = nls.NonlinearProblem(
+        lambda u, p: u * u - p,
+        torch.tensor([1.0, 1.0], dtype=torch.float64, device=cuda), 2.0)
+    for a in (alg, nls.GaussNewton(),
+              nls.PseudoTransient(alpha_initial=10.0)):
+        sol = nls.solve(prob, a, abstol=1e-10)
+        assert sol.retcode == nls.ReturnCode.Success
+        assert float((sol.u - 2.0 ** 0.5).abs().max()) <= 1e-10

@@ -127,12 +127,13 @@ def test_unported_routes_raise():
     bounded = tnls.NonlinearProblem(prob.f, prob.u0, prob.p, lb=-1.0, ub=1.0)
     with pytest.raises(NotImplementedError, match="bounds"):
         tnls.solve(bounded, _alg())
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="unknown linesearch"):
         tnls.solve(prob, tnls.NewtonRaphson(
             linsolve=tnls.LinearSolver(method="gmres"),
             linesearch=object()))
-    with pytest.raises(NotImplementedError, match="A.32"):
-        tnls.solve(prob, tnls.NewtonRaphson())      # dense LU route
+    with pytest.raises(NotImplementedError, match="A.33"):
+        tnls.solve(prob, tnls.NewtonRaphson(        # the other Krylov
+            linsolve=tnls.LinearSolver(method="bicgstab")))
     with pytest.raises(NotImplementedError, match="A.15"):
         tnls.solve(prob)                            # default polyalgorithm
     shaped_sparse = tbru.make_problem(8, device="cpu", with_sparsity=True)
@@ -144,7 +145,8 @@ def test_unported_routes_raise():
         tnls.solve(shaped_sparse, tnls.NewtonRaphson(
             autodiff=tnls.JacobianPolicy(mode="sparse")))
     with pytest.raises(NotImplementedError, match="A.33"):
-        tnls.TerminationCondition(mode="rel_norm_safe_best")
+        tnls.solve(tnls.NonlinearProblem(lambda u, p: u - 1.0,
+                                         torch.tensor(0.5)), _alg())
     grad_u0 = prob.u0.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="A.28"):
         tnls.solve(prob.remake(u0=grad_u0), _alg())
