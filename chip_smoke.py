@@ -184,7 +184,27 @@ check raises, so the script exits non-zero.
    GaussNewton, LevenbergMarquardt and TrustRegion on the 8 NLLS problems,
    each sum of squares held as tests/test_nlls_problems.py holds it
    (except that file's BROKEN pairs, which are reported);
-20. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+20. the quasi-Newton, spectral and polyalgorithm engines (counters at 0
+   just before each run, read just after): (a) the quickstart,
+   ``solve(prob)`` with no algorithm on u² − p, u0 = [1, 1], p = 2, f64:
+   Success, the root √2 within 1e-8; (b) the default polyalgorithm on the
+   dense Brusselator, ``make_problem(32)``, f64, 2048 unknowns, abstol
+   1e-10: Success, the root within 1e-8 (inf-norm) of phase 18's
+   NewtonRaphson root, and NLStats beside the JAX package's (1026 steps,
+   1032 residuals, 4 Jacobians), each rung's retcode and steps, the warm
+   wall (median of 3), host syncs, the device time by class and the idle
+   share; (c) Broyden, Klement, LimitedMemoryBroyden and DFSane alone at
+   N=32, each with the JAX package's retcode (Unstable, MaxIters,
+   ConvergenceFailure, MaxIters; the diverging Broyden and
+   LimitedMemoryBroyden runs may also end as the JAX package's own run
+   does from a start one ulp away: Stalled, Unstable), and their steps,
+   residuals and warm walls (one warm solve each); (d) the quasi-Newton / polyalgorithm rows of
+   tests/test_23_problems.py CASES on the 23 problems (f64, maxiters
+   10000, ‖f(u*)‖∞ ≤ 1e-4), each case that takes under 1000 steps in the
+   JAX package on its CASES side, and the two n = 64 rows
+   (``LARGE_N_CASES``); the cases of 1000 JAX steps or more run in
+   tests/test_torch_cuda.py.  No custom kernel is launched;
+21. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -1498,7 +1518,7 @@ def dense_brusselator_phase(torch, nls, _backend, brusselator,
             "LevenbergMarquardt": (nls.LevenbergMarquardt(), 1e-8),
             "PseudoTransient": (nls.PseudoTransient(alpha_initial=10.0),
                                 1e-10)}
-    dists = {}
+    dists, roots = {}, {}
     for name, (alg, abstol) in algs.items():
         # LM's step is a 4096×2048 SVD (about 0.5 s): a cap on its steps
         # bounds the phase if it ever left its 28-step course
@@ -1509,6 +1529,7 @@ def dense_brusselator_phase(torch, nls, _backend, brusselator,
                                profile_last_warm=lm)
         dists[name] = {k: float((sol.u - r).abs().max())
                        for k, r in refs.items()}
+        roots[name] = sol.u
     emit({"phase": "dense_brusselator_ladder", "N": N,
           "root_inf_distance": dists, "limit": 1e-8,
           "reference_stats": {"matrix_free": vars(mf.stats),
@@ -1526,6 +1547,7 @@ def dense_brusselator_phase(torch, nls, _backend, brusselator,
                      abstol=1e-9)
     emit({"phase": "dense_brusselator_done",
           "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    return roots["NewtonRaphson"]
 
 
 # tests/test_23_problems.py CASES rows of the dense surface
@@ -1601,6 +1623,229 @@ def problems23_phase(torch, nls, _backend, card):
         failed.append(f"custom kernels launched: {launches}")
     if failed:
         raise AssertionError(f"23-problem / NLLS phase failed: {failed}")
+
+
+# Phase 20: the JAX package's outcomes on the CPU, f64, that the card is
+# held to (dense Brusselator N=32, abstol 1e-10: the default ladder runs
+# Broyden for 22 steps, Klement for 1000 and NewtonRaphson for 4)
+JAX_DENSE32_DEFAULT = {"nsteps": 1026, "nf": 1032, "njacs": 4}
+# engine: (retcode, nsteps, nf, the other outcome the JAX package gives
+# with one start component one ulp up — flat index, retcode, nsteps).
+# Broyden and LimitedMemoryBroyden diverge here, and whether the run
+# overflows (Unstable) or stalls or spends its resets first is a
+# knife-edge of the JAX package's own (tests/test_torch_polyalg.py
+# holds these outcomes); either outcome passes.
+JAX_DENSE32_ENGINES = {
+    "Broyden": ("Unstable", 22, 24, (1304, "Stalled", 53)),
+    "Klement": ("MaxIters", 1000, 1002, None),
+    "LimitedMemoryBroyden": ("ConvergenceFailure", 37, 39,
+                             (1046, "Unstable", 31)),
+    "DFSane": ("MaxIters", 1000, 4778, None)}
+# the device time of the quasi-Newton runs by class
+QN_GROUPS = {
+    "cuBLAS (J·v, rank-1 updates)": ("gemv", "gemm", "ger", "dot_kernel",
+                                     "xmma", "cutlass", "cublas"),
+    "cuSOLVER (Newton's LU)": ("getrf", "getrs", "laswp", "trsm", "trsv",
+                               "iamax", "cusolver", "potrf"),
+    "reductions (norms, flags)": ("reduce",),
+    "elementwise (residual, steps)": ("elementwise", "vectorized",
+                                      "unrolled", "copy", "fill")}
+
+
+def _qn_rows(nls):
+    """tests/test_23_problems.py CASES rows of the quasi-Newton, spectral
+    and polyalgorithm engines: (algorithm — None for the default —, the
+    broken set, the problems that take 1000 steps or more in the JAX
+    package, which tests/test_torch_cuda.py runs)."""
+    def broyden_tr():
+        return nls.QuasiNewtonAlgorithm(
+            update_rule="good_broyden", structure="full",
+            trustregion=nls.GenericTrustRegionScheme(), name="BroydenTR")
+    return {
+        "Broyden": (nls.Broyden, {1, 5, 6, 11, 18}, {1, 6, 21}),
+        "Broyden-TrueJacobian": (
+            lambda: nls.Broyden(init_jacobian="true_jacobian"),
+            {1, 5, 6, 8, 11, 21}, {5, 21}),
+        "Broyden-BadBroyden": (
+            lambda: nls.Broyden(update_rule="bad_broyden"),
+            {1, 5, 9, 11, 18}, {11}),
+        "Broyden-TrueJacobian-Bad": (
+            lambda: nls.Broyden(init_jacobian="true_jacobian",
+                                update_rule="bad_broyden"),
+            {1, 5, 6, 8, 11}, {5, 11}),
+        "Klement": (nls.Klement, {1, 2, 4, 5, 6, 7, 11, 22},
+                    {4, 5, 6, 7, 8, 9, 11, 22}),
+        "Klement-TrueJacDiagonal": (
+            lambda: nls.Klement(init_jacobian="true_jacobian_diagonal"),
+            {2, 4, 5, 6, 11, 22}, {4, 6, 7, 8, 9, 11, 12, 22}),
+        "DFSane": (nls.DFSane, {1, 2, 3, 5, 21}, {1, 2, 3, 5, 6, 21}),
+        "LimitedMemoryBroyden": (nls.LimitedMemoryBroyden,
+                                 {1, 5, 6, 11, 18}, {6, 21}),
+        "RobustMultiNewton": (nls.RobustMultiNewton, set(), set()),
+        "DefaultPolyalgorithm": (None, set(), {1, 4, 5, 6, 11, 21}),
+        "Broyden-TrustRegion": (broyden_tr, {3, 5, 11, 21}, {1, 21}),
+        "LimitedMemoryBroyden-thresh2": (
+            lambda: nls.LimitedMemoryBroyden(threshold=2),
+            {1, 2, 4, 5, 6, 8, 9, 10, 11, 13, 14, 18, 19, 23}, {21}),
+    }
+
+
+def large_n_problems(p23, n):
+    """tests/test_23_problems.py's ``_large_n_problems``: the 11 problems
+    that generalize in dimension, with their starts at size ``n``."""
+    import numpy as np
+    t = np.arange(1, n + 1) / (n + 1)
+    return [
+        (1, p23._rosenbrock, [-1.2] + [1.0] * (n - 1)),
+        (8, p23._brown_almost_linear, [0.5] * n),
+        (9, p23._discrete_bvp, list(t * (t - 1.0))),
+        (10, p23._discrete_integral, list(t * (t - 1.0))),
+        (11, p23._trigonometric, [1.0 / n] * n),
+        (12, p23._variably_dimensioned,
+         list(1.0 - np.arange(1, n + 1) / n)),
+        (13, p23._broyden_tridiagonal, [-1.0] * n),
+        (14, p23._broyden_banded, [-1.0] * n),
+        (18, p23._exponential_fn, [1.0 / (4.0 * n * n)] * n),
+        (19, p23._logarithmic_fn, [1.0] * n),
+        (23, p23._chandrasekhar, [1.0] * n),
+    ]
+
+
+def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
+    """Phase 20 (see the module docstring).  ``nr_root``: phase 18's
+    NewtonRaphson root at N=32."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.models import problems23 as p23
+    dev, f64 = torch.device("cuda"), torch.float64
+    t_phase = time.perf_counter()
+    failed = []
+
+    def counted(run):
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        sol = run()
+        torch.cuda.synchronize()
+        return sol, time.perf_counter() - t0, \
+            {k: v for k, v in _backend.LAUNCHES.items() if v}
+
+    # (a) the quickstart
+    prob = nls.NonlinearProblem(lambda u, p: u * u - p,
+                                torch.tensor([1.0, 1.0], dtype=f64,
+                                             device=dev), 2.0)
+    sol, secs, launches = counted(lambda: nls.solve(prob))
+    dist = float((sol.u - math.sqrt(2.0)).abs().max())
+    ok = sol.retcode == nls.ReturnCode.Success and dist <= 1e-8
+    emit({"phase": "qn_quickstart", "retcode": sol.retcode.name,
+          "root_inf_distance_to_sqrt2": dist, "stats": vars(sol.stats),
+          "rungs": sol.counters["rungs"], "winner": sol.counters["winner"],
+          "host_syncs": sol.counters["host_syncs"], "seconds": secs,
+          "custom_kernel_launches": launches, "ok": ok, "card": card})
+    if not ok or launches:
+        failed.append("quickstart")
+
+    # (b) the default polyalgorithm on the dense Brusselator, N=32
+    N = 32
+    bprob = brusselator.make_problem(N, f64)
+    run = lambda: nls.solve(bprob, abstol=1e-10)     # noqa: E731
+    sol, first_s, launches = counted(run)
+    dist = float((sol.u - nr_root).abs().max())
+    walls = warm_walls(torch, run)
+    prof = profile_device(torch, run, groups=QN_GROUPS, host_events=False)
+    ok = sol.retcode == nls.ReturnCode.Success and dist <= 1e-8
+    emit({"phase": "qn_default_dense_brusselator", "N": N,
+          "n": int(bprob.u0.numel()), "retcode": sol.retcode.name,
+          "resid_inf": float(sol.resid.abs().max()),
+          "root_inf_distance_to_phase18_nr": dist, "limit": 1e-8,
+          "stats": vars(sol.stats), "jax_stats": JAX_DENSE32_DEFAULT,
+          "rungs": sol.counters["rungs"], "winner": sol.counters["winner"],
+          "host_syncs": sol.counters["host_syncs"],
+          "host_syncs_per_step": sol.counters["host_syncs"]
+          / max(sol.stats.nsteps, 1),
+          "custom_kernel_launches": launches, "first_solve_s": first_s,
+          "warm_wall_s": walls, "warm_wall_s_median": sorted(walls)[1],
+          "device_ms_by_class": prof["device_ms_by_group"],
+          "device_busy_ms": prof["device_busy_ms"],
+          "device_idle_share": prof["device_idle_share"],
+          "profiled_solve_s": prof["profiled_solve_s"],
+          "top_device_ms": prof["top_device_ms"], "ok": ok, "card": card})
+    if not ok or launches:
+        failed.append("default polyalgorithm, dense Brusselator")
+
+    # (c) the four engines alone at N=32
+    for name, (want, jsteps, jnf, edge) in JAX_DENSE32_ENGINES.items():
+        alg = getattr(nls, name)()
+        run = lambda: nls.solve(bprob, alg, abstol=1e-10)  # noqa: E731
+        sol, first_s, launches = counted(run)
+        walls = warm_walls(torch, run, count=1)
+        on_edge = edge is not None and sol.retcode.name == edge[1]
+        ok = (sol.retcode.name == want or on_edge) and not launches
+        emit({"phase": "qn_engine_dense_brusselator", "engine": name,
+              "N": N, "retcode": sol.retcode.name, "jax_retcode": want,
+              "jax_one_ulp_moved_start": edge, "knife_edge_side": on_edge,
+              "stats": vars(sol.stats),
+              "jax_nsteps_nf": [jsteps, jnf],
+              "resid_inf": float(sol.resid.abs().max()),
+              "host_syncs": sol.counters["host_syncs"],
+              "host_syncs_per_step": sol.counters["host_syncs"]
+              / max(sol.stats.nsteps, 1),
+              "first_solve_s": first_s, "warm_wall_s": walls[0],
+              "ms_per_step": 1e3 * walls[0] / max(sol.stats.nsteps, 1),
+              "ok": ok, "card": card})
+        if not ok:
+            failed.append(f"{name} alone at N=32")
+
+    # (d) the CASES rows on the 23 problems, the short cases
+    for row, (make, broken, long) in _qn_rows(nls).items():
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        got, steps = set(), {}
+        for tp in p23.PROBLEMS_23:
+            if tp.index in long:
+                continue
+            tprob = nls.NonlinearProblem(
+                tp.f, torch.tensor(tp.start, dtype=f64, device=dev))
+            sol = (nls.solve(tprob, maxiters=10000) if make is None
+                   else nls.solve(tprob, make(), maxiters=10000))
+            if not float(tp.f(sol.u).abs().max()) <= 1e-4:
+                got.add(tp.index)
+            steps[tp.index] = sol.stats.nsteps
+        launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+        expected = broken - long
+        emit({"phase": "qn_problems23", "row": row, "broken": sorted(got),
+              "expected": sorted(expected),
+              "in_tests_test_torch_cuda": sorted(long), "nsteps": steps,
+              "steps": sum(steps.values()),
+              "seconds": time.perf_counter() - t0,
+              "custom_kernel_launches": launches, "card": card})
+        if got != expected or launches:
+            failed.append(row)
+    large = {"LimitedMemoryBroyden-n64": (
+        lambda: nls.LimitedMemoryBroyden(threshold=27),
+        {1, 9, 11, 13, 14, 18}),
+        "Broyden-n64-control": (nls.Broyden, {1, 9, 11, 18})}
+    for row, (make, broken) in large.items():
+        t0 = time.perf_counter()
+        got, steps = set(), {}
+        for idx, f, x0 in large_n_problems(p23, 64):
+            sol = nls.solve(nls.NonlinearProblem(
+                f, torch.tensor(np.asarray(x0), dtype=f64, device=dev)),
+                make(), maxiters=10000)
+            if not float(f(sol.u).abs().max()) <= 1e-4:
+                got.add(idx)
+            steps[idx] = sol.stats.nsteps
+        emit({"phase": "qn_problems23_n64", "row": row,
+              "broken": sorted(got), "expected": sorted(broken),
+              "nsteps": steps, "seconds": time.perf_counter() - t0,
+              "card": card})
+        if got != broken:
+            failed.append(row)
+    emit({"phase": "qn_polyalg_done",
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"quasi-Newton / polyalgorithm phase failed: "
+                             f"{failed}")
 
 
 def main(argv):
@@ -2646,13 +2891,17 @@ def main(argv):
     del J, compressed, S, Y, Jb, D
 
     # --- 18. the dense Brusselator (the tutorial's dense rung) -------------
-    dense_brusselator_phase(torch, nls, _backend, brusselator,
-                            fft_poisson_preconditioner, card)
+    nr_root = dense_brusselator_phase(torch, nls, _backend, brusselator,
+                                      fft_poisson_preconditioner, card)
 
     # --- 19. the 23-problem suite and the NLLS classics --------------------
     problems23_phase(torch, nls, _backend, card)
 
-    # --- 20. summary -------------------------------------------------------
+    # --- 20. the quasi-Newton, spectral and polyalgorithm engines ----------
+    qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card)
+    del nr_root
+
+    # --- 21. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):

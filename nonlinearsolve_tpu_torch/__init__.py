@@ -12,16 +12,22 @@ stencil JVP kernels K1, K2) or on a colored sparse-AD Jacobian assembled
 into DIA or CSR (the SpMV kernels K4, K5; ``JacobianPolicy(mode="sparse")``
 with ``NonlinearFunction(sparsity=...)`` on a flat state); the 3D
 reaction–diffusion steady state (``models.reaction_diffusion``),
-matrix-free on the 3D stencil JVP kernels K9, K10; and the dense solver
+matrix-free on the 3D stencil JVP kernels K9, K10; the dense solver
 surface: dense forward / reverse / finite-difference Jacobians, dense LU /
 QR / Cholesky / SVD solves, ``NewtonRaphson`` with the seven line
 searches, ``TrustRegion`` with its seven radius schemes,
 ``LevenbergMarquardt``, ``GaussNewton`` and ``PseudoTransient``, the nine
-termination modes and ``NonlinearLeastSquaresProblem``.  See ROADMAP.md
-for what is still to come.
+termination modes and ``NonlinearLeastSquaresProblem``; the quasi-Newton
+engine (``Broyden``, ``Klement``, ``LimitedMemoryBroyden``), ``DFSane``,
+``AndersonAcceleration`` and the polyalgorithms, so ``solve(prob)`` with
+no algorithm runs the JAX package's default ladder.  See ROADMAP.md for
+what is still to come.
 """
 
-from .core.autodiff import JacobianPolicy
+from .core.autodiff import JacobianPolicy, pickchunksize
+from .core.descent import (DampedNewtonDescent, DescentResult, Dogleg,
+                           GeodesicAcceleration, NewtonDescent,
+                           SteepestDescent)
 from .core.linesearch import (BackTracking, LiFukushimaLineSearch,
                               RobustNonMonotoneLineSearch)
 from .core.problems import (NonlinearFunction, NonlinearLeastSquaresProblem,
@@ -43,23 +49,39 @@ from .core.trust_region import (GenericTrustRegionScheme,
 from .core.wolfe_linesearch import (HagerZhang, LineSearchesJL, MoreThuente,
                                     StaticLineSearch, StrongWolfe)
 from .ops.linear_solve import LinearSolver
-from .solvers.first_order import (EisenstatWalkerForcing, GaussNewton,
-                                  GeneralizedFirstOrderAlgorithm,
-                                  LevenbergMarquardt, NewtonRaphson,
-                                  PseudoTransient, TrustRegion)
+from .ops.operators import (JacobianOperator, JacVecOperator,
+                            StatefulJacobianOperator, VecJacOperator)
+from .solvers import (AndersonAcceleration, Broyden, DFSane,
+                      FastShortcutNLLSPolyalg, FastShortcutNonlinearPolyalg,
+                      GaussNewton, GeneralizedDFSane,
+                      GeneralizedFirstOrderAlgorithm, Klement,
+                      LevenbergMarquardt, LimitedMemoryBroyden,
+                      NewtonRaphson, NonlinearSolvePolyAlgorithm,
+                      PseudoTransient, QuasiNewtonAlgorithm,
+                      RobustMultiNewton, TrustRegion)
+from .solvers.first_order import (EisenstatWalkerForcing,
+                                  EisenstatWalkerForcing2)
 
 __all__ = [
     "AbsNormSafeBestTerminationMode", "AbsNormSafeTerminationMode",
-    "AbsNormTerminationMode", "AbsTerminationMode", "BackTracking",
-    "EisenstatWalkerForcing", "GaussNewton", "GeneralizedFirstOrderAlgorithm",
-    "GenericTrustRegionScheme", "HagerZhang", "JacobianPolicy",
-    "LevenbergMarquardt", "LevenbergMarquardtTrustRegion",
-    "LiFukushimaLineSearch", "LineSearchesJL", "LinearSolver", "MoreThuente",
-    "NLStats", "NewtonRaphson", "NonlinearFunction",
+    "AbsNormTerminationMode", "AbsTerminationMode", "AndersonAcceleration",
+    "BackTracking", "Broyden", "DFSane", "DampedNewtonDescent",
+    "DescentResult", "Dogleg", "EisenstatWalkerForcing",
+    "EisenstatWalkerForcing2", "FastShortcutNLLSPolyalg",
+    "FastShortcutNonlinearPolyalg", "GaussNewton", "GeneralizedDFSane",
+    "GeneralizedFirstOrderAlgorithm", "GenericTrustRegionScheme",
+    "GeodesicAcceleration", "HagerZhang", "JacVecOperator",
+    "JacobianOperator", "JacobianPolicy", "Klement", "LevenbergMarquardt",
+    "LevenbergMarquardtTrustRegion", "LiFukushimaLineSearch",
+    "LimitedMemoryBroyden", "LineSearchesJL", "LinearSolver", "MoreThuente",
+    "NLStats", "NewtonDescent", "NewtonRaphson", "NonlinearFunction",
     "NonlinearLeastSquaresProblem", "NonlinearProblem", "NonlinearSolution",
-    "NormTerminationMode", "PseudoTransient", "RadiusUpdateSchemes",
+    "NonlinearSolvePolyAlgorithm", "NormTerminationMode", "PseudoTransient",
+    "QuasiNewtonAlgorithm", "RadiusUpdateSchemes",
     "RelNormSafeBestTerminationMode", "RelNormSafeTerminationMode",
     "RelNormTerminationMode", "RelTerminationMode", "ReturnCode",
-    "RobustNonMonotoneLineSearch", "StaticLineSearch", "StrongWolfe",
-    "TerminationCondition", "TrustRegion", "solve",
+    "RobustMultiNewton", "RobustNonMonotoneLineSearch",
+    "StatefulJacobianOperator", "StaticLineSearch", "SteepestDescent",
+    "StrongWolfe", "TerminationCondition", "TrustRegion", "VecJacOperator",
+    "pickchunksize", "solve",
 ]

@@ -24,11 +24,17 @@ class JacobianSpec:
 
 
 def wants_sparse(alg, spec: JacobianSpec) -> bool:
-    """True when ``alg`` will take the colored sparse-AD path, so the solve
-    builds the host-side plan before its loop."""
-    policy = getattr(alg, "jacobian", None)
-    if policy is None:
+    """True when ``alg`` (or a rung of a polyalgorithm) will take the
+    colored sparse-AD path, so the solve builds the host-side plan before
+    its loop.  Only the first-order engine takes it (the quasi-Newton
+    engine's Jacobian is dense)."""
+    from ..solvers.first_order import GeneralizedFirstOrderAlgorithm
+    rungs = getattr(alg, "algs", None)
+    if rungs is not None:
+        return any(wants_sparse(a, spec) for a in rungs)
+    if not isinstance(alg, GeneralizedFirstOrderAlgorithm):
         return False
+    policy = alg.jacobian
     if policy.mode == "sparse":
         return True
     return policy.mode == "auto" and spec.sparsity is not None

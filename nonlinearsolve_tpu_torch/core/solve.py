@@ -12,7 +12,9 @@ and cached.  Options whose machinery is not ported raise
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 ``NonlinearSolution.counters``: ``jvp`` (products with the Jacobian in the
-linear solves), ``krylov_iters`` and ``host_syncs``.
+linear solves), ``krylov_iters`` and ``host_syncs``; a polyalgorithm's
+also ``rungs`` — (index, retcode, nsteps) of each rung it ran — and
+``winner``, the index of the rung that succeeded (-1: none).
 """
 
 from __future__ import annotations
@@ -57,8 +59,22 @@ def check_kwargs(kwargs) -> None:
             f"Allowed: {sorted(_ALLOWED_KWARGS)}")
 
 
+def _default_algorithm(prob):
+    """``FastShortcutNLLSPolyalg`` for least squares, else
+    ``FastShortcutNonlinearPolyalg`` (its complex ladder for a complex
+    ``u0``); no ``u0_len``, so the ladder starts at Broyden at every
+    size, as in the JAX package."""
+    from ..solvers.polyalg import (FastShortcutNLLSPolyalg,
+                                   FastShortcutNonlinearPolyalg)
+    if isinstance(prob, NonlinearLeastSquaresProblem):
+        return FastShortcutNLLSPolyalg()
+    is_complex = isinstance(prob.u0, torch.Tensor) and prob.u0.is_complex()
+    return FastShortcutNonlinearPolyalg(complex_eltype=is_complex)
+
+
 def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
-    """Solve a nonlinear problem.
+    """Solve a nonlinear problem; with no ``alg``, the default
+    polyalgorithm (``_default_algorithm``).
 
     kwargs: abstol, reltol, maxiters, termination_condition — merged over
     problem-level kwargs (call-site kwargs win)."""
@@ -76,9 +92,7 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
             f"keyword argument(s) {ens_only} apply to ensemble solves only; "
             f"wrap the problem in an EnsembleProblem to use them")
     if alg is None:
-        raise NotImplementedError(
-            "the default polyalgorithm is ROADMAP A.15; pass an "
-            "algorithm, e.g. NewtonRaphson() or TrustRegion()")
+        alg = _default_algorithm(prob)
     if merged.pop("maxtime", None) is not None:
         raise NotImplementedError("maxtime is ROADMAP A.18")
     return solve_nonlinear(prob, alg, **merged)
@@ -202,6 +216,9 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
                               abstol_v, reltol_v, int(maxiters))
         counters = {"jvp": carry.njvp, "krylov_iters": carry.krylov_iters,
                     "host_syncs": _backend.HOST_SYNCS["n"] - syncs0}
+        if hasattr(carry, "winner"):
+            counters["rungs"] = list(carry.rungs)
+            counters["winner"] = carry.winner
     return NonlinearSolution(u=carry.u, resid=carry.fu,
                              retcode=ReturnCode(carry.retcode),
                              stats=carry.stats,

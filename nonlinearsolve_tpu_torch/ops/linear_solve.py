@@ -186,7 +186,9 @@ def gauss_jordan_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _gauss_jordan_ops(M, n, vec)
 
 
-# (shape, dtype, device) -> (CUDA graph, its input, its output)
+# (shape, dtype, device, vector right-hand side) -> (CUDA graph, its input,
+# its output); a vector and a one-column block give M the same shape, and
+# their outputs differ in shape
 _GJ_GRAPHS: dict = {}
 
 
@@ -194,7 +196,7 @@ def _gauss_jordan_graph(M: torch.Tensor, n: int, vec: bool) -> torch.Tensor:
     """The tensor-operation route on the card, captured once per shape in
     a CUDA graph (about 14 small kernels an elimination step, launched by
     one replay) and replayed on a copy of ``M``."""
-    key = (tuple(M.shape), M.dtype, M.device)
+    key = (tuple(M.shape), M.dtype, M.device, vec)
     entry = _GJ_GRAPHS.get(key)
     if entry is None:
         static_in = M.clone()

@@ -3,7 +3,8 @@
 ``JacobianOperator`` gives J·v and Jᵀ·v of ``f_flat`` without forming J:
 the problem's analytic ``jvp`` / ``vjp`` when it has them (on the main
 path, kernel K1 for J·v), else ``torch.func.jvp`` / ``torch.func.vjp`` of
-the residual.  A ``StatefulJacobianOperator`` is one bound at a
+the residual.  ``.T`` swaps the two (``VecJacOperator`` is the transposed
+operator).  A ``StatefulJacobianOperator`` is one bound at a
 linearisation point.  ``mv`` / ``rmv`` apply J / Jᵀ whatever J is: a dense
 matrix (with a shaped vector), a sparse container or an operator.
 """
@@ -38,11 +39,36 @@ class JacobianOperator:
     def at(self, u) -> "StatefulJacobianOperator":
         return StatefulJacobianOperator(self, u)
 
+    @property
+    def T(self) -> "TransposedJacobianOperator":
+        return TransposedJacobianOperator(self)
+
+
+class TransposedJacobianOperator:
+    """Jᵀ of a ``JacobianOperator``: its products are the VJP and its
+    transposed products the JVP."""
+
+    def __init__(self, op: JacobianOperator):
+        self.op = op
+
+    def jvp(self, u, v):
+        return self.op.vjp(u, v)
+
+    def vjp(self, u, v):
+        return self.op.jvp(u, v)
+
+    def at(self, u) -> "StatefulJacobianOperator":
+        return StatefulJacobianOperator(self, u)
+
+    @property
+    def T(self) -> JacobianOperator:
+        return self.op
+
 
 class StatefulJacobianOperator:
     """Operator bound to a linearization point — a drop-in ``matvec``."""
 
-    def __init__(self, op: JacobianOperator, u):
+    def __init__(self, op, u):
         self.op = op
         self.u = u
 
@@ -52,10 +78,25 @@ class StatefulJacobianOperator:
     def rmatvec(self, v):
         return self.op.vjp(self.u, v)
 
+    def __matmul__(self, v):
+        return self(v)
+
+    @property
+    def T(self) -> "StatefulJacobianOperator":
+        return StatefulJacobianOperator(self.op.T, self.u)
+
 
 def JacVecOperator(f_flat: Callable, u=None, *, analytic_jvp=None):
     """``v ↦ J(u)·v``: a JacobianOperator, bound at ``u`` when given."""
     op = JacobianOperator(f_flat, analytic_jvp=analytic_jvp)
+    return op if u is None else op.at(u)
+
+
+def VecJacOperator(f_flat: Callable, u=None, *, analytic_vjp=None):
+    """``v ↦ J(u)ᵀ·v`` (``torch.func.vjp`` of the residual unless
+    ``analytic_vjp`` is given): the transposed JacobianOperator, bound at
+    ``u`` when given."""
+    op = JacobianOperator(f_flat, analytic_vjp=analytic_vjp).T
     return op if u is None else op.at(u)
 
 

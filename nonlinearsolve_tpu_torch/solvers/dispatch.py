@@ -1,6 +1,8 @@
-"""Run one algorithm (the port of ``solvers/dispatch.py``): the first-order
-engine.  Quasi-Newton, spectral and Anderson engines are ROADMAP A.14,
-polyalgorithms A.15 and the simple solvers A.17."""
+"""Run one algorithm (the port of ``solvers/dispatch.py``), shared by the
+top-level solve and the polyalgorithm: the first-order, quasi-Newton,
+spectral and Anderson engines and the polyalgorithms.  ``DynamicSS`` and
+user algorithms with a ``run_flat`` hook are ROADMAP A.30, the simple
+solvers A.17."""
 
 from __future__ import annotations
 
@@ -8,11 +10,35 @@ from __future__ import annotations
 def run_algorithm(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
                   maxiters):
     """Run ``alg`` to completion; returns the engine's final carry (fields:
-    u, fu, retcode, stats)."""
+    u, fu, retcode, stats).  ``jac_spec`` is a ``core.jacobian.JacobianSpec``
+    (or None)."""
+    from .anderson import AndersonAcceleration, run_anderson
     from .first_order import GeneralizedFirstOrderAlgorithm, run_first_order
+    from .polyalg import NonlinearSolvePolyAlgorithm, run_polyalg
+    from .quasi_newton import QuasiNewtonAlgorithm, run_quasi_newton
+    from .spectral import GeneralizedDFSane, run_dfsane
+
+    analytic_jac = jac_spec.analytic if jac_spec is not None else None
     if isinstance(alg, GeneralizedFirstOrderAlgorithm):
         return run_first_order(alg, ctx, term_cfg, jac_spec, u0, abstol,
                                reltol, maxiters)
-    raise NotImplementedError(
-        f"cannot dispatch {type(alg).__name__}: the port runs the first-order "
-        f"engine only; the others are ROADMAP A.14, A.15 and A.17")
+    if isinstance(alg, QuasiNewtonAlgorithm):
+        return run_quasi_newton(alg, ctx, term_cfg, analytic_jac, u0,
+                                abstol, reltol, maxiters)
+    if isinstance(alg, GeneralizedDFSane):
+        return run_dfsane(alg, ctx, term_cfg, u0, abstol, reltol, maxiters)
+    if isinstance(alg, AndersonAcceleration):
+        return run_anderson(alg, ctx, term_cfg, u0, abstol, reltol,
+                            maxiters)
+    if isinstance(alg, NonlinearSolvePolyAlgorithm):
+        return run_polyalg(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
+                           maxiters)
+    name = type(alg).__name__
+    if name == "DynamicSS" or hasattr(alg, "run_flat"):
+        raise NotImplementedError(
+            f"cannot dispatch {name}: DynamicSS and algorithms with a "
+            f"run_flat hook are ROADMAP A.30")
+    if name.startswith("Simple"):
+        raise NotImplementedError(
+            f"cannot dispatch {name}: the simple solvers are ROADMAP A.17")
+    raise ValueError(f"cannot dispatch algorithm {alg!r}")

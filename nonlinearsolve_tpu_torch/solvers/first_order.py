@@ -51,6 +51,10 @@ class EisenstatWalkerForcing:
     safeguard_threshold: float = 0.1
 
 
+# the JAX package's second name for the same forcing
+EisenstatWalkerForcing2 = EisenstatWalkerForcing
+
+
 @dataclasses.dataclass(frozen=True)
 class ForcingState:
     eta: Any            # host scalars in the working dtype

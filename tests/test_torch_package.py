@@ -134,8 +134,9 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="A.33"):
         tnls.solve(prob, tnls.NewtonRaphson(        # the other Krylov
             linsolve=tnls.LinearSolver(method="bicgstab")))
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tnls.solve(prob)                            # default polyalgorithm
+    with pytest.raises(NotImplementedError, match="A.17"):
+        tnls.FastShortcutNonlinearPolyalg(          # the simple solvers
+            prefer_simplenonlinearsolve=True)
     shaped_sparse = tbru.make_problem(8, device="cpu", with_sparsity=True)
     with pytest.raises(NotImplementedError, match="ROADMAP C"):
         tnls.solve(shaped_sparse, tnls.NewtonRaphson(
@@ -150,6 +151,74 @@ def test_unported_routes_raise():
     grad_u0 = prob.u0.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="A.28"):
         tnls.solve(prob.remake(u0=grad_u0), _alg())
+
+
+# names the JAX package exports from a module the port has, whose
+# machinery comes with a later ROADMAP item
+NOT_YET_EXPORTED = {
+    "HomotopyProblem": "A.30", "SCCNonlinearProblem": "A.30",
+    "SteadyStateProblem": "A.30", "IntervalNonlinearProblem": "A.17",
+    "StatefulJacobianNormalFormOperator": "A.33",
+}
+
+
+def test_port_exports_the_jax_names_of_its_modules():
+    """Every name the JAX package exports at the top level from a module
+    that the port has (the same path under nonlinearsolve_tpu_torch) is
+    exported by the port too (ROADMAP C.2), except the named later items;
+    and every name the port exports is one the JAX package exports."""
+    import importlib.util
+    missing = {}
+    for name in dir(jnls):
+        obj = getattr(jnls, name)
+        mod = getattr(obj, "__module__", None) or ""
+        if name.startswith("_") or not mod.startswith("nonlinearsolve_tpu."):
+            continue
+        ported = "nonlinearsolve_tpu_torch" + mod[len("nonlinearsolve_tpu"):]
+        if importlib.util.find_spec(ported) is None:
+            continue
+        if not hasattr(tnls, name):
+            missing[name] = mod
+    assert set(missing) == set(NOT_YET_EXPORTED), missing
+    assert set(tnls.__all__) <= set(dir(jnls))
+    for name in tnls.__all__:
+        assert hasattr(tnls, name), name
+    # the C.2 names work as the JAX ones do
+    assert isinstance(tnls.Dogleg(), tnls.Dogleg)
+    assert tnls.pickchunksize(100) == jnls.pickchunksize(100)
+    assert tnls.EisenstatWalkerForcing2 is tnls.EisenstatWalkerForcing
+    for cls in (tnls.SteepestDescent, tnls.NewtonDescent,
+                tnls.DampedNewtonDescent, tnls.GeodesicAcceleration):
+        cls()
+
+
+def test_vec_jac_operator_matches_jax():
+    """VecJacOperator: v ↦ J(u)ᵀ v by the VJP, bound or not; its .T is the
+    JVP."""
+    A = np.random.default_rng(4).standard_normal((5, 3))
+    u, v = np.linspace(0.1, 0.5, 3), np.linspace(-1.0, 1.0, 5)
+
+    def fj(x):
+        return jnp.asarray(A) @ jnp.sin(x)
+
+    def ft(x):
+        return torch.tensor(A) @ torch.sin(x)
+
+    want = np.asarray(jnls.VecJacOperator(fj, jnp.asarray(u))(
+        jnp.asarray(v)))
+    op = tnls.VecJacOperator(ft)
+    got = op.at(torch.tensor(u))(torch.tensor(v)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-14)
+    bound = tnls.VecJacOperator(ft, torch.tensor(u))
+    np.testing.assert_allclose(bound(torch.tensor(v)).numpy(), want,
+                               rtol=1e-14)
+    w = np.array([0.3, -0.2, 0.7])
+    np.testing.assert_allclose(
+        bound.T(torch.tensor(w)).numpy(),
+        np.asarray(jnls.JacVecOperator(fj, jnp.asarray(u))(jnp.asarray(w))),
+        rtol=1e-14)
+    np.testing.assert_allclose((bound @ torch.tensor(v)).numpy(), want,
+                               rtol=1e-14)
 
 
 def test_kwargs_are_checked_and_merged():
