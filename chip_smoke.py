@@ -204,7 +204,31 @@ check raises, so the script exits non-zero.
    JAX package on its CASES side, and the two n = 64 rows
    (``LARGE_N_CASES``); the cases of 1000 JAX steps or more run in
    tests/test_torch_cuda.py.  No custom kernel is launched;
-21. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+21. the sparse direct route (counters at 0 just before each run, read
+   just after), f64, NewtonRaphson with a colored sparse-AD Jacobian:
+   (a) BASELINE config 3, Bratu 32², the default linear solver: block
+   cyclic reduction, the root within 1e-10 of the dense NewtonRaphson
+   root; (b) SNES ex2, n = 128, sparse: PCR, within 1e-8 of the dense
+   root, u[0] and u[-1] to 1e-10; (c) Bratu 128²: the AMD host LU, one
+   factorization then numeric refactorizations, the root within 1e-10 of
+   the CPU port's; (d) Bratu 128² with ``sparse_lu_device``: the JAX
+   package's plan (12 + 43 stages, 28 ELL), K5 on every gather of every
+   solve; (e) Bratu 128² flat, GMRES with ``precond="device_lu"``: K4 in
+   every product, 1–3 Krylov iterations a step; (f) Bratu 256² (65,536
+   unknowns): BiCGStab with a Jacobi preconditioner over K4, the root
+   within 1e-10 of the CPU port's.  Each run: the JAX package's retcode,
+   nsteps and nf (``JAX_SPARSE_DIRECT``), the route it takes, max|F|, the
+   warm wall (median of 3), host syncs, the device time by class and the
+   idle share.  Then (g): DeviceLU.solve on the card against the port's
+   CPU solve of the same state (rel-inf 1e-12, f64), its time at 128² f64
+   and 64² f32 (CUDA events over 20 solves), its kernels and the refresh's
+   parts; K5 on every gather table of the 128² plan against its plain
+   version (f64 and f32, at TOL), the gathers of one solve timed together
+   beside cuSPARSE on the same stage CSRs and their byte bound.  Then (h):
+   K4 on the "dia" tier of the Jacobians of (e) and (f) at their roots
+   (at TOL) and K5's selection on the CSR assembly tables of (a), (c) and
+   (f) (bit for bit), f64 and f32, against their plain versions;
+22. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -923,10 +947,13 @@ def spmv_case(torch, name, tables, dname, kern, plain, library, cost, shape,
 def k5_case(torch, spmv, tables, dname, indptr, indices, data, x, shape):
     """K5 on one CSR (``shape`` = rows, columns) against its plain version
     at TOL, a second launch bit-equal to the first, timed beside cuSPARSE
-    and the index_select yardstick."""
+    and the index_select yardstick.  The byte bound reads each column of x
+    that the table names once (all of x for a square Jacobian, fewer for a
+    device-LU stage)."""
     n_rows, n_cols = shape
     nnz = indices.shape[0]
     item = data.element_size()
+    cols_read = int(torch.unique(indices).numel())
     csr_lib = torch.sparse_csr_tensor(indptr, indices, data, shape)
 
     def twice(got):
@@ -939,7 +966,7 @@ def k5_case(torch, spmv, tables, dname, indptr, indices, data, x, shape):
         lambda: spmv.gather_spmv(indptr, indices, data, x),
         lambda: spmv.gather_spmv_plain(indptr, indices, data, x),
         lambda: csr_lib @ x,
-        (nnz * (item + 4) + (n_rows + 1) * 4 + (n_rows + n_cols) * item,
+        (nnz * (item + 4) + (n_rows + 1) * 4 + (n_rows + cols_read) * item,
          2 * nnz), [n_rows, n_cols, nnz], extra_check=twice,
         yardstick=lambda: torch.index_select(x, 0, indices))
 
@@ -1846,6 +1873,443 @@ def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
     if failed:
         raise AssertionError(f"quasi-Newton / polyalgorithm phase failed: "
                              f"{failed}")
+
+
+# Phase 21: the JAX package's outcomes on the CPU, f64, NewtonRaphson with a
+# colored sparse-AD Jacobian (retcode, nsteps, nf, njacs; None: not
+# recorded) and the route each run takes (_backend.ROUTES: the direct
+# routes and the device LU's solves)
+JAX_SPARSE_DIRECT = {
+    "a_bratu32_default": ("Success", 4, 6, 4, "bcr"),
+    "b_snes_ex2_128_sparse": ("Success", 3, 5, 3, "pcr"),
+    "c_bratu128_default": ("Success", 4, 6, 4, "host_lu"),
+    "d_bratu128_sparse_lu_device": ("Success", 4, 6, 4, "device_lu"),
+    "e_bratu128_flat_gmres_device_lu": ("Success", 4, 6, 4, "gmres"),
+    "f_bratu256_default": ("Success", 3, 5, None, "iterative"),
+}
+# the 128² Bratu plan of the JAX package (AMD order, f64): L + U stages, ELL
+DEVICE_LU_128 = {"L_stages": 12, "U_stages": 43, "ell_stages": 28,
+                 "nnzL": 702130}
+# the device time of the sparse direct runs by class
+SPARSE_DIRECT_GROUPS = {
+    "K4 dia_spmv": ("dia_spmv",), "K5 gather_spmv": ("csr_spmv",),
+    "K5 selection": ("csr_select",),
+    "batched solves (cuSOLVER / cuBLAS)": ("getrf", "getrs", "trsm",
+                                           "batch", "lu_"),
+    "gemm/gemv": ("gemm", "gemv", "dot_kernel"),
+    "reductions": ("reduce_kernel",), "copies": ("copy", "memcpy"),
+    "elementwise": ("elementwise",)}
+
+
+def bratu_flat(torch, nls, bratu, N, dev):
+    """Bratu on the flat state (N·N,), the shape GMRES's sparse route
+    needs, as the JAX package's row (e) runs it."""
+    def f(u, p):
+        return bratu.bratu_2d(u.reshape(N, N), p).reshape(-1)
+
+    return nls.NonlinearProblem(
+        nls.NonlinearFunction(f=f, sparsity=bratu.sparsity_pattern(N)),
+        torch.zeros(N * N, dtype=torch.float64, device=dev),
+        torch.tensor(3.5, dtype=torch.float64, device=dev))
+
+
+def bratu_lu_data(torch, bratu, N, dev):
+    """Jacobian-like data on the Bratu pattern at N² (diagonal −4,
+    off-diagonals 1, each scaled by a seeded U(0.9, 1.1))."""
+    import numpy as np
+    pat = bratu.sparsity_pattern(N)
+    rng = np.random.default_rng(N)
+    scale = rng.uniform(0.9, 1.1, pat.nnz)
+    return pat, torch.as_tensor(
+        scale * np.where(pat.indices == pat.row_ids, -4.0, 1.0), device=dev)
+
+
+def device_lu_stage_checks(torch, spmv, lu, data, dev):
+    """K5 on every gather table of the 128² plan (the ELL stages and the
+    dense stages' pre-gathers, with the refreshed values of ``data``)
+    against its plain version, f64 and f32 (the same tables, values and x
+    cast), each at TOL; then the gathers of one solve timed together: K5
+    (a CUDA graph of them all), the plain versions, and cuSPARSE on the
+    same stage CSRs, beside the byte bound of their tables.  One stage (the
+    largest ELL table) gets the full kernel_check record."""
+    import numpy as np
+    _Ud, Lst, Ust, ok = lu.refresh(data)
+    if not ok:
+        raise AssertionError("the 128² plan's refresh failed")
+    tab = lu.tables(dev)
+    n = lu.n
+    rng = np.random.default_rng(21)
+    x64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+    stages = []
+    for kind, st, vals, tabs in (("L", lu.Lstages, Lst, tab["L"]),
+                                 ("U", lu.Ustages, Ust, tab["U"])):
+        for stage, sv, (indptr, indices) in zip(st, vals, tabs):
+            if indices.shape[0] == 0:
+                continue
+            v = sv if stage[0] == "ell" else sv[2]
+            cols = (stage[4] if stage[0] == "ell"
+                    else stage[1]["pre"])["indices"]
+            stages.append({"sweep": kind, "tag": stage[0], "indptr": indptr,
+                           "indices": indices, "data": v,
+                           "rows": int(indptr.shape[0] - 1),
+                           "nnz": int(indices.shape[0]),
+                           "cols_read": int(np.unique(cols).size)})
+    worst = {"float64": 0.0, "float32": 0.0}
+    for s in stages:
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            d, x = s["data"].to(dtype), x64.to(dtype)
+            got = spmv.gather_spmv(s["indptr"], s["indices"], d, x)
+            ref = spmv.gather_spmv_plain(s["indptr"], s["indices"], d, x)
+            worst[dname] = max(worst[dname], rel_err(got, ref)[1])
+    ell = [s for s in stages if s["tag"] == "ell"]
+    ok = all(worst[d] <= TOL[d] for d in worst)
+    libs = [torch.sparse_csr_tensor(s["indptr"], s["indices"], s["data"],
+                                    (s["rows"], n)) for s in stages]
+
+    def k5_all():
+        for s in stages:
+            spmv.gather_spmv(s["indptr"], s["indices"], s["data"], x64)
+
+    def plain_all():
+        for s in stages:
+            spmv.gather_spmv_plain(s["indptr"], s["indices"], s["data"],
+                                   x64)
+
+    def lib_all():
+        for s, A in zip(stages, libs):
+            A @ x64
+
+    item = 8
+    nbytes = sum(s["nnz"] * (item + 4) + (s["rows"] + 1) * 4
+                 + (s["rows"] + s["cols_read"]) * item for s in stages)
+    flops = sum(2 * s["nnz"] for s in stages)
+    ms = graph_time_ms(torch, k5_all, calls=10, replays=10)
+    ms_profiled = profiled_ms(torch, k5_all, calls=5)
+    plain_ms = graph_time_ms(torch, plain_all, calls=2, replays=5)
+    library_ms = profiled_ms(torch, lib_all, calls=5)
+    bms, by = roofline_ms(nbytes, flops, "float64")
+    big = max(ell, key=lambda s: s["nnz"])
+    big_rec = k5_case(torch, spmv, "device_lu_128_largest_ell_stage",
+                      "float64", big["indptr"], big["indices"], big["data"],
+                      x64, (big["rows"], n))
+    rec = {"phase": "kernel_check_device_lu_stages", "N": 128,
+           "gathers": len(stages), "ell_stages": len(ell),
+           "max_rel_err": worst, "tolerance": TOL, "ok": ok,
+           "nnz_per_solve": sum(s["nnz"] for s in stages),
+           "stage_rows": [s["rows"] for s in stages],
+           "stage_nnz": [s["nnz"] for s in stages],
+           "ms_per_solve": ms, "ms_profiled_per_solve": ms_profiled,
+           "plain_ms_per_solve": plain_ms,
+           "library_ms_per_solve": library_ms,
+           "library": "cuSPARSE CSR matvec on each stage's CSR "
+                      "(torch.sparse_csr_tensor @ x)",
+           "bound_ms_per_solve": bms, "bound_by": by, "bound_bytes": nbytes,
+           "share_of_bound": bms / ms, "dtype": "float64"}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"K5 disagrees on a device-LU stage: {rec}")
+    return rec, big_rec
+
+
+def sparse_direct_kernel_checks(torch, spmv, plans, dev):
+    """K4 and K5's selection on phase 21's own tables, against their plain
+    versions, f64 and f32: K4 on the "dia" tier of the CSR Jacobians of
+    runs (e) and (f), each assembled at its run's root with that run's
+    colored plan (16,384 and 65,536 unknowns), at TOL; the selection on the
+    CSR assembly tables of runs (a), (c) and (f) (32², 128², 256²), bit
+    for bit.  Returns the records by kernel, keyed by tables and dtype."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    keep = ("shape", "max_abs_err", "rel_err", "tolerance", "ms",
+            "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+            "library_ms", "library_ms_eager_events")
+    out = {"dia_spmv": {}, "gather_select": {}}
+    for key in ("e_bratu128_flat_gmres_device_lu", "f_bratu256_default"):
+        plan, prob, sol = plans[key]
+        J = plan(lambda u: prob.f(u.reshape(prob.u0.shape), prob.p)
+                 .reshape(-1), sol.u.reshape(-1))
+        tier, dplan, perm, _pinv, _dperm = J.tier
+        if tier != "dia" or perm is not None:
+            raise AssertionError(f"{key}: the Jacobian's tier is {tier}")
+        n = J.shape[0]
+        in_band = sum(n - abs(o) for o in dplan.offsets)
+        indptr, indices = J.device_tables(dev)
+        dd64 = dplan.pack(J.data)
+        x64 = torch.as_tensor(rng.standard_normal(n), device=dev)
+        tables = f"{key[:1]}_bratu{int(round(n ** 0.5))}_jacobian_at_root"
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            item = torch.finfo(dtype).bits // 8
+            dd, x = dd64.to(dtype), x64.to(dtype)
+            csr_lib = torch.sparse_csr_tensor(indptr, indices,
+                                              J.data.to(dtype), (n, n))
+            rec = spmv_case(
+                torch, "dia_spmv", tables, dname,
+                lambda: spmv.dia_spmv(dd, dplan.offsets, x),
+                lambda: spmv.dia_spmv_plain(dd, dplan.offsets, x),
+                lambda: csr_lib @ x,
+                (in_band * item + 2 * n * item, 2 * in_band),
+                [dplan.ndiag, n])
+            out["dia_spmv"][f"{tables}_{dname}"] = {k: rec[k] for k in keep}
+    for key in ("a_bratu32_default", "c_bratu128_default",
+                "f_bratu256_default"):
+        plan, prob, _sol = plans[key]
+        tables = f"{key[:1]}_bratu{prob.u0.shape[0]}_csr_assembly"
+        for dtype in (torch.float64, torch.float32):
+            rec = selection_case(torch, spmv, plan._select, tables, dtype,
+                                 dev, rng)
+            out["gather_select"][f"{tables}_{rec['dtype']}"] = {
+                k: rec[k] for k in keep}
+    return out
+
+
+def sparse_direct_phase(torch, nls, _backend, spmv, card):
+    """Phase 21 (see the module docstring).  Returns the launches of each
+    run and the device-LU stage records for the kernels line."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.models import bratu, snes_ex2
+    from nonlinearsolve_tpu_torch.core.solve import _SPARSE_PLANS
+    from nonlinearsolve_tpu_torch.ops import device_lu, direct_sparse
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t_phase = time.perf_counter()
+    failed, records, plans = [], {}, {}
+
+    def sparse_nr(**ls):
+        return nls.NewtonRaphson(autodiff=nls.JacobianPolicy(mode="sparse"),
+                                 linsolve=nls.LinearSolver(**ls))
+
+    def run(key, make, alg, abstol, **extra):
+        """The counted first solve (counters at 0 just before, read just
+        after), three warm walls, one profiled solve."""
+        prob = make(dev)
+        solve = lambda: nls.solve(prob, alg, abstol=abstol)  # noqa: E731
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        sol = solve()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+        routes = {k: v for k, v in _backend.ROUTES.items() if v}
+        (plan,) = _SPARSE_PLANS[prob.f].values()
+        walls = warm_walls(torch, solve)
+        prof = profile_device(torch, solve, groups=SPARSE_DIRECT_GROUPS,
+                              host_events=False)
+        want, jsteps, jnf, jjacs, route = JAX_SPARSE_DIRECT[key]
+        stats = vars(sol.stats)
+        rec = {"phase": "sparse_direct", "run": key,
+               "n": int(prob.u0.numel()), "dtype": "float64",
+               "abstol": abstol, "retcode": sol.retcode.name,
+               "stats": stats, "jax": {"retcode": want, "nsteps": jsteps,
+                                       "nf": jnf, "njacs": jjacs},
+               "resid_inf": float(sol.resid.abs().max()),
+               "route": route, "routes": routes,
+               "host_syncs": sol.counters["host_syncs"],
+               "krylov_iters": sol.counters["krylov_iters"],
+               "jac_products": sol.counters["jvp"], "launches": launches,
+               "first_solve_s": first_s, "warm_wall_s": walls,
+               "warm_wall_s_median": sorted(walls)[1],
+               "device_ms_by_class": prof["device_ms_by_group"],
+               "device_busy_ms": prof["device_busy_ms"],
+               "device_idle_share": prof["device_idle_share"],
+               "profiled_solve_s": prof["profiled_solve_s"],
+               "top_device_ms": prof["top_device_ms"], **extra,
+               "card": card}
+        checks = {
+            "retcode as the JAX package's": sol.retcode.name == want,
+            "nsteps, nf (and njacs) as the JAX package's": (
+                stats["nsteps"] == jsteps and stats["nf"] == jnf
+                and (jjacs is None or stats["njacs"] == jjacs)),
+            "K5's selection assembles every Jacobian":
+                launches.get("gather_select", 0) >= stats["njacs"] > 0,
+        }
+        if route == "gmres":
+            checks["no direct route"] = not any(
+                v for k, v in routes.items() if k != "device_lu")
+        else:
+            checks[f"route {route} at every linear solve"] = (
+                routes.get(route, 0) == stats["nsolve"])
+        rec["checks"] = checks
+        records[key] = (rec, sol)
+        plans[key] = (plan, prob, sol)
+        return sol, launches, checks
+
+    def finish(key, checks):
+        rec = records[key][0]
+        rec["ok"] = all(checks.values())
+        emit(rec)
+        if not rec["ok"]:
+            failed.append((key, [k for k, v in checks.items() if not v]))
+
+    def dist(a, b):
+        return float((a.reshape(-1).to(b.device) - b.reshape(-1))
+                     .abs().max())
+
+    # (a) BASELINE config 3: Bratu 32², the default linear solver (BCR)
+    sol, launches, checks = run(
+        "a_bratu32_default", lambda d: bratu.make_problem(32, device=d),
+        sparse_nr(), 1e-10)
+    dense = nls.solve(bratu.make_problem(32, device=dev,
+                                         with_sparsity=False),
+                      nls.NewtonRaphson(), abstol=1e-10)
+    d_a = dist(sol.u, dense.u)
+    records["a_bratu32_default"][0]["root_inf_distance_to_dense_nr"] = d_a
+    checks["root within 1e-10 of the dense NewtonRaphson root"] = (
+        dense.retcode == nls.ReturnCode.Success and d_a <= 1e-10)
+    checks["no K4 or K5 launch"] = not (launches.get("dia_spmv")
+                                        or launches.get("gather_spmv"))
+    finish("a_bratu32_default", checks)
+
+    # (b) SNES ex2, n = 128, sparse: PCR
+    sol, launches, checks = run(
+        "b_snes_ex2_128_sparse",
+        lambda d: snes_ex2.make_problem(128, sparse=True, device=d),
+        sparse_nr(), 1e-8)
+    dense = nls.solve(snes_ex2.make_problem(128, device=dev),
+                      nls.NewtonRaphson(), abstol=1e-8)
+    d_b = dist(sol.u, dense.u)
+    records["b_snes_ex2_128_sparse"][0].update(
+        root_inf_distance_to_dense_nr=d_b,
+        dense_u0=float(dense.u[0]), dense_u_last=float(dense.u[-1]))
+    checks["root within 1e-8 of the dense root"] = d_b <= 1e-8
+    checks["u[0] = 0 and u[-1] = 1 to 1e-10"] = (
+        abs(float(dense.u[0])) < 1e-10
+        and abs(float(dense.u[-1]) - 1.0) < 1e-10)
+    finish("b_snes_ex2_128_sparse", checks)
+
+    # (c) Bratu 128², the default linear solver: the AMD host LU
+    direct_sparse._FACTORS._d.clear()
+    sol_c, launches, checks = run(
+        "c_bratu128_default", lambda d: bratu.make_problem(128, device=d),
+        sparse_nr(), 1e-10)
+    (fac,) = direct_sparse._FACTORS._d.values()
+    n_factor, n_refactor = fac.n_factor, fac.n_refactor
+    cpu_c = nls.solve(bratu.make_problem(128, device=cpu), sparse_nr(),
+                      abstol=1e-10)
+    d_c = dist(sol_c.u, cpu_c.u)
+    records["c_bratu128_default"][0].update(
+        n_factor=n_factor, n_refactor=n_refactor,
+        root_inf_distance_to_cpu=d_c)
+    checks["one factorization, numeric refactorizations after it"] = (
+        n_factor == 1 and n_refactor >= 1)
+    checks["root within 1e-10 of the CPU port's"] = (
+        d_c <= 1e-10 and vars(cpu_c.stats) == vars(sol_c.stats))
+    finish("c_bratu128_default", checks)
+
+    # (d) Bratu 128², sparse_lu_device: K5 on every gather of the sweeps
+    alg_d = sparse_nr(method="sparse_lu_device")
+    sol, launches, checks = run(
+        "d_bratu128_sparse_lu_device",
+        lambda d: bratu.make_problem(128, device=d), alg_d, 1e-10)
+    pat = bratu.sparsity_pattern(128)
+    lu = device_lu.device_lu_for(pat.indptr, pat.indices, 128 * 128,
+                                 dtype=torch.float64)
+    summary = lu.stage_summary()
+    per_solve = summary["k5_launches_per_solve"]
+    d_d = dist(sol.u, sol_c.u)
+    lu_solves = records["d_bratu128_sparse_lu_device"][0]["routes"][
+        "device_lu"]
+    records["d_bratu128_sparse_lu_device"][0].update(
+        plan=summary, expected_plan=DEVICE_LU_128,
+        k5_launches_per_linear_solve=launches.get("gather_spmv", 0)
+        / max(lu_solves, 1),
+        refresh_s=dict(lu.refresh_times), root_inf_distance_to_c=d_d)
+    checks["the JAX package's plan (12 + 43 stages, 28 ELL)"] = all(
+        summary[k] == v for k, v in DEVICE_LU_128.items())
+    checks["K5 on every gather of every solve"] = (
+        launches.get("gather_spmv", 0) == per_solve * lu_solves > 0)
+    checks["root within 1e-10 of (c)'s"] = d_d <= 1e-10
+    finish("d_bratu128_sparse_lu_device", checks)
+
+    # the solve alone: one refresh, a chain of solves between CUDA events
+    # (128² f64, and the 64² f32 plan of bench.py's device_lu_solve row)
+    b128 = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        128 * 128), device=dev)
+    _pat, data128 = bratu_lu_data(torch, bratu, 128, dev)
+    state = lu.refresh(data128)
+    x_gpu, _ = lu.solve(state, b128)
+    x_cpu, _ = lu.solve(lu.refresh(data128.cpu()), b128.cpu())
+    solve_rel = rel_err(x_gpu, x_cpu.to(dev))[1]
+    solve_ms = event_time_ms(torch, lambda: lu.solve(state, b128), calls=20)
+    pat64, d64 = bratu_lu_data(torch, bratu, 64, dev)
+    lu64 = device_lu.device_lu_for(pat64.indptr, pat64.indices, 64 * 64,
+                                   dtype=torch.float32)
+    state64 = lu64.refresh(d64)
+    b64 = b128[:64 * 64].float().contiguous()
+    solve64_ms = event_time_ms(torch, lambda: lu64.solve(state64, b64),
+                               calls=20)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    lu.solve(state, b128)
+    one_solve = dict(_backend.LAUNCHES)
+    launches_solve = kernels_per_call(torch, lambda: lu.solve(state, b128),
+                                      calls=5)
+    t0 = time.perf_counter()
+    lu.refresh(data128)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    rec = {"phase": "device_lu_solve", "N": 128, "dtype": "float64",
+           "rel_err_card_vs_cpu": solve_rel, "tolerance": 1e-12,
+           "solve_ms_events": solve_ms, "solve_ms_64_f32": solve64_ms,
+           "plan_64_f32": lu64.stage_summary(),
+           "k5_launches_per_solve": one_solve["gather_spmv"],
+           "kernels_per_solve": sum(v["per_call"]
+                                    for v in launches_solve.values()),
+           "device_us_per_solve": sum(v["us_per_call"]
+                                      for v in launches_solve.values()),
+           "refresh_s": refresh_s, "refresh_parts_s": dict(lu.refresh_times),
+           "state_values": summary["state_values"], "card": card}
+    rec["ok"] = solve_rel <= 1e-12 and one_solve["gather_spmv"] == per_solve
+    emit(rec)
+    if not rec["ok"]:
+        failed.append(("device_lu_solve", rec))
+    stage_rec, big_rec = device_lu_stage_checks(torch, spmv, lu, data128,
+                                                dev)
+    stage_rec["launches_per_solve"] = per_solve
+
+    # (e) Bratu 128² flat, GMRES with the device LU as preconditioner
+    sol, launches, checks = run(
+        "e_bratu128_flat_gmres_device_lu",
+        lambda d: bratu_flat(torch, nls, bratu, 128, d),
+        sparse_nr(method="gmres", precond="device_lu"), 1e-10)
+    rec = records["e_bratu128_flat_gmres_device_lu"][0]
+    d_e = dist(sol.u, sol_c.u)
+    rec.update(root_inf_distance_to_c=d_e,
+               krylov_iters_per_step=sol.counters["krylov_iters"]
+               / max(sol.stats.nsteps, 1))
+    checks["K4 in every product with J"] = (
+        launches.get("dia_spmv", 0) == sol.counters["jvp"] > 0)
+    checks["K5 on the preconditioner's sweeps"] = (
+        launches.get("gather_spmv", 0) == per_solve * rec["routes"][
+            "device_lu"] > 0)
+    checks["1-3 Krylov iterations a step"] = (
+        1 <= rec["krylov_iters_per_step"] <= 3)
+    checks["root within 1e-10 of (c)'s"] = d_e <= 1e-10
+    finish("e_bratu128_flat_gmres_device_lu", checks)
+
+    # (f) Bratu 256², the default linear solver: BiCGStab + Jacobi over K4
+    sol, launches, checks = run(
+        "f_bratu256_default", lambda d: bratu.make_problem(256, device=d),
+        sparse_nr(), 1e-8)
+    cpu_f = nls.solve(bratu.make_problem(256, device=cpu), sparse_nr(),
+                      abstol=1e-8)
+    d_f = dist(sol.u, cpu_f.u)
+    records["f_bratu256_default"][0]["root_inf_distance_to_cpu"] = d_f
+    checks["K4 in BiCGStab's products"] = launches.get("dia_spmv", 0) > 0
+    checks["root within 1e-10 of the CPU port's"] = d_f <= 1e-10
+    finish("f_bratu256_default", checks)
+
+    # (h) K4 and K5's selection on this path's own tables (spmv_case raises
+    # where a kernel disagrees with its plain version)
+    path_checks = sparse_direct_kernel_checks(torch, spmv, plans, dev)
+
+    emit({"phase": "sparse_direct_done",
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"sparse direct phase failed: {failed}")
+    return ({key: rec["launches"] for key, (rec, _sol) in records.items()},
+            stage_rec, big_rec, path_checks)
 
 
 def main(argv):
@@ -2901,7 +3365,11 @@ def main(argv):
     qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card)
     del nr_root
 
-    # --- 21. summary -------------------------------------------------------
+    # --- 21. the sparse direct route (Bratu, SNES ex2) ----------------------
+    sd_launches, lu_stage_rec, lu_big_rec, sd_checks = sparse_direct_phase(
+        torch, nls, _backend, spmv, card)
+
+    # --- 22. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
@@ -2954,6 +3422,27 @@ def main(argv):
                                 "index_select_ms", "max_abs_err")}
         for rec in (scatter_summary[("gather_spmv", "float32")],
                     band_summary["gather_spmv_same_tables"])}
+    # phase 21: the launches of each sparse direct run (K4 in BiCGStab and
+    # GMRES, K5 on the device LU's gathers, its selection in every
+    # assembly), and K5 on the 128² device-LU plan's gathers
+    for row in out:
+        if row["name"] in ("dia_spmv", "gather_spmv", "gather_select"):
+            row["launches_sparse_direct"] = {
+                key: counts.get(row["name"], 0)
+                for key, counts in sd_launches.items()}
+        if row["name"] in sd_checks:
+            row["checks_sparse_direct"] = sd_checks[row["name"]]
+    k5_row["device_lu_128_per_solve"] = {
+        k: lu_stage_rec[k] for k in (
+            "gathers", "ell_stages", "launches_per_solve", "nnz_per_solve",
+            "ms_per_solve", "ms_profiled_per_solve", "plain_ms_per_solve",
+            "library_ms_per_solve",
+            "bound_ms_per_solve", "bound_by", "bound_bytes",
+            "share_of_bound", "max_rel_err")}
+    k5_row["device_lu_128_largest_ell_stage"] = {
+        k: lu_big_rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "share_of_bound", "library_ms",
+                                   "max_abs_err")}
     r = band_summary["band_spmv"]
     out.append({"name": "band_spmv", "route": "cuda", "source": SPMV_SOURCE,
                 "replaces": SPMV_REPLACES["band_spmv"],

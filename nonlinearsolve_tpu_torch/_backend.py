@@ -18,7 +18,9 @@ nothing falls back.
 Counters: ``LAUNCHES`` counts kernel launches per kernel (each wrapper adds
 one where it launches its kernel, and nowhere else); ``HOST_SYNCS`` counts
 device-to-host reads made by ``fetch`` — the points where the host waits for
-the device.
+the device; ``ROUTES`` counts the linear solves of the sparse direct route by
+route (``ops/direct_sparse.py``) and the device LU's solves
+(``ops/device_lu.py``).  ``reset_counters`` zeroes all three.
 """
 
 from __future__ import annotations
@@ -46,16 +48,23 @@ LAUNCHES: dict = {"brusselator_jvp": 0, "brusselator_jvp_scaled": 0,
                   "bsr_spmm": 0,
                   "rd3d_jvp": 0, "rd3d_jvp_scaled": 0, "rd3d_jvp_halo": 0}
 HOST_SYNCS: dict = {"n": 0}
+ROUTES: dict = {"pcr": 0, "bcr": 0, "rcm_bcr": 0, "host_lu": 0,
+                "iterative": 0, "dense": 0, "device_lu": 0}
 
 
 def reset_counters() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
     HOST_SYNCS["n"] = 0
 
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def count_route(name: str) -> None:
+    ROUTES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +129,14 @@ def fetch(*tensors: torch.Tensor) -> list:
         out.append(part[0] if t.dim() == 0 else part)
         at += t.numel()
     return out
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """Copy a tensor of any size to the host as a numpy array: one host
+    sync, counted as ``fetch`` counts its reads (the host calls of the
+    sparse direct route: the native LU and the device LU's refresh)."""
+    HOST_SYNCS["n"] += 1
+    return t.detach().cpu().numpy()
 
 
 class PendingReads:

@@ -1,8 +1,10 @@
 """Descent directions (the port of ``core/descent.py``):
 
 * ``NewtonDescent`` — ``J δu = -fu``: the Krylov route on the matrix-free
-  operator or a sparse Jacobian (CSR, DIA), the dense route
-  (``solve_dense`` for square systems, least squares otherwise);
+  operator or a sparse Jacobian (CSR, DIA), the sparse direct route
+  (``ops/direct_sparse.py``; ``sparse_lu_device``: ``ops/device_lu.py``),
+  the dense route (``solve_dense`` for square systems, least squares
+  otherwise);
 * ``SteepestDescent`` — ``δu = -Jᵀ fu``;
 * ``DampedNewtonDescent`` — ``(JᵀJ + λDᵀD) δu = -Jᵀfu`` in the four modes
   simple / least_squares / normal_form / minimum_norm;
@@ -15,8 +17,8 @@ Protocol: ``descent_init(cfg, ctx, J, fu, u) -> state``;
 (DescentResult, state)``; ``descent_post_step(cfg, state, accepted) ->
 state`` (LM's λ update).  Everything a descent decides from device values
 (Dogleg's branch, the geodesic accept test) is a ``torch.where`` on the
-device: a descent reads nothing itself.  The sparse direct route is
-ROADMAP A.23.
+device: a descent reads nothing itself, except where a route's host call
+reads J (the sparse direct route's host LU and the device LU's refresh).
 """
 
 from __future__ import annotations
@@ -159,13 +161,19 @@ def descent_init(cfg, ctx: DescentCtx, J, fu, u):
 
 
 def _matrix_precond(cfg: LinearSolver, J):
-    """Built-in preconditioners for materialized Jacobians: 'jacobi'
+    """Built-in preconditioners for materialized Jacobians.  'jacobi'
     scales by the diagonal (none for the matrix-free operator, as in the
-    JAX package); 'device_lu' is ROADMAP A.23."""
+    JAX package).  'device_lu' is the exact host-factored, device-applied
+    sparse LU (``ops/device_lu.py``): one refresh a Newton linearization,
+    then every Krylov iteration applies the factors on the device.  Where
+    no plan applies (J not CSR, an unsupported schedule) it proceeds
+    unpreconditioned, as the JAX package does; the JAX package's
+    ``precond_unavailable`` message comes with the verbosity layer
+    (ROADMAP A.18)."""
     if cfg.precond == "device_lu":
-        raise NotImplementedError(
-            "precond='device_lu' (the device-applied sparse LU) is ROADMAP "
-            "A.23")
+        from ..ops.device_lu import device_lu_preconditioner
+        from ..ops.sparse import CSR
+        return device_lu_preconditioner(J) if isinstance(J, CSR) else None
     if cfg.precond != "jacobi" or isinstance(J, StatefulJacobianOperator):
         return None
     diag = J.diagonal()
@@ -247,10 +255,13 @@ def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
     if cfg.linsolve.is_krylov or isinstance(J, StatefulJacobianOperator):
         return _krylov_solve(cfg, ctx, J, fu, krylov_rtol, u)
     if isinstance(J, (CSR, DIA, ELL)):
-        raise NotImplementedError(
-            f"linear solver {cfg.linsolve.method!r} on a sparse Jacobian "
-            f"(the sparse direct route) is ROADMAP A.23; use "
-            f"LinearSolver(method='gmres')")
+        if not ctx.square or isinstance(J, ELL):
+            J = J.todense()          # an ELL or non-square J goes dense
+        else:
+            du, ok = _sparse_direct(cfg, J, fu.reshape(-1))
+            if u is not None and u.dim() != 1:
+                du = du.reshape(u.shape)
+            return du, ok, 0, 0
     fu_flat = fu.reshape(-1)
     if ctx.square:
         x, ok = solve_dense(J, fu_flat, cfg.linsolve)
@@ -261,6 +272,29 @@ def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
     if u is not None and u.dim() != 1:
         du = du.reshape(u.shape)
     return du, ok, 0, 0
+
+
+def _sparse_direct(cfg: NewtonDescent, J, fu_flat):
+    """The sparse direct route (the KLU role): PCR, block cyclic reduction,
+    the host AMD LU or BiCGStab by ``solve_sparse_direct``.  With
+    ``method='sparse_lu_device'`` on a CSR J, the device-applied factor
+    first: one refresh (the host refactorization), then the triangular
+    sweeps on the device; a re-pivot falls back to the exact route for
+    that step (the JAX package's ``lax.cond``, decided on the host).
+    Returns ``(δu, ok)``."""
+    from ..ops.direct_sparse import solve_sparse_direct
+    from ..ops.sparse import CSR
+    if isinstance(J, CSR) and cfg.linsolve.method == "sparse_lu_device":
+        from ..ops.device_lu import device_lu_for
+        lu = device_lu_for(J.indptr, J.indices, J.shape[0],
+                           dtype=J.data.dtype)
+        if lu is not None:
+            x, ok = lu.solve(lu.refresh(J.data), fu_flat)
+            if ok:
+                return -x, torch.ones((), dtype=torch.bool,
+                                      device=x.device)
+    x, ok = solve_sparse_direct(J, fu_flat)
+    return -x, ok
 
 
 def _damped_system(cfg: DampedNewtonDescent, state: DampedNewtonState,

@@ -1,1 +1,1 @@
-from . import brusselator, reaction_diffusion  # noqa: F401
+from . import bratu, brusselator, reaction_diffusion, snes_ex2  # noqa: F401

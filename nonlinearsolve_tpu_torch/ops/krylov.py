@@ -1,4 +1,7 @@
-"""Matrix-free restarted GMRES (the port of ``ops/krylov.py``'s ``gmres``).
+"""Matrix-free Krylov solvers (the port of ``ops/krylov.py``): restarted
+GMRES, BiCGStab, CG and MINRES.
+
+GMRES:
 
 Left-preconditioned GMRES(m) with classical Gram–Schmidt, a second pass
 (CGS2) only when the Rutishauser test sees cancellation, Givens rotations
@@ -16,6 +19,12 @@ runs, one per restart and one at the start.  The JAX version's chunked
 basis prefixes (a ``lax.switch`` to bound HBM reads on the TPU) become
 slices ``V[:k+1]``; sums are taken in another order, which the tests'
 tolerances allow for.
+
+BiCGStab, CG and MINRES keep their short recurrences' scalars on the device
+as 0-d tensors (the JAX package's ``while_loop`` carry, op for op) and read
+the device once an iteration: the loop test (the residual norm and, where
+the JAX loop has one, its breakdown flag) in one ``fetch``.  Iteration
+counts, the stopping rule and ``success`` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from .._backend import fetch, np_dtype
+from ..utils.norms import l2_norm, tree_dot
 
 
 class KrylovResult(NamedTuple):
@@ -162,10 +172,150 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                         success=bool(rnorm <= tol) and bool(finite))
 
 
+def _short_setup(b, x0, maxiter, rtol, atol, M):
+    """What BiCGStab, CG and MINRES share: ``(maxiter, M, x0, the numpy
+    scalar type of b's dtype)``, with maxiter 2n and x0 zero by default."""
+    if b.is_complex():
+        raise NotImplementedError("complex Krylov states are ROADMAP A.33")
+    npdt = np_dtype(b.dtype)
+    if maxiter is None:
+        maxiter = 2 * b.numel()
+    return (maxiter, M or _identity_precond,
+            torch.zeros_like(b) if x0 is None else x0, npdt)
+
+
+def _safe(t):
+    """``where(t == 0, 1, t)`` on a 0-d tensor."""
+    return torch.where(t == 0, torch.ones_like(t), t)
+
+
+def _result(x, rnorm, tol, it):
+    finite, = fetch(torch.isfinite(x).all())
+    return KrylovResult(x=x, residual_norm=rnorm, iterations=it,
+                        success=bool(rnorm <= tol) and bool(finite))
+
+
+def bicgstab(matvec: Callable, b: torch.Tensor,
+             x0: Optional[torch.Tensor] = None, *,
+             maxiter: Optional[int] = None, rtol=1e-5, atol=0.0,
+             M: Optional[Callable] = None) -> KrylovResult:
+    """Preconditioned BiCGStab (van der Vorst), the JAX package's loop:
+    it stops when ‖r‖ ≤ tol, after ``maxiter`` iterations, or on a
+    breakdown (a non-finite residual, ρ = 0 or r̂·v = 0)."""
+    maxiter, M, x, npdt = _short_setup(b, x0, maxiter, rtol, atol, M)
+    r = b - matvec(x)
+    rhat = r
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    p, v = torch.zeros_like(b), torch.zeros_like(b)
+    rho = alpha = omega = one
+    b_norm, rnorm = fetch(l2_norm(b), l2_norm(r))
+    tol = np.maximum(npdt(rtol) * b_norm, npdt(atol))
+    it, ok = 0, True
+    while rnorm > tol and it < maxiter and ok:
+        rho_new = tree_dot(rhat, r)
+        beta = (rho_new / _safe(rho)) * (alpha / _safe(omega))
+        p = r + beta * (p + (-omega) * v)
+        phat = M(p)
+        v = matvec(phat)
+        denom = tree_dot(rhat, v)
+        alpha = rho_new / _safe(denom)
+        s = r + (-alpha) * v
+        shat = M(s)
+        t = matvec(shat)
+        omega = tree_dot(t, s) / _safe(tree_dot(t, t))
+        x = (x + omega * shat) + alpha * phat
+        r = s + (-omega) * t
+        rho = rho_new
+        rn = l2_norm(r)
+        rnorm, ok = fetch(rn, torch.isfinite(rn) & (rho_new != 0)
+                          & (denom != 0))
+        it += 1
+    return _result(x, rnorm, tol, it)
+
+
+def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+       *, maxiter: Optional[int] = None, rtol=1e-5, atol=0.0,
+       M: Optional[Callable] = None) -> KrylovResult:
+    """Preconditioned conjugate gradients (SPD systems), the JAX package's
+    loop: it stops when ‖r‖ ≤ tol or after ``maxiter`` iterations."""
+    maxiter, M, x, npdt = _short_setup(b, x0, maxiter, rtol, atol, M)
+    r = b - matvec(x)
+    z = M(r)
+    p = z
+    rz = tree_dot(r, z)
+    b_norm, rnorm = fetch(l2_norm(b), l2_norm(r))
+    tol = np.maximum(npdt(rtol) * b_norm, npdt(atol))
+    it = 0
+    while rnorm > tol and it < maxiter:
+        Ap = matvec(p)
+        alpha = rz / _safe(tree_dot(p, Ap))
+        x = x + alpha * p
+        r = r + (-alpha) * Ap
+        z = M(r)
+        rz_new = tree_dot(r, z)
+        p = z + (rz_new / _safe(rz)) * p
+        rz = rz_new
+        rnorm, = fetch(l2_norm(r))
+        it += 1
+    return _result(x, rnorm, tol, it)
+
+
+def minres(matvec: Callable, b: torch.Tensor,
+           x0: Optional[torch.Tensor] = None, *,
+           maxiter: Optional[int] = None, rtol=1e-5, atol=0.0,
+           M: Optional[Callable] = None) -> KrylovResult:
+    """MINRES (Paige–Saunders) for symmetric, possibly indefinite systems;
+    ``M`` must be SPD when given.  The JAX package's loop: it stops when the
+    recurrence's residual estimate is ≤ tol, after ``maxiter`` iterations or
+    on a breakdown (γ = 0, a non-finite estimate); ``residual_norm`` is the
+    true ‖b − A x‖ (one more product), and ``success`` holds it to 10·tol."""
+    maxiter, M, x, npdt = _short_setup(b, x0, maxiter, rtol, atol, M)
+    r0 = b - matvec(x)
+    y0 = M(r0)
+    beta0 = torch.sqrt(torch.clamp(tree_dot(r0, y0), min=0.0))
+    safe_b0 = _safe(beta0)
+    v, y = (1.0 / safe_b0) * r0, (1.0 / safe_b0) * y0
+    v_old, w, w_old = (torch.zeros_like(b) for _ in range(3))
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    beta, eta = zero, beta0
+    c0, c1, s0, s1 = zero + 1.0, zero + 1.0, zero, zero
+    b_norm, r_norm = fetch(l2_norm(b), beta0)
+    tol = np.maximum(npdt(rtol) * b_norm, npdt(atol))
+    it, ok = 0, True
+    while r_norm > tol and it < maxiter and ok:
+        Av = matvec(y)
+        alpha = tree_dot(y, Av)
+        v_new = Av - alpha * v - beta * v_old
+        y_new = M(v_new)
+        beta_new = torch.sqrt(torch.clamp(tree_dot(v_new, y_new), min=0.0))
+        safe_bn = _safe(beta_new)
+        # the previous rotations on the new tridiagonal column
+        delta = c0 * alpha - c1 * s0 * beta
+        rho2 = s1 * beta
+        rho3 = s0 * alpha + c1 * c0 * beta
+        # the new rotation annihilating beta_new
+        gamma = torch.sqrt(delta ** 2 + beta_new ** 2)
+        safe_g = _safe(gamma)
+        cs, sn = delta / safe_g, beta_new / safe_g
+        w, w_old = (y - rho3 * w - rho2 * w_old) / safe_g, w
+        x = x + (cs * eta) * w
+        rn = torch.abs(sn * eta)
+        eta = -sn * eta
+        v, v_old = (1.0 / safe_bn) * v_new, v
+        y = (1.0 / safe_bn) * y_new
+        beta = beta_new
+        c0, c1, s0, s1 = cs, c0, sn, s0
+        r_norm, ok = fetch(rn, torch.isfinite(rn) & (gamma != 0))
+        it += 1
+    true_r, = fetch(l2_norm(b - matvec(x)))
+    return _result(x, true_r, np.maximum(tol, npdt(10) * tol), it)
+
+
 def solve_krylov(method: str, matvec, b, x0=None, **kw) -> KrylovResult:
     if method == "gmres":
         return gmres(matvec, b, x0, **kw)
-    if method in ("bicgstab", "cg", "minres"):
-        raise NotImplementedError(
-            f"Krylov method {method!r} is ROADMAP A.33")
-    raise ValueError(f"unknown Krylov method {method!r}")
+    solver = {"bicgstab": bicgstab, "cg": cg, "minres": minres}.get(method)
+    if solver is None:
+        raise ValueError(f"unknown Krylov method {method!r}")
+    kw.pop("restart", None)
+    return solver(matvec, b, x0, **kw)

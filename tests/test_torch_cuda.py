@@ -1521,3 +1521,113 @@ def test_gauss_jordan_graph_vector_then_block_on_card(cuda, n):
         assert Xi.shape == (n, n)
         assert float((A @ Xi - torch.eye(n, dtype=torch.float64,
                                           device=cuda)).abs().max()) < 1e-12
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the sparse direct route (direct_sparse.py, device_lu.py)
+# ---------------------------------------------------------------------------
+
+def _bratu_lu(N, dtype):
+    """A DeviceLU plan of the Bratu pattern at N² and seeded Jacobian-like
+    data (diagonal −4, off-diagonals 1, each scaled by U(0.9, 1.1))."""
+    from nonlinearsolve_tpu_torch.models import bratu as tbratu
+    from nonlinearsolve_tpu_torch.ops.device_lu import DeviceLU
+    pat = tbratu.sparsity_pattern(N)
+    lu = DeviceLU(pat.indptr, pat.indices, N * N, dtype=dtype)
+    rng = np.random.default_rng(N)
+    diag = pat.indices == pat.row_ids
+    data = rng.uniform(0.9, 1.1, pat.nnz) * np.where(diag, -4.0, 1.0)
+    return lu, data, rng.standard_normal(N * N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_k5_on_device_lu_stage_tables_on_card(cuda, dtype):
+    """K5 on every gather table of the 64² Bratu plan (the ELL stages and
+    the dense stages' pre-gathers), with the refreshed values, against its
+    plain version."""
+    from nonlinearsolve_tpu_torch.ops import spmv as tsp
+    lu, data, _ = _bratu_lu(64, TORCH_DT[dtype])
+    _Ud, Lst, Ust, ok = lu.refresh_host(data, device=cuda)
+    assert ok
+    tables = lu.tables(cuda)
+    n = 64 * 64
+    x = torch.randn(n, dtype=TORCH_DT[dtype],
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    checked = 0
+    for stages, vals, tabs in ((lu.Lstages, Lst, tables["L"]),
+                               (lu.Ustages, Ust, tables["U"])):
+        for stage, sv, (indptr, indices) in zip(stages, vals, tabs):
+            v = sv if stage[0] == "ell" else sv[2]
+            if indices.shape[0] == 0:
+                continue
+            before = _backend.LAUNCHES["gather_spmv"]
+            got = tsp.gather_spmv(indptr, indices, v, x)
+            assert _backend.LAUNCHES["gather_spmv"] == before + 1
+            _close(got, tsp.gather_spmv_plain(indptr, indices, v, x), dtype)
+            checked += 1
+    assert checked == lu.stage_summary()["k5_launches_per_solve"] == 11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [32, 64])
+def test_device_lu_solve_on_card_matches_cpu(cuda, N):
+    """DeviceLU.solve on the card against the port's CPU solve of the same
+    refreshed state (f64, rel-inf 1e-12); K5 launched once a gather."""
+    lu, data, b = _bratu_lu(N, torch.float64)
+    x_cpu, ok_cpu = lu.solve(lu.refresh_host(data, device="cpu"),
+                             torch.tensor(b))
+    state = lu.refresh_host(data, device=cuda)
+    before = _backend.LAUNCHES["gather_spmv"]
+    x_gpu, ok_gpu = lu.solve(state, torch.tensor(b, device=cuda))
+    assert ok_cpu and ok_gpu
+    assert _backend.LAUNCHES["gather_spmv"] - before == \
+        lu.stage_summary()["k5_launches_per_solve"]
+    _close(x_gpu, x_cpu, "float64")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,N,ls", [
+    ("bcr", 24, {}), ("host_lu", 72, {}), ("pcr", None, {}),
+    ("device_lu", 32, {"method": "sparse_lu_device"})])
+def test_sparse_direct_routes_on_card_match_cpu(cuda, route, N, ls):
+    """Bratu (or SNES ex2 for PCR) with a sparse-AD Jacobian on each
+    direct route, on the card and on the CPU: the same retcode and
+    NLStats, roots within 1e-10."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.models import bratu as tbratu
+    from nonlinearsolve_tpu_torch.models import snes_ex2 as tsnes
+    alg = tnls.NewtonRaphson(autodiff=tnls.JacobianPolicy(mode="sparse"),
+                             linsolve=tnls.LinearSolver(**ls))
+    sols = {}
+    for dev in ("cpu", cuda):
+        prob = (tsnes.make_problem(128, sparse=True, device=dev)
+                if N is None else tbratu.make_problem(N, device=dev))
+        _backend.reset_counters()
+        sols[str(dev)] = tnls.solve(prob, alg, abstol=1e-10)
+        assert _backend.ROUTES[route] == sols[str(dev)].stats.nsolve
+    cpu, gpu = sols["cpu"], sols[str(cuda)]
+    assert cpu.retcode == gpu.retcode == tnls.ReturnCode.Success
+    assert vars(cpu.stats) == vars(gpu.stats)
+    assert float((gpu.u.cpu() - cpu.u).abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_two_sparse_lu_device_solves_in_a_row_on_card(cuda):
+    """The plan cache serves a second solve on the pattern (the JAX
+    package's second solve raises there); each runs K5 on its sweeps."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.models import bratu as tbratu
+    from nonlinearsolve_tpu_torch.ops import device_lu as tdl
+    alg = tnls.NewtonRaphson(autodiff=tnls.JacobianPolicy(mode="sparse"),
+                             linsolve=tnls.LinearSolver(
+                                 method="sparse_lu_device"))
+    roots = []
+    for _ in range(2):
+        before = _backend.LAUNCHES["gather_spmv"]
+        sol = tnls.solve(tbratu.make_problem(64, device=cuda), alg,
+                         abstol=1e-10)
+        assert sol.retcode == tnls.ReturnCode.Success
+        assert _backend.LAUNCHES["gather_spmv"] > before
+        roots.append(sol.u)
+    assert torch.equal(roots[0], roots[1])

@@ -46,6 +46,11 @@ def test_port_imports_no_jax():
             "nonlinearsolve_tpu_torch.ops.sparse_jac, "
             "nonlinearsolve_tpu_torch.ops.stencil3d, "
             "nonlinearsolve_tpu_torch.models.reaction_diffusion, "
+            "nonlinearsolve_tpu_torch.models.bratu, "
+            "nonlinearsolve_tpu_torch.models.snes_ex2, "
+            "nonlinearsolve_tpu_torch.ops.krylov, "
+            "nonlinearsolve_tpu_torch.ops.direct_sparse, "
+            "nonlinearsolve_tpu_torch.ops.device_lu, "
             "nonlinearsolve_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'nonlinearsolve_tpu'"
@@ -131,8 +136,10 @@ def test_unported_routes_raise():
         tnls.solve(prob, tnls.NewtonRaphson(
             linsolve=tnls.LinearSolver(method="gmres"),
             linesearch=object()))
+    lsq = tnls.NonlinearLeastSquaresProblem(
+        lambda u, p: torch.cat([u, u[:1]]), torch.ones(3, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="A.33"):
-        tnls.solve(prob, tnls.NewtonRaphson(        # the other Krylov
+        tnls.solve(lsq, tnls.GaussNewton(           # normal-form Krylov
             linsolve=tnls.LinearSolver(method="bicgstab")))
     with pytest.raises(NotImplementedError, match="A.17"):
         tnls.FastShortcutNonlinearPolyalg(          # the simple solvers
@@ -142,9 +149,12 @@ def test_unported_routes_raise():
         tnls.solve(shaped_sparse, tnls.NewtonRaphson(
             autodiff=tnls.JacobianPolicy(mode="sparse"),
             linsolve=tnls.LinearSolver(method="gmres")))
-    with pytest.raises(NotImplementedError, match="A.23"):
-        tnls.solve(shaped_sparse, tnls.NewtonRaphson(
-            autodiff=tnls.JacobianPolicy(mode="sparse")))
+    # the sparse direct route runs since ROADMAP A.23 (on a shaped state)
+    from nonlinearsolve_tpu_torch.models import bratu as tbratu
+    sol = tnls.solve(tbratu.make_problem(8, device="cpu"),
+                     tnls.NewtonRaphson(
+                         autodiff=tnls.JacobianPolicy(mode="sparse")))
+    assert sol.retcode == tnls.ReturnCode.Success
     with pytest.raises(NotImplementedError, match="A.33"):
         tnls.solve(tnls.NonlinearProblem(lambda u, p: u - 1.0,
                                          torch.tensor(0.5)), _alg())

@@ -12,8 +12,9 @@ on the same numpy problem data.
   tier refuses it) and the preconditioner conjugated by the permutation,
   against the JAX package's CPU default (CSR).  Its root, permuted back,
   is the DIA route's.
-- The refusals: a shaped state with a sparse Jacobian and GMRES (the JAX
-  package fails there too), and the sparse direct route (ROADMAP A.23).
+- The refusal of a shaped state with a sparse Jacobian and GMRES (the JAX
+  package fails there too); the sparse direct route (ROADMAP A.23) on the
+  same flat problem.
 """
 
 import gc
@@ -196,8 +197,16 @@ def test_shaped_state_with_sparse_krylov_raises():
 
 @pytest.mark.parametrize("mode", ["sparse", "auto"])
 def test_sparse_direct_route_names_a23(mode):
+    """The sparse direct route (ROADMAP A.23), refused until it was ported:
+    with the default linear solver the flat Brusselator's periodic pattern
+    at N=8 takes RCM + block cyclic reduction, in both packages, with the
+    same retcode and NLStats and roots within 1e-10."""
     N = 8
-    _, tprob = _problems(N)
-    alg = tnls.NewtonRaphson(autodiff=tnls.JacobianPolicy(mode=mode))
-    with pytest.raises(NotImplementedError, match="A.23"):
-        tnls.solve(tprob, alg, abstol=1e-8)
+    jprob, tprob = _problems(N)
+    jsol = jnls.solve(jprob, jnls.NewtonRaphson(
+        autodiff=jnls.JacobianPolicy(mode=mode)), abstol=1e-8)
+    _backend.reset_counters()
+    tsol = tnls.solve(tprob, tnls.NewtonRaphson(
+        autodiff=tnls.JacobianPolicy(mode=mode)), abstol=1e-8)
+    _check_equal(jsol, tsol)
+    assert _backend.ROUTES["rcm_bcr"] == tsol.stats.nsolve > 0
