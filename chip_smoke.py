@@ -228,7 +228,27 @@ check raises, so the script exits non-zero.
    K4 on the "dia" tier of the Jacobians of (e) and (f) at their roots
    (at TOL) and K5's selection on the CSR assembly tables of (a), (c) and
    (f) (bit for bit), f64 and f32, against their plain versions;
-22. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+22. the batched tier (counters at 0 just before each run, read just
+   after), f64: (a) the simple rows of tests/test_23_problems.py CASES,
+   lone solves at maxiters 10000, the cases of under 1000 JAX steps: the
+   broken sets equal to CASES'; (b) problem 9 (discrete boundary value,
+   n = 10) from 262,144 seeded starts x0·(1 + 0.1ξ), ξ ~ U(−1, 1), each
+   simple engine and SimpleTrustRegion with the NLSolve.jl rule as one
+   lockstep batch (``solve_ensemble``, maxiters 200); (c) problem 10 lifted to n = 64,
+   16,384 starts, SimpleLimitedMemoryBroyden on its 27-deep ring; (d) u² −
+   p, u0 = [1.0], SimpleNewtonRaphson over 1,048,576 values of p =
+   linspace(0.5, 10): roots within 1e-8 of √p; (e) the eight bracketing
+   methods on u² − p over (0.1, 5.0) for the same p: every code
+   successful, roots within 1e-8 of √p, and ModAB's implicit-function
+   derivative du/dp within rel 1e-8 of 1/(2√p).  In (b)–(d) 64 seeded rows
+   are solved alone (B = 1): the batch's retcode and a root within rel-inf
+   1e-10, and the NLStats for the Jacobian engines (the secant engines'
+   differences are counted); every row that reports Success has |F|_inf
+   ≤ abstol.  Each run: warm wall (median of 3), trajectories per second,
+   steps of the slowest row, host reads, the device idle share and three
+   largest kernels (torch.profiler) and the peak memory.  No custom
+   kernel is launched;
+23. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -2312,6 +2332,307 @@ def sparse_direct_phase(torch, nls, _backend, spmv, card):
             stage_rec, big_rec, path_checks)
 
 
+# Phase 22: the batched tier.  The simple rows of tests/test_23_problems.py
+# CASES: (algorithm, the JAX package's broken set, the problems that take
+# 1000 steps or more in the JAX package, left to
+# tests/test_torch_23_simple_long.py on the CPU).
+def _simple_rows(nls):
+    return {
+        "SimpleNewtonRaphson": (nls.SimpleNewtonRaphson, {1}, {1}),
+        "SimpleBroyden": (nls.SimpleBroyden, {1, 6, 11, 18},
+                          {1, 6, 11, 18, 21}),
+        "SimpleKlement": (nls.SimpleKlement, {1, 2, 4, 5, 6, 7, 11, 13, 22},
+                          {1, 2, 4, 5, 6, 7, 8, 9, 11, 12, 13, 22}),
+        "SimpleDFSane": (nls.SimpleDFSane, {1, 2, 3, 5, 21},
+                         {1, 2, 3, 4, 5, 6, 21}),
+        "SimpleHalley": (nls.SimpleHalley, {1}, {1}),
+        "SimpleTrustRegion": (nls.SimpleTrustRegion, {11, 21}, {21}),
+        "SimpleTrustRegion-NLsolve": (
+            lambda: nls.SimpleTrustRegion(nlsolve_update_rule=True), {21},
+            {21}),
+        "SimpleLimitedMemoryBroyden": (nls.SimpleLimitedMemoryBroyden,
+                                       {1, 6, 11, 18}, {1, 6, 11, 18, 21}),
+    }
+
+
+# the engines of (b): name -> (algorithm, a Jacobian engine: its lone solves
+# must give the batch's NLStats)
+def _batch_engines(nls):
+    return {
+        "SimpleNewtonRaphson": (nls.SimpleNewtonRaphson, True),
+        "SimpleBroyden": (nls.SimpleBroyden, False),
+        "SimpleKlement": (nls.SimpleKlement, False),
+        "SimpleDFSane": (nls.SimpleDFSane, False),
+        "SimpleHalley": (nls.SimpleHalley, True),
+        "SimpleTrustRegion": (nls.SimpleTrustRegion, True),
+        "SimpleTrustRegion-NLsolve": (
+            lambda: nls.SimpleTrustRegion(nlsolve_update_rule=True), True),
+        "SimpleLimitedMemoryBroyden": (nls.SimpleLimitedMemoryBroyden,
+                                       False),
+    }
+
+
+BATCH_GROUPS = {
+    "cuBLAS (batched J·v, Jᵀ·v, ring products)": (
+        "gemv", "gemm", "xmma", "cutlass", "cublas", "dot_kernel"),
+    "cuSOLVER / SVD": ("getrf", "getrs", "gesvd", "cusolver", "syevj"),
+    "reductions (norms, flags)": ("reduce",),
+    "where (frozen rows)": ("where",),
+    "elementwise (residual, steps, Gauss–Jordan)": (
+        "elementwise", "vectorized", "unrolled", "copy", "fill", "index",
+        "cat", "scatter", "arange")}
+LONE_CHECKS = 64
+
+
+def _stats_dict(stats, i=None):
+    keys = ("nf", "njacs", "nfactors", "nsolve", "nsteps")
+    if i is None:
+        return {k: int(getattr(stats, k)) for k in keys}
+    return {k: int(getattr(stats, k)[i]) for k in keys}
+
+
+def batched_run_report(torch, _backend, run, label, B, card):
+    """One batched solve: the first run (counted), three warm walls, one
+    profiled run and the peak memory of a run.  Returns (solution, the
+    record's timing fields)."""
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    sol = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+    walls = warm_walls(torch, run)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prof = profile_device(torch, run, groups=BATCH_GROUPS, host_events=False)
+    peak = torch.cuda.max_memory_allocated()
+    median = sorted(walls)[1]
+    rec = {"B": B, "first_solve_s": first_s, "warm_wall_s": walls,
+           "warm_wall_s_median": median,
+           "trajectories_per_s": B / median,
+           "slowest_row_steps": int(sol.stats.nsteps.max()),
+           "host_reads": sol.counters["host_syncs"],
+           "device_idle_share": prof["device_idle_share"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_ms_by_class": prof["device_ms_by_group"],
+           "top3_device_ms": prof["top_device_ms"][:3],
+           "peak_memory_bytes": peak,
+           "peak_memory_over_resident_bytes": peak - base,
+           "custom_kernel_launches": launches, "card": card}
+    return sol, rec
+
+
+def _rel_inf(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+
+def lone_checks(torch, nls, make, base_prob, U0, sol, rows, jacobian,
+                lone_prob=None, **kw):
+    """Solve the batch's ``rows`` alone (B = 1) on the card: each must give
+    the batch's retcode and a root within rel-inf 1e-10 of the batch row's;
+    a Jacobian engine also its NLStats.  Returns (failures, the NLStats
+    differences of the others, seconds)."""
+    t0 = time.perf_counter()
+    bad, diffs = [], []
+    for i in rows:
+        prob = (lone_prob(i) if lone_prob is not None
+                else base_prob.remake(u0=U0[i]))
+        lone = nls.solve(prob, make(), **kw)
+        batch_stats = _stats_dict(sol.stats, i)
+        lone_stats = _stats_dict(lone.stats)
+        rel = _rel_inf(lone.u.reshape(-1), sol.u[i].reshape(-1))
+        if int(lone.retcode) != int(sol.retcode[i]) or not rel <= 1e-10:
+            bad.append({"row": int(i), "lone": int(lone.retcode),
+                        "batch": int(sol.retcode[i]), "rel_inf": rel})
+        if lone_stats != batch_stats:
+            diffs.append({"row": int(i), "lone": lone_stats,
+                          "batch": batch_stats})
+            if jacobian:
+                bad.append({"row": int(i), "stats": "differ"})
+    torch.cuda.synchronize()
+    return bad, diffs, time.perf_counter() - t0
+
+
+def batched_tier_phase(torch, nls, _backend, card):
+    """Phase 22 (see the module docstring)."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.models import problems23 as p23
+    dev, f64 = torch.device("cuda"), torch.float64
+    t_phase = time.perf_counter()
+    failed = []
+    abstol = 3.0e-13                      # the f64 default
+    pick = np.random.default_rng(2213)
+
+    # (a) the simple rows of the 23-problem suite, lone solves (B = 1)
+    for row, (make, broken, long) in _simple_rows(nls).items():
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        got, steps, reads = set(), {}, 0
+        for tp in p23.PROBLEMS_23:
+            if tp.index in long:
+                continue
+            sol = nls.solve(nls.NonlinearProblem(
+                tp.f, torch.tensor(tp.start, dtype=f64, device=dev)),
+                make(), maxiters=10000)
+            if not float(tp.f(sol.u).abs().max()) <= 1e-4:
+                got.add(tp.index)
+            steps[tp.index] = sol.stats.nsteps
+            reads += sol.counters["host_syncs"]
+        launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+        expected = broken - long
+        secs = time.perf_counter() - t0
+        emit({"phase": "batched_problems23", "row": row,
+              "broken": sorted(got), "expected": sorted(expected),
+              "in_tests_test_torch_23_simple_long": sorted(long),
+              "nsteps": steps, "steps": sum(steps.values()),
+              "host_reads": reads, "seconds": secs,
+              "ms_per_step": 1e3 * secs / max(sum(steps.values()), 1),
+              "custom_kernel_launches": launches, "card": card})
+        if got != expected or launches:
+            failed.append(f"(a) {row}")
+
+    def starts(x0, B, seed):
+        xi = np.random.default_rng(seed).uniform(-1.0, 1.0,
+                                                 size=(B, len(x0)))
+        return torch.tensor(np.asarray(x0) * (1.0 + 0.1 * xi), dtype=f64,
+                            device=dev)
+
+    def success_resid_ok(f, sol):
+        ok = sol.retcode == int(nls.ReturnCode.Success)
+        if not bool(ok.any()):
+            return True, 0.0
+        F = torch.func.vmap(lambda u: f(u, None))(sol.u[ok])
+        worst = float(F.abs().max())
+        return worst <= abstol, worst
+
+    # (b) problem 9 (discrete boundary value), n = 10, 262,144 starts, at
+    # maxiters 200 (SimpleKlement needs 1431 steps from the nominal start in
+    # the JAX package: its rows all end MaxIters, and bound the phase)
+    B = 262144
+    tp9 = p23.PROBLEMS_23[8]
+    U0 = starts(tp9.start, B, 9)
+    base = nls.NonlinearProblem(tp9.f, U0[0])
+    rows = pick.choice(B, LONE_CHECKS, replace=False)
+    for name, (make, jacobian) in _batch_engines(nls).items():
+        run = lambda: nls.solve_ensemble(base, make(), u0s=U0,  # noqa: E731
+                                         maxiters=200)
+        sol, rec = batched_run_report(torch, _backend, run, name, B, card)
+        codes = dict(zip(*[t.tolist() for t in torch.unique(
+            sol.retcode, return_counts=True)]))
+        resid_ok, worst = success_resid_ok(tp9.f, sol)
+        bad, diffs, lone_s = lone_checks(torch, nls, make, base, U0, sol,
+                                         rows, jacobian, maxiters=200)
+        ok = resid_ok and not bad and not rec["custom_kernel_launches"]
+        emit({"phase": "batched_problem9", "engine": name, "n": 10,
+              "maxiters": 200,
+              "retcodes": codes, "success_resid_inf_max": worst,
+              "abstol": abstol, "lone_checked": LONE_CHECKS,
+              "lone_failures": bad, "lone_stats_differences": len(diffs),
+              "lone_stats_difference_examples": diffs[:3],
+              "lone_seconds": lone_s, **rec, "ok": ok})
+        if not ok:
+            failed.append(f"(b) {name}")
+        del sol
+
+    # (c) problem 10 (discrete integral) lifted to n = 64, 16,384 starts,
+    # SimpleLimitedMemoryBroyden on its 27-deep ring
+    B = 16384
+    t = np.arange(1, 65) / 65.0
+    U0 = starts(t * (t - 1.0), B, 10)
+    base = nls.NonlinearProblem(p23._discrete_integral, U0[0])
+    make = nls.SimpleLimitedMemoryBroyden
+    run = lambda: nls.solve_ensemble(base, make(), u0s=U0)  # noqa: E731
+    sol, rec = batched_run_report(torch, _backend, run, "lbroyden", B, card)
+    codes = dict(zip(*[t_.tolist() for t_ in torch.unique(
+        sol.retcode, return_counts=True)]))
+    resid_ok, worst = success_resid_ok(p23._discrete_integral, sol)
+    rows = pick.choice(B, LONE_CHECKS, replace=False)
+    bad, diffs, lone_s = lone_checks(torch, nls, make, base, U0, sol, rows,
+                                     False)
+    ok = resid_ok and not bad and not rec["custom_kernel_launches"]
+    emit({"phase": "batched_problem10_n64",
+          "engine": "SimpleLimitedMemoryBroyden", "n": 64, "ring": 27,
+          "retcodes": codes, "success_resid_inf_max": worst,
+          "lone_checked": LONE_CHECKS, "lone_failures": bad,
+          "lone_stats_differences": len(diffs),
+          "lone_stats_difference_examples": diffs[:3],
+          "lone_seconds": lone_s, **rec, "ok": ok})
+    if not ok:
+        failed.append("(c)")
+    del sol, U0
+
+    # (d) u² − p, u0 = [1.0], SimpleNewtonRaphson over 1,048,576 values of p
+    B = 1 << 20
+    ps = torch.linspace(0.5, 10.0, B, dtype=f64, device=dev)
+    sq = lambda u, q: u * u - q                            # noqa: E731
+    base = nls.NonlinearProblem(sq, torch.ones(1, dtype=f64, device=dev))
+    run = lambda: nls.solve_ensemble(                      # noqa: E731
+        base, nls.SimpleNewtonRaphson(), ps=ps)
+    sol, rec = batched_run_report(torch, _backend, run, "quadratic", B, card)
+    err = float((sol.u[:, 0] - ps.sqrt()).abs().max())
+    rows = pick.choice(B, LONE_CHECKS, replace=False)
+    bad, diffs, lone_s = lone_checks(
+        torch, nls, nls.SimpleNewtonRaphson, base, None, sol, rows, True,
+        lone_prob=lambda i: base.remake(p=ps[i]))
+    all_success = bool((sol.retcode == int(nls.ReturnCode.Success)).all())
+    ok = (all_success and err <= 1e-8 and not bad
+          and not rec["custom_kernel_launches"])
+    emit({"phase": "batched_quadratic_ensemble", "B": B,
+          "engine": "SimpleNewtonRaphson", "all_success": all_success,
+          "root_inf_distance_to_sqrt_p": err, "limit": 1e-8,
+          "lone_checked": LONE_CHECKS, "lone_failures": bad,
+          "lone_stats_differences": len(diffs), "lone_seconds": lone_s,
+          **rec, "ok": ok})
+    if not ok:
+        failed.append("(d)")
+    del sol
+
+    # (e) the eight bracketing methods on u² − p over (0.1, 5.0)
+    left = torch.tensor(0.1, dtype=f64, device=dev)
+    right = torch.tensor(5.0, dtype=f64, device=dev)
+    for name in ("Bisection", "Falsi", "Ridder", "Brent", "ITP", "Alefeld",
+                 "Muller", "ModAB"):
+        alg = getattr(nls, name)()
+        prob = nls.IntervalNonlinearProblem(sq, (left, right), ps)
+        run = lambda: nls.solve(prob, alg)                 # noqa: E731
+        sol, rec = batched_run_report(torch, _backend, run, name, B, card)
+        codes = dict(zip(*[t_.tolist() for t_ in torch.unique(
+            sol.retcode, return_counts=True)]))
+        successful = bool(sol.success.all())
+        err = float((sol.u - ps.sqrt()).abs().max())
+        ok = (successful and err <= 1e-8
+              and not rec["custom_kernel_launches"])
+        emit({"phase": "batched_bracketing", "method": name,
+              "retcodes": codes, "all_successful": successful,
+              "root_inf_distance_to_sqrt_p": err, "limit": 1e-8,
+              **rec, "ok": ok})
+        if not ok:
+            failed.append(f"(e) {name}")
+        del sol
+    # the implicit-function derivative du/dp on the card (ModAB)
+    pg = ps.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = nls.solve(nls.IntervalNonlinearProblem(sq, (left, right), pg)).u
+    g, = torch.autograd.grad(u.sum(), pg)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_err = float(((g - 0.5 / ps.sqrt()) / (0.5 / ps.sqrt())).abs().max())
+    ok = grad_err <= 1e-8 and g.device.type == "cuda"
+    emit({"phase": "batched_bracketing_gradient", "method": "ModAB",
+          "B": B, "rel_err_to_half_rsqrt_p": grad_err, "limit": 1e-8,
+          "seconds": grad_s, "ok": ok, "card": card})
+    if not ok:
+        failed.append("(e) gradient")
+    del pg, u, g, ps
+    emit({"phase": "batched_tier_done",
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"batched tier phase failed: {failed}")
+
+
 def main(argv):
     import torch
 
@@ -3369,7 +3690,10 @@ def main(argv):
     sd_launches, lu_stage_rec, lu_big_rec, sd_checks = sparse_direct_phase(
         torch, nls, _backend, spmv, card)
 
-    # --- 22. summary -------------------------------------------------------
+    # --- 22. the batched tier (simple solvers, bracketing, ensembles) -------
+    batched_tier_phase(torch, nls, _backend, card)
+
+    # --- 23. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):

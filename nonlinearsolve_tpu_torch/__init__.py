@@ -20,8 +20,12 @@ searches, ``TrustRegion`` with its seven radius schemes,
 termination modes and ``NonlinearLeastSquaresProblem``; the quasi-Newton
 engine (``Broyden``, ``Klement``, ``LimitedMemoryBroyden``), ``DFSane``,
 ``AndersonAcceleration`` and the polyalgorithms, so ``solve(prob)`` with
-no algorithm runs the JAX package's default ladder.  See ROADMAP.md for
-what is still to come.
+no algorithm runs the JAX package's default ladder; the batched tier: the
+simple solvers (``SimpleNewtonRaphson`` … ``SimpleLimitedMemoryBroyden``),
+the bracketing methods on ``IntervalNonlinearProblem`` (with the
+implicit-function derivative of the root) and ``EnsembleProblem`` /
+``solve_ensemble``, a batch running in lockstep on the device.  See
+ROADMAP.md for what is still to come.
 """
 
 from .core.autodiff import JacobianPolicy, pickchunksize
@@ -30,8 +34,9 @@ from .core.descent import (DampedNewtonDescent, DescentResult, Dogleg,
                            SteepestDescent)
 from .core.linesearch import (BackTracking, LiFukushimaLineSearch,
                               RobustNonMonotoneLineSearch)
-from .core.problems import (NonlinearFunction, NonlinearLeastSquaresProblem,
-                            NonlinearProblem)
+from .core.ensemble import EnsembleProblem, solve_ensemble
+from .core.problems import (IntervalNonlinearProblem, NonlinearFunction,
+                            NonlinearLeastSquaresProblem, NonlinearProblem)
 from .core.returncode import ReturnCode
 from .core.solution import NLStats, NonlinearSolution
 from .core.solve import solve
@@ -51,37 +56,45 @@ from .core.wolfe_linesearch import (HagerZhang, LineSearchesJL, MoreThuente,
 from .ops.linear_solve import LinearSolver
 from .ops.operators import (JacobianOperator, JacVecOperator,
                             StatefulJacobianOperator, VecJacOperator)
-from .solvers import (AndersonAcceleration, Broyden, DFSane,
-                      FastShortcutNLLSPolyalg, FastShortcutNonlinearPolyalg,
-                      GaussNewton, GeneralizedDFSane,
-                      GeneralizedFirstOrderAlgorithm, Klement,
-                      LevenbergMarquardt, LimitedMemoryBroyden,
-                      NewtonRaphson, NonlinearSolvePolyAlgorithm,
-                      PseudoTransient, QuasiNewtonAlgorithm,
-                      RobustMultiNewton, TrustRegion)
+from .solvers import (ITP, Alefeld, AndersonAcceleration, Bisection, Brent,
+                      Broyden, DFSane, Falsi, FastShortcutNLLSPolyalg,
+                      FastShortcutNonlinearPolyalg, GaussNewton,
+                      GeneralizedDFSane, GeneralizedFirstOrderAlgorithm,
+                      Klement, LevenbergMarquardt, LimitedMemoryBroyden,
+                      ModAB, Muller, NewtonRaphson,
+                      NonlinearSolvePolyAlgorithm, PseudoTransient,
+                      QuasiNewtonAlgorithm, Ridder, RobustMultiNewton,
+                      SimpleBroyden, SimpleDFSane, SimpleGaussNewton,
+                      SimpleHalley, SimpleKlement,
+                      SimpleLimitedMemoryBroyden, SimpleNewtonRaphson,
+                      SimpleTrustRegion, TrustRegion)
 from .solvers.first_order import (EisenstatWalkerForcing,
                                   EisenstatWalkerForcing2)
 
 __all__ = [
     "AbsNormSafeBestTerminationMode", "AbsNormSafeTerminationMode",
-    "AbsNormTerminationMode", "AbsTerminationMode", "AndersonAcceleration",
-    "BackTracking", "Broyden", "DFSane", "DampedNewtonDescent",
-    "DescentResult", "Dogleg", "EisenstatWalkerForcing",
-    "EisenstatWalkerForcing2", "FastShortcutNLLSPolyalg",
-    "FastShortcutNonlinearPolyalg", "GaussNewton", "GeneralizedDFSane",
-    "GeneralizedFirstOrderAlgorithm", "GenericTrustRegionScheme",
-    "GeodesicAcceleration", "HagerZhang", "JacVecOperator",
-    "JacobianOperator", "JacobianPolicy", "Klement", "LevenbergMarquardt",
+    "AbsNormTerminationMode", "AbsTerminationMode", "Alefeld",
+    "AndersonAcceleration", "BackTracking", "Bisection", "Brent", "Broyden",
+    "DFSane", "DampedNewtonDescent", "DescentResult", "Dogleg",
+    "EisenstatWalkerForcing", "EisenstatWalkerForcing2", "EnsembleProblem",
+    "Falsi", "FastShortcutNLLSPolyalg", "FastShortcutNonlinearPolyalg",
+    "GaussNewton", "GeneralizedDFSane", "GeneralizedFirstOrderAlgorithm",
+    "GenericTrustRegionScheme", "GeodesicAcceleration", "HagerZhang", "ITP",
+    "IntervalNonlinearProblem", "JacVecOperator", "JacobianOperator",
+    "JacobianPolicy", "Klement", "LevenbergMarquardt",
     "LevenbergMarquardtTrustRegion", "LiFukushimaLineSearch",
-    "LimitedMemoryBroyden", "LineSearchesJL", "LinearSolver", "MoreThuente",
-    "NLStats", "NewtonDescent", "NewtonRaphson", "NonlinearFunction",
-    "NonlinearLeastSquaresProblem", "NonlinearProblem", "NonlinearSolution",
-    "NonlinearSolvePolyAlgorithm", "NormTerminationMode", "PseudoTransient",
-    "QuasiNewtonAlgorithm", "RadiusUpdateSchemes",
-    "RelNormSafeBestTerminationMode", "RelNormSafeTerminationMode",
-    "RelNormTerminationMode", "RelTerminationMode", "ReturnCode",
-    "RobustMultiNewton", "RobustNonMonotoneLineSearch",
+    "LimitedMemoryBroyden", "LineSearchesJL", "LinearSolver", "ModAB",
+    "MoreThuente", "Muller", "NLStats", "NewtonDescent", "NewtonRaphson",
+    "NonlinearFunction", "NonlinearLeastSquaresProblem", "NonlinearProblem",
+    "NonlinearSolution", "NonlinearSolvePolyAlgorithm",
+    "NormTerminationMode", "PseudoTransient", "QuasiNewtonAlgorithm",
+    "RadiusUpdateSchemes", "RelNormSafeBestTerminationMode",
+    "RelNormSafeTerminationMode", "RelNormTerminationMode",
+    "RelTerminationMode", "ReturnCode", "Ridder", "RobustMultiNewton",
+    "RobustNonMonotoneLineSearch", "SimpleBroyden", "SimpleDFSane",
+    "SimpleGaussNewton", "SimpleHalley", "SimpleKlement",
+    "SimpleLimitedMemoryBroyden", "SimpleNewtonRaphson", "SimpleTrustRegion",
     "StatefulJacobianOperator", "StaticLineSearch", "SteepestDescent",
     "StrongWolfe", "TerminationCondition", "TrustRegion", "VecJacOperator",
-    "pickchunksize", "solve",
+    "pickchunksize", "solve", "solve_ensemble",
 ]

@@ -112,12 +112,15 @@ def np_dtype(dtype):
     return _NP_OF[dtype]
 
 
+_HOST_OF = {**_NP_OF, torch.int32: np.int32}
+
+
 def fetch(*tensors: torch.Tensor) -> list:
-    """Read small tensors (f32, f64 or bool) to the host in ONE transfer —
-    one host sync.  Each comes back in its own dtype, so that host
-    arithmetic on it rounds as the device's would: a 0-d tensor as a numpy
-    scalar, any other as a 1-d numpy array.  (Mixed dtypes travel as f64,
-    which holds every f32 and bool value exactly.)"""
+    """Read small tensors (f32, f64, bool or int32) to the host in ONE
+    transfer — one host sync.  Each comes back in its own dtype, so that
+    host arithmetic on it rounds as the device's would: a 0-d tensor as a
+    numpy scalar, any other as a 1-d numpy array.  (Mixed dtypes travel as
+    f64, which holds every f32, int32 and bool value exactly.)"""
     HOST_SYNCS["n"] += 1
     wire = tensors[0].dtype
     if any(t.dtype != wire for t in tensors):
@@ -125,7 +128,7 @@ def fetch(*tensors: torch.Tensor) -> list:
     host = torch.cat([t.reshape(-1).to(wire) for t in tensors]).cpu().numpy()
     out, at = [], 0
     for t in tensors:
-        part = host[at:at + t.numel()].astype(_NP_OF[t.dtype])
+        part = host[at:at + t.numel()].astype(_HOST_OF[t.dtype])
         out.append(part[0] if t.dim() == 0 else part)
         at += t.numel()
     return out

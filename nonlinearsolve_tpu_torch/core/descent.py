@@ -44,6 +44,7 @@ class DescentCtx:
     n_in: int
     n_out: int
     is_least_squares: bool = False
+    out_shape: Any = None       # the residual's shape (the simple tier)
 
     @property
     def square(self) -> bool:

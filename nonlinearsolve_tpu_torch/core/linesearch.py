@@ -16,6 +16,10 @@ read).  The step arithmetic runs on the host in the working dtype.
 Protocol: ``ls_init_reads`` / ``ls_init(cfg, fu, host)``;
 ``ls_solve(cfg, state, ctx, u, du, fu, J, nsteps, read) -> LSResult``;
 ``ls_post_step(cfg, state, fu_new_norm)`` (the host ‖fu_new‖).
+
+The simple tier's batched searches (``li_fukushima_batched``,
+``robust_nonmonotone_batched``) keep each row's step, state and count on
+the device and read one flag a trial.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from .. import _backend
 from ..ops.operators import mv
+from .lockstep import any_row
 from ..utils.norms import l2_norm, tree_dot
 from .descent import DescentCtx
 
@@ -267,3 +272,144 @@ def ls_post_step(cfg, state, host):
         history[(nsteps - 1) % cfg.M] = ipow(host[0], cfg.n_exp)
         return dataclasses.replace(state, history=history, nsteps=nsteps)
     return state
+
+
+# ---------------------------------------------------------------------------
+# batched searches (the simple tier): one row a trajectory
+# ---------------------------------------------------------------------------
+#
+# ``res(X)`` evaluates the residual of every row.  Each row has its own
+# step and its own count of evaluations; the trial loop runs while any
+# row still searches, and reads one flag a trial (is any row still
+# searching?).  A row that has finished, or whose outer solve has stopped
+# (``active`` False), takes no more trials and counts none: the JAX
+# package's inner ``while_loop`` under ``vmap`` computes them and discards
+# them, with the same per-row results.
+
+
+def _rows_l2(x):
+    return torch.linalg.vector_norm(x, dim=-1)
+
+
+def _rows_at(u, alpha, du):
+    """``u + α·du`` per row with one rounding per element."""
+    return torch.addcmul(u, alpha[:, None], du)
+
+
+def li_fukushima_batched(cfg: LiFukushimaLineSearch, res, u, du, fu,
+                         nsteps, active):
+    """``_li_fukushima`` on every row: returns ``(alpha, success, nf)``,
+    (B,) tensors.  ``nsteps``: each row's outer step count."""
+    dtype = u.dtype
+    fu_norm = _rows_l2(fu)
+    d_norm2 = (du * du).sum(-1)
+    k1 = nsteps.to(dtype) + 1.0
+    eta_k = cfg.eta / (k1 * k1)
+    beta = cfg.beta
+
+    def probe(lam):
+        f = res(_rows_at(u, lam, du))
+        return torch.isfinite(f).all(-1), _rows_l2(f)
+
+    lam0 = torch.full_like(fu_norm, cfg.lambda_0)
+    finite, f_full = probe(lam0)
+    nan_iters = torch.zeros_like(nsteps)
+    # the NaN guard: shrink λ until f(u + λd) is finite
+    while True:
+        want = ~finite & (nan_iters < cfg.nan_maxiters) & active
+        if not any_row(want):
+            break
+        lam0 = torch.where(want, lam0 * beta, lam0)
+        nan_iters = nan_iters + want.to(nan_iters.dtype)
+        fin, ff = probe(lam0)
+        finite = torch.where(want, fin, finite)
+        f_full = torch.where(want, ff, f_full)
+    full_ok = f_full <= cfg.rho * fu_norm - cfg.sigma_2 * lam0 * lam0 \
+        * d_norm2
+    lam = lam0 * beta
+    it = torch.zeros_like(nsteps)
+    done = torch.zeros_like(full_ok)
+    searching = ~full_ok & active
+    while True:
+        want = searching & ~done & (it < cfg.maxiters)
+        if not any_row(want):
+            break
+        fnew = _rows_l2(res(_rows_at(u, lam, du)))
+        ok = fnew <= (1.0 + eta_k) * fu_norm \
+            - cfg.sigma_1 * lam * lam * d_norm2
+        lam = torch.where(want & ~ok, lam * beta, lam)
+        it = it + want.to(it.dtype)
+        done = done | (want & ok)
+    lam = torch.where(full_ok, lam0, lam)
+    it = torch.where(full_ok, torch.zeros_like(it), it)
+    success = finite & (full_ok | done)
+    return lam, success, it + nan_iters + 2
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRNMLSState:
+    """``RNMLSState`` with one row a trajectory: ``history`` (B, M),
+    ``f_1`` and ``nsteps`` (B,)."""
+
+    history: torch.Tensor
+    f_1: torch.Tensor
+    nsteps: torch.Tensor
+
+
+def rnm_init_batched(cfg: RobustNonMonotoneLineSearch, fu):
+    merit = ipow(_rows_l2(fu), cfg.n_exp)
+    return BatchRNMLSState(
+        history=merit[:, None].repeat(1, cfg.M), f_1=merit,
+        nsteps=torch.zeros(fu.shape[0], dtype=torch.int32,
+                           device=fu.device))
+
+
+def rnm_post_step_batched(cfg: RobustNonMonotoneLineSearch,
+                          state: BatchRNMLSState, fu_new):
+    """Push each row's accepted merit into its history ring."""
+    nsteps = state.nsteps + 1
+    slot = torch.remainder(nsteps - 1, cfg.M).long()[:, None]
+    merit = ipow(_rows_l2(fu_new), cfg.n_exp)
+    return BatchRNMLSState(
+        history=state.history.scatter(1, slot, merit[:, None]),
+        f_1=state.f_1, nsteps=nsteps)
+
+
+def robust_nonmonotone_batched(cfg: RobustNonMonotoneLineSearch,
+                               state: BatchRNMLSState, res, u, du, fu,
+                               active):
+    """``_robust_nonmonotone`` on every row: returns ``(alpha, success,
+    nf)``, (B,) tensors."""
+    f_cur = ipow(_rows_l2(fu), cfg.n_exp)
+    f_bar = state.history.amax(-1)
+    eta = state.f_1 / ipow((state.nsteps + 1).to(u.dtype), 2)
+    gamma = cfg.gamma
+
+    def merit_at(alpha):
+        return ipow(_rows_l2(res(_rows_at(u, alpha, du))), cfg.n_exp)
+
+    def shrink(a, fa):
+        new = a * a * f_cur / (fa + (2.0 * a - 1.0) * f_cur)
+        new = torch.minimum(torch.maximum(new, cfg.tau_min * a),
+                            cfg.tau_max * a)
+        return torch.where(torch.isfinite(new), new, cfg.tau_min * a)
+
+    ap = torch.full_like(f_cur, cfg.sigma_1)
+    am = ap.clone()
+    alpha = torch.zeros_like(f_cur)
+    it = torch.zeros_like(state.nsteps)
+    found = torch.zeros_like(active)
+    while True:
+        want = ~found & (it < cfg.maxiters) & active
+        if not any_row(want):
+            break
+        fp, fm = merit_at(ap), merit_at(-am)
+        ok_p = fp <= f_bar + eta - gamma * ap * ap * f_cur
+        ok_m = fm <= f_bar + eta - gamma * am * am * f_cur
+        hit = ok_p | ok_m
+        alpha = torch.where(want, torch.where(ok_p, ap, -am), alpha)
+        ap = torch.where(want & ~hit, shrink(ap, fp), ap)
+        am = torch.where(want & ~hit, shrink(am, fm), am)
+        it = it + want.to(it.dtype)
+        found = found | (want & hit)
+    return alpha, found, 2 * it

@@ -1,8 +1,10 @@
 """Problem types (the port of ``core/problems.py``): ``NonlinearFunction``,
-``NonlinearProblem`` and ``NonlinearLeastSquaresProblem``.
+``NonlinearProblem``, ``NonlinearLeastSquaresProblem`` and
+``IntervalNonlinearProblem``.
 
 Functions are out-of-place: ``f(u, p) -> resid`` on tensors.  ``u`` is one
-tensor of any shape (≥ 1-d); pytrees of tensors are not ported.
+tensor of any shape (≥ 1-d; 0-d on the simple tier); pytrees of tensors
+are not ported.
 """
 
 from __future__ import annotations
@@ -88,3 +90,33 @@ class NonlinearLeastSquaresProblem(NonlinearProblem):
     @property
     def is_least_squares(self) -> bool:
         return True
+
+
+@dataclasses.dataclass(frozen=True)
+class IntervalNonlinearProblem:
+    """Scalar root find on a bracket: ``f(u, p) = 0`` for ``u`` in
+    ``tspan``, solved by the bracketing tier.
+
+    The endpoints are Python floats or tensors; endpoints and ``p`` may be
+    1-d tensors of length B, one problem a row (a batch, solved in
+    lockstep).  ``f`` then runs under ``torch.func.vmap`` on one row at a
+    time: a 0-d ``u`` with that row's ``p``.  A parameter that all rows
+    share and that is itself a vector goes inside a tuple.
+    """
+
+    f: NonlinearFunction
+    tspan: tuple
+    p: Any = None
+    kwargs: dict = dataclasses.field(default_factory=dict)
+
+    def __init__(self, f, tspan, p=None, **kwargs):
+        object.__setattr__(self, "f", _wrap_function(f))
+        object.__setattr__(self, "tspan", tuple(tspan))
+        object.__setattr__(self, "p", p)
+        object.__setattr__(self, "kwargs", kwargs)
+
+    def remake(self, *, tspan=None, p=None, f=None, **kwargs):
+        return type(self)(f if f is not None else self.f,
+                          tspan if tspan is not None else self.tspan,
+                          p if p is not None else self.p,
+                          **{**self.kwargs, **kwargs})

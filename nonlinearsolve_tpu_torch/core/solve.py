@@ -2,11 +2,14 @@
 
 ``solve`` checks the keyword arguments, merges call-site over problem
 kwargs and runs ``solve_nonlinear`` on a ``NonlinearProblem`` or a
-``NonlinearLeastSquaresProblem``.  The port runs the shaped path only:
-the iterate is ``u0`` itself, one tensor of any shape (≥ 1-d), never
-flattened; an empty ``u0`` returns ``Success`` at once, as in the JAX
-package.  The engine runs under ``torch.no_grad()`` on the device that
-``u0`` is on.  When the algorithm takes the colored sparse-AD path, the
+``NonlinearLeastSquaresProblem``, ``solvers.bracketing.solve_bracketing``
+on an ``IntervalNonlinearProblem`` and ``core.ensemble`` on an
+``EnsembleProblem``.  The port runs the shaped path only: the iterate is
+``u0`` itself, one tensor of any shape (≥ 1-d), never flattened — except
+on the simple tier, which runs on the flattened state as the JAX package
+does (so a 0-d ``u0`` is accepted there); an empty ``u0`` returns
+``Success`` at once, as in the JAX package.  The engine runs under
+``torch.no_grad()`` on the device that ``u0`` is on.  When the algorithm takes the colored sparse-AD path, the
 host-side plan (pattern, coloring, DIA tier) is built once before the loop
 and cached.  Options whose machinery is not ported raise
 ``NotImplementedError`` naming the ROADMAP item that brings it.
@@ -30,7 +33,8 @@ from ..utils.norms import get_tolerance
 from .descent import DescentCtx
 from ..ops.sparse_jac import plan_sparse_jacobian
 from .jacobian import JacobianSpec, wants_sparse
-from .problems import NonlinearLeastSquaresProblem, NonlinearProblem
+from .problems import (IntervalNonlinearProblem,
+                       NonlinearLeastSquaresProblem, NonlinearProblem)
 from .returncode import ReturnCode
 from .solution import NLStats, NonlinearSolution
 from .termination import default_termination_mode
@@ -78,11 +82,16 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
 
     kwargs: abstol, reltol, maxiters, termination_condition — merged over
     problem-level kwargs (call-site kwargs win)."""
-    if type(prob) not in (NonlinearProblem, NonlinearLeastSquaresProblem):
+    from .ensemble import EnsembleProblem, solve_ensemble_problem
+    if isinstance(prob, EnsembleProblem):
+        return solve_ensemble_problem(prob, alg, **kwargs)
+    if type(prob) not in (NonlinearProblem, NonlinearLeastSquaresProblem,
+                          IntervalNonlinearProblem):
         raise NotImplementedError(
             f"{type(prob).__name__} is not ported: the port solves "
-            f"NonlinearProblem and NonlinearLeastSquaresProblem (the other "
-            f"problem types are ROADMAP A.30)")
+            f"NonlinearProblem, NonlinearLeastSquaresProblem and "
+            f"IntervalNonlinearProblem (the other problem types are "
+            f"ROADMAP A.30)")
     merged = {**prob.kwargs, **kwargs}
     check_kwargs(merged)
     ens_only = sorted(k for k in ("trajectories", "mesh", "batch_axis")
@@ -91,6 +100,9 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
         raise TypeError(
             f"keyword argument(s) {ens_only} apply to ensemble solves only; "
             f"wrap the problem in an EnsembleProblem to use them")
+    if isinstance(prob, IntervalNonlinearProblem):
+        from ..solvers.bracketing import solve_bracketing
+        return solve_bracketing(prob, alg, **merged)
     if alg is None:
         alg = _default_algorithm(prob)
     if merged.pop("maxtime", None) is not None:
@@ -165,10 +177,13 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
     if prob.lb is not None or prob.ub is not None:
         raise NotImplementedError("bounds (lb/ub) are ROADMAP A.18")
     u0, p = prob.u0, prob.p
-    if not isinstance(u0, torch.Tensor) or u0.dim() == 0:
+    from ..solvers.simple import is_simple_alg
+    simple = is_simple_alg(alg)
+    if not isinstance(u0, torch.Tensor) or (u0.dim() == 0 and not simple):
         raise NotImplementedError(
-            "u0 must be one tensor of ≥ 1 dimension: pytree and scalar "
-            "states (the flat path) are ROADMAP A.33")
+            "u0 must be one tensor of ≥ 1 dimension (a 0-d tensor on the "
+            "simple tier): pytree and scalar states (the flat path) are "
+            "ROADMAP A.33")
     for name, t in (("u0", u0), ("p", p)):
         if isinstance(t, torch.Tensor) and t.requires_grad:
             raise NotImplementedError(
@@ -183,7 +198,8 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
     reltol_v = npdt(get_tolerance(reltol, npdt))
     is_lsq = prob.is_least_squares
     if termination_condition is None:
-        termination_condition = default_termination_mode(is_lsq)
+        termination_condition = default_termination_mode(
+            is_lsq, getattr(alg, "default_termination_callee", "regular"))
 
     f = prob.f
 
@@ -197,7 +213,7 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
                 "the residual must return one tensor; pytree residuals are "
                 "ROADMAP A.33")
         ctx = DescentCtx(f_flat=f_flat, n_in=u0.numel(), n_out=fu0.numel(),
-                         is_least_squares=is_lsq)
+                         is_least_squares=is_lsq, out_shape=tuple(fu0.shape))
         sparsity = (f.sparsity if f.sparsity is not None
                     else f.jac_prototype)
         spec = JacobianSpec(

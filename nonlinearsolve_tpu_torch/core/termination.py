@@ -10,14 +10,20 @@ element-wise verdict.  ``termination_norms`` gives them as 0-d device
 tensors, so the engine reads them in the same host sync as its own
 scalars; the rest of the logic runs on the host in the working dtype.  The
 retained best iterate is a reference to a device tensor, never a copy.
+
+The batched checks (``init_termination_batched``,
+``check_termination_batched``; the simple tier and ensembles) keep one row
+a trajectory on the device and read nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from .._backend import fetch, np_dtype
 from ..utils.norms import apply_norm, l2_norm
@@ -292,3 +298,177 @@ def termination_result(cfg: TerminationCondition, state: TermState,
     if cfg.keeps_best and state.best_u is not None:
         return state.best_u
     return fallback_u
+
+
+# ---------------------------------------------------------------------------
+# batched checks (the simple tier and ensembles): one row a trajectory
+# ---------------------------------------------------------------------------
+#
+# The JAX package checks each trajectory's termination inside ``vmap``;
+# here the state holds one row a trajectory on the device, and a check is
+# tensor operations on all rows (no host read).  The logic is the JAX
+# package's ``check_termination`` with a leading batch dimension.
+
+
+def _rows_norm(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The norm of each row of ``x`` (B, n) -> (B,); NaN propagates."""
+    if name == "linf":
+        return torch.linalg.vector_norm(x, ord=float("inf"), dim=-1)
+    return torch.linalg.vector_norm(x, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchTermState:
+    """``TermState`` with one row a trajectory, on the device: (B,) and
+    (B, k) tensors (None where the mode keeps no such field)."""
+
+    retcode: torch.Tensor
+    nsteps: torch.Tensor
+    best_objective: torch.Tensor
+    initial_objective: Any
+    best_u: Any
+    objectives_trace: Any
+    u0_norm: Any
+    step_norm_trace: Any
+
+
+def _rows_objective(cfg: TerminationCondition, fu, u, reltol):
+    nrm = _rows_norm(cfg.norm, fu)
+    if cfg.is_relative:
+        npdt = np_dtype(u.dtype)
+        eps_at = float(npdt(np.finfo(npdt).eps) * npdt(reltol))
+        return nrm / (_rows_norm(cfg.norm, fu + u) + eps_at)
+    return nrm
+
+
+def init_termination_batched(cfg: TerminationCondition, fu, u,
+                             reltol) -> BatchTermState:
+    """``init_termination`` for rows ``fu`` (B, m), ``u`` (B, n)."""
+    B, dev, dtype = u.shape[0], u.device, u.dtype
+    initial = objectives_trace = u0_norm = step_norm_trace = None
+    if cfg.is_safe:
+        initial = _rows_objective(cfg, fu, u, reltol)
+        best = initial
+        objectives_trace = torch.zeros(B, cfg.patience_steps, dtype=dtype,
+                                       device=dev)
+        if cfg.max_stalled_steps is not None:
+            step_norm_trace = torch.zeros(B, cfg.max_stalled_steps,
+                                          dtype=dtype, device=dev)
+            if cfg.is_relative:
+                u0_norm = _rows_norm("l2", u)
+    else:
+        best = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    return BatchTermState(
+        retcode=torch.full((B,), int(ReturnCode.Default), dtype=torch.int32,
+                           device=dev),
+        nsteps=torch.zeros(B, dtype=torch.int32, device=dev),
+        best_objective=best, initial_objective=initial,
+        best_u=u if cfg.keeps_best else None,
+        objectives_trace=objectives_trace, u0_norm=u0_norm,
+        step_norm_trace=step_norm_trace)
+
+
+def _rows_plain_converged(cfg, fu, u, abstol, reltol):
+    if cfg.mode == "rel":
+        return (fu.abs() <= reltol * (u + fu).abs()).all(-1)
+    if cfg.mode == "abs":
+        return (fu.abs() <= abstol).all(-1)
+    fu_norm = _rows_norm(cfg.norm, fu)
+    if cfg.mode == "abs_norm":
+        return fu_norm <= abstol
+    both = _rows_norm(cfg.norm, fu + u)
+    if cfg.mode == "norm":
+        return (fu_norm <= abstol) | (fu_norm <= reltol * both)
+    return fu_norm <= reltol * both                       # rel_norm
+
+
+def _push(ring: torch.Tensor, nsteps: torch.Tensor, value: torch.Tensor,
+          live: torch.Tensor) -> torch.Tensor:
+    """Write ``value`` into slot (nsteps - 1) mod k of each live row."""
+    slot = torch.remainder(nsteps - 1, ring.shape[1]).long()[:, None]
+    return torch.where(live[:, None],
+                       ring.scatter(1, slot, value[:, None]), ring)
+
+
+def check_termination_batched(cfg: TerminationCondition,
+                              state: BatchTermState, fu, u, uprev, abstol,
+                              reltol, *, is_least_squares: bool = False):
+    """One check of every row; returns ``(stop, new_state)``, ``stop`` a
+    (B,) bool tensor.  ``abstol`` / ``reltol``: host scalars of the
+    working dtype.  The safe modes in the reference's order, as
+    ``check_termination``."""
+    code = functools.partial(torch.full_like, state.retcode)
+    if not cfg.is_safe:
+        converged = _rows_plain_converged(cfg, fu, u, float(abstol),
+                                          float(reltol))
+        return converged, dataclasses.replace(
+            state, retcode=torch.where(converged,
+                                       code(int(ReturnCode.Success)),
+                                       state.retcode))
+
+    npdt = np_dtype(u.dtype)
+    abstol, reltol = npdt(abstol), npdt(reltol)
+    objective = _rows_objective(cfg, fu, u, reltol)
+    criteria = float(reltol if cfg.is_relative else abstol)
+    stalled_code = int(ReturnCode.StalledSuccess if is_least_squares
+                       else ReturnCode.Stalled)
+
+    stop = ~torch.isfinite(objective)
+    retcode = torch.where(stop, code(int(ReturnCode.Unstable)),
+                          code(int(ReturnCode.Failure)))
+    if cfg.protective_threshold is not None:
+        limit = state.initial_objective * cfg.protective_threshold \
+            * fu.shape[-1]
+        diverged = (objective > limit) & ~stop
+        stop = stop | diverged
+        retcode = torch.where(diverged, code(int(ReturnCode.Unstable)),
+                              retcode)
+
+    best_objective, best_u = state.best_objective, state.best_u
+    if cfg.keeps_best:
+        is_best = (objective < state.best_objective) & ~stop
+        best_objective = torch.where(is_best, objective, best_objective)
+        best_u = torch.where(is_best[:, None], u, best_u)
+
+    converged = (objective <= criteria) & ~stop
+    stop = stop | converged
+    retcode = torch.where(converged, code(int(ReturnCode.Success)), retcode)
+
+    # patience: the objectives ring, counted on non-stopping checks only
+    live = ~stop
+    nsteps = state.nsteps + live.to(torch.int32)
+    initial = torch.where(live & (nsteps == 1), objective,
+                          state.initial_objective)
+    objectives_trace = _push(state.objectives_trace, nsteps, objective, live)
+    P = cfg.patience_steps
+    filled = torch.arange(P, device=u.device)[None, :] < \
+        torch.clamp(nsteps, max=P)[:, None]
+    min_obj = torch.where(filled, objectives_trace, float("inf")).amin(-1)
+    max_obj = torch.where(filled, objectives_trace, float("-inf")).amax(-1)
+    patience_bar = float(npdt(cfg.patience_objective_multiplier)
+                         * npdt(criteria))
+    patience_hit = (live & (objective <= patience_bar) & (nsteps > P)
+                    & (min_obj < cfg.min_max_factor * max_obj))
+    stop = stop | patience_hit
+    retcode = torch.where(patience_hit, code(stalled_code), retcode)
+
+    step_norm_trace = state.step_norm_trace
+    if step_norm_trace is not None:
+        du_norm = _rows_norm("l2", u - uprev)
+        step_norm_trace = _push(step_norm_trace, nsteps, du_norm, live)
+        max_step = step_norm_trace.amax(-1)
+        if cfg.is_relative:
+            stalled_step = max_step <= float(reltol) * (max_step
+                                                        + state.u0_norm)
+        else:
+            stalled_step = max_step <= float(abstol)
+        stall_hit = (live & ~patience_hit
+                     & (nsteps > cfg.max_stalled_steps) & stalled_step)
+        stop = stop | stall_hit
+        retcode = torch.where(stall_hit, code(stalled_code), retcode)
+
+    return stop, BatchTermState(
+        retcode=retcode, nsteps=nsteps, best_objective=best_objective,
+        initial_objective=initial, best_u=best_u,
+        objectives_trace=objectives_trace, u0_norm=state.u0_norm,
+        step_norm_trace=step_norm_trace)

@@ -11,7 +11,8 @@
 //
 // M is the row-major augmented matrix [A | B], n rows of w = n + k
 // columns, overwritten with [* | X]; row, tmp and prow are scratch of w
-// entries.
+// entries.  The batched entry points take `batch` such matrices one after
+// another and eliminate each on its own.
 
 #include <cmath>
 #include <cstdint>
@@ -81,6 +82,20 @@ void gauss_jordan_f64(double* M, int64_t n, int64_t w, double* scratch) {
 
 void gauss_jordan_f32(float* M, int64_t n, int64_t w, float* scratch) {
     gauss_jordan(M, n, w, scratch, scratch + w, scratch + 2 * w);
+}
+
+void gauss_jordan_batch_f64(double* M, int64_t batch, int64_t n, int64_t w,
+                            double* scratch) {
+    for (int64_t b = 0; b < batch; ++b)
+        gauss_jordan(M + b * n * w, n, w, scratch, scratch + w,
+                     scratch + 2 * w);
+}
+
+void gauss_jordan_batch_f32(float* M, int64_t batch, int64_t n, int64_t w,
+                            float* scratch) {
+    for (int64_t b = 0; b < batch; ++b)
+        gauss_jordan(M + b * n * w, n, w, scratch, scratch + w,
+                     scratch + 2 * w);
 }
 
 }  // extern "C"

@@ -372,20 +372,34 @@ def get_dense_lib() -> ctypes.CDLL:
                 fn.restype = None
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                ctypes.c_int64, ctypes.c_void_p]
+            for fn in (lib.gauss_jordan_batch_f64, lib.gauss_jordan_batch_f32):
+                fn.restype = None
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_void_p]
             _dense_lib = lib
     return _dense_lib
 
 
 def gauss_jordan(M):
     """Gauss–Jordan on the augmented matrix ``M = [A | B]`` (a contiguous
-    f32 or f64 CPU tensor of n rows), in place: its last columns become
-    ``X``."""
+    f32 or f64 CPU tensor of n rows, or a batch of them, (batch, n, w)),
+    in place: the last columns of each become its ``X``."""
     import torch
-    n, w = M.shape
+    if M.dim() not in (2, 3) or not M.is_contiguous() \
+            or M.dtype not in (torch.float32, torch.float64):
+        raise ValueError("gauss_jordan takes a contiguous f32/f64 (n, w) "
+                         "or (batch, n, w) CPU tensor")
+    n, w = M.shape[-2:]
     lib = get_dense_lib()
-    fn = (lib.gauss_jordan_f64 if M.dtype == torch.float64
-          else lib.gauss_jordan_f32)
+    f64 = M.dtype == torch.float64
     scratch = torch.empty(3 * w, dtype=M.dtype)
-    fn(ctypes.c_void_p(M.data_ptr()), n, w,
-       ctypes.c_void_p(scratch.data_ptr()))
+    if M.dim() == 2:
+        fn = lib.gauss_jordan_f64 if f64 else lib.gauss_jordan_f32
+        fn(ctypes.c_void_p(M.data_ptr()), n, w,
+           ctypes.c_void_p(scratch.data_ptr()))
+    else:
+        fn = lib.gauss_jordan_batch_f64 if f64 else lib.gauss_jordan_batch_f32
+        fn(ctypes.c_void_p(M.data_ptr()), M.shape[0], n, w,
+           ctypes.c_void_p(scratch.data_ptr()))
     return M

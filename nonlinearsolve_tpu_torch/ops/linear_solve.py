@@ -131,27 +131,32 @@ def _lstsq(A: torch.Tensor, b: torch.Tensor, factors=None):
     """Least squares by the SVD, ``jnp.linalg.lstsq(A, b, rcond=None)``
     step for step: singular values below ``eps · max(m, n) · s_max`` are
     dropped, so rank-deficient systems get the minimum-norm solution.
-    ``factors``: the ``(U, S, Vh)`` of ``A`` from an earlier call, to solve
-    another right-hand side without a second SVD (the same result as
-    recomputing it).  Returns ``(x, factors)``."""
-    m, n = A.shape
-    vec = b.dim() == 1
-    B = b[:, None] if vec else b
+    ``A`` may carry leading batch dimensions (``b`` then carries them too),
+    each matrix solved on its own: the finite guard and the cutoff are per
+    matrix.  ``factors``: the ``(U, S, Vh)`` of ``A`` from an earlier call,
+    to solve another right-hand side without a second SVD (the same result
+    as recomputing it).  Returns ``(x, factors)``."""
+    m, n = A.shape[-2:]
+    vec = b.dim() == A.dim() - 1
+    B = b[..., None] if vec else b
     if factors is None:
         # torch's SVD raises on non-finite input (the JAX one returns NaN):
         # it factors zeros there and sets the factors to NaN
-        finite = torch.isfinite(A).all()
-        factors = tuple(_nan_unless(f, finite) for f in torch.linalg.svd(
-            torch.where(finite, A, 0.0), full_matrices=False))
+        finite = torch.isfinite(A).all(dim=-1, keepdim=True).all(
+            dim=-2, keepdim=True)
+        U, S, Vh = torch.linalg.svd(torch.where(finite, A, 0.0),
+                                    full_matrices=False)
+        factors = (_nan_unless(U, finite), _nan_unless(S, finite[..., 0]),
+                   _nan_unless(Vh, finite))
     U, S, Vh = factors
     rcond = float(torch.finfo(A.dtype).eps) * max(n, m)
     mask = (S > 0) & (S >= torch.tensor(rcond, dtype=S.dtype,
-                                        device=S.device) * S[0])
+                                        device=S.device) * S[..., :1])
     safe_s = torch.where(mask, S, torch.ones_like(S)).to(A.dtype)
-    s_inv = torch.where(mask, 1 / safe_s, torch.zeros_like(safe_s))[:, None]
-    uTb = U.conj().T @ B
-    x = Vh.conj().T @ (s_inv * uTb)
-    return (x[:, 0] if vec else x), factors
+    s_inv = torch.where(mask, 1 / safe_s, torch.zeros_like(safe_s))[..., None]
+    uTb = U.mH @ B
+    x = Vh.mH @ (s_inv * uTb)
+    return (x[..., 0] if vec else x), factors
 
 
 # Gauss–Jordan for n ≤ 32, as the JAX package's ``_square_solve`` does
@@ -218,7 +223,10 @@ def _gauss_jordan_graph(M: torch.Tensor, n: int, vec: bool) -> torch.Tensor:
 
 def _gauss_jordan_ops(M: torch.Tensor, n: int, vec: bool) -> torch.Tensor:
     """``gauss_jordan_solve`` in tensor operations (the card's route; no
-    host read, so it can be captured in a CUDA graph)."""
+    host read, so it can be captured in a CUDA graph).  ``M`` may carry
+    leading batch dimensions; each matrix is eliminated on its own, with
+    the same one-hot row algebra, so a row of a batch rounds as it does
+    alone."""
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
     off = 1.0 - eye                                       # rows: 1 - ek
     idx = torch.arange(n, device=M.device)
@@ -226,17 +234,18 @@ def _gauss_jordan_ops(M: torch.Tensor, n: int, vec: bool) -> torch.Tensor:
     neg_inf = torch.full((n,), float("-inf"), dtype=M.dtype, device=M.device)
     for k in range(n):
         ek = eye[k][:, None]
-        cand = torch.where(below[:, k], M[:, k].abs(), neg_inf)
-        ep = (idx == torch.argmax(cand)).to(M.dtype)[:, None]
+        cand = torch.where(below[:, k], M[..., :, k].abs(), neg_inf)
+        piv = torch.argmax(cand, dim=-1, keepdim=True)
+        ep = (idx == piv).to(M.dtype)[..., :, None]
         row_k = eye[k] @ M
-        row_p = ep[:, 0] @ M
-        d = row_p - row_k
+        row_p = (ep.transpose(-1, -2) @ M)[..., 0, :]
+        d = (row_p - row_k)[..., None, :]
         M = torch.addcmul(torch.addcmul(M, ek, d), ep, d, value=-1.0)
-        prow = row_p / row_p[k]
+        prow = (row_p / row_p[..., k:k + 1])[..., None, :]
         M = torch.addcmul(M * off[k][:, None], ek, prow)
-        factors = M[:, k] * off[k]
-        M = torch.addcmul(M, factors[:, None], prow[None, :], value=-1.0)
-    return M[:, n] if vec else M[:, n:]
+        factors = M[..., :, k] * off[k]
+        M = torch.addcmul(M, factors[..., :, None], prow, value=-1.0)
+    return M[..., :, n] if vec else M[..., :, n:]
 
 
 def _lu_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -329,3 +338,59 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor):
         x = solve_dense(A, b)[0]
         ok = torch.isfinite(x).all()
     return x, ok
+
+
+# ---------------------------------------------------------------------------
+# batched square solves (the simple tier and ensembles)
+# ---------------------------------------------------------------------------
+
+def gauss_jordan_batched(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``gauss_jordan_solve`` on a batch: ``A`` (B, n, n), ``b`` (B, n).
+    Row ``i`` of the result is ``gauss_jordan_solve(A[i], b[i])`` bit for
+    bit: the host helper loops over the rows, and on the card the
+    tensor operations act on each matrix alone (one CUDA graph a shape,
+    batch size included)."""
+    n = A.shape[-1]
+    M = torch.cat([A, b[..., None]], dim=-1)              # (B, n, n+1)
+    if M.device.type == "cpu" and M.dtype in (torch.float32, torch.float64):
+        from ..native import gauss_jordan
+        return gauss_jordan(M.contiguous())[..., n]
+    if M.device.type == "cuda":
+        return _gauss_jordan_graph(M, n, True)
+    return _gauss_jordan_ops(M, n, True)
+
+
+def _batched_square_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Gauss–Jordan for n ≤ 32, else batched LU (``solve_ex``) with a
+    row of NaN where its ``info`` reports a zero pivot."""
+    if A.shape[-1] <= _GJ_MAX_N:
+        return gauss_jordan_batched(A, b)
+    x, info = torch.linalg.solve_ex(A, b, check_errors=False)
+    return _nan_unless(x, (info == 0)[..., None])
+
+
+def _batched_ridge_fallback(A: torch.Tensor, b: torch.Tensor):
+    """``_ridge_fallback`` on each matrix of a batch, λ per matrix."""
+    Ah = A.mH
+    G = Ah @ A
+    fi = torch.finfo(A.real.dtype if A.is_complex() else A.dtype)
+    lam = fi.eps ** 0.5 * G.diagonal(dim1=-2, dim2=-1).real.amax(-1) \
+        + fi.tiny
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return _batched_square_solve(G + lam[..., None, None] * eye,
+                                 (Ah @ b[..., None])[..., 0])
+
+
+def solve_dense_batched(A: torch.Tensor, b: torch.Tensor):
+    """``solve_dense(A[i], b[i])`` ('auto' on square systems: LU) for
+    every row of a batch, as the JAX package's ``solve_dense`` runs under
+    ``vmap``: the ridge fallback is computed for every row and taken
+    where the primary result is not finite on finite inputs (its
+    ``lax.cond`` batches to a select), so nothing is read to the host.
+    ``A`` (B, n, n), ``b`` (B, n); returns ``(x, ok)``, ``ok`` (B,) bool."""
+    x = _batched_square_solve(A, b)
+    finite_in = (torch.isfinite(A).flatten(-2).all(-1)
+                 & torch.isfinite(b).all(-1))
+    want = ~torch.isfinite(x).all(-1) & finite_in
+    x = torch.where(want[..., None], _batched_ridge_fallback(A, b), x)
+    return x, torch.isfinite(x).all(-1)

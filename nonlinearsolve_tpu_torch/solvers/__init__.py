@@ -7,3 +7,9 @@ from .polyalg import (FastShortcutNLLSPolyalg, FastShortcutNonlinearPolyalg,
 from .quasi_newton import (Broyden, Klement, LimitedMemoryBroyden,
                            QuasiNewtonAlgorithm)
 from .spectral import DFSane, GeneralizedDFSane
+from .simple import (SimpleBroyden, SimpleDFSane, SimpleGaussNewton,
+                     SimpleHalley, SimpleKlement,
+                     SimpleLimitedMemoryBroyden, SimpleNewtonRaphson,
+                     SimpleTrustRegion)
+from .bracketing import (Alefeld, Bisection, Brent, Falsi, ITP, ModAB,
+                         Muller, Ridder)

@@ -11,7 +11,8 @@ one read.
 
 Default ladders: ``FastShortcutNonlinearPolyalg`` (Broyden → Klement →
 NewtonRaphson → TrustRegion → TrustRegion(Fan) → LevenbergMarquardt, from
-the third rung when ``u0_len ≤ 25``; NewtonRaphson → TrustRegion →
+the third rung when ``u0_len ≤ 25``; SimpleBroyden → SimpleKlement first
+with ``prefer_simplenonlinearsolve``; NewtonRaphson → TrustRegion →
 TrustRegion(Fan) → LevenbergMarquardt with ``must_use_jacobian``; the two
 reduced ladders for complex states), ``RobustMultiNewton`` and
 ``FastShortcutNLLSPolyalg``.
@@ -62,11 +63,12 @@ def FastShortcutNonlinearPolyalg(*, autodiff=None, linsolve=None,
         return NonlinearSolvePolyAlgorithm(
             algs=algs, name="FastShortcutNonlinearPolyalg")
     if prefer_simplenonlinearsolve:
-        raise NotImplementedError(
-            "prefer_simplenonlinearsolve=True needs SimpleBroyden and "
-            "SimpleKlement, the simple solvers of ROADMAP A.17")
+        from .simple import SimpleBroyden, SimpleKlement
+        first, second = SimpleBroyden(), SimpleKlement()
+    else:
+        first, second = Broyden(autodiff=autodiff), Klement(autodiff=autodiff)
     start_index = 3 if (u0_len is not None and u0_len <= 25) else 1
-    algs = (Broyden(autodiff=autodiff), Klement(autodiff=autodiff),
+    algs = (first, second,
             NewtonRaphson(**kw), TrustRegion(**kw),
             TrustRegion(radius_update_scheme="fan", **kw),
             LevenbergMarquardt(**kw))

@@ -1,0 +1,18 @@
+"""The 23-problem suite on the port's simple tier, the cases of under 1000
+JAX steps of the two SimpleTrustRegion rows (the simple radius rule and
+NLSolve.jl's), held as ``test_torch_23_simple.py`` holds the others (its
+``EXEMPT`` names the cases whose counts rounding decides)."""
+
+import pytest
+import torch
+
+from test_torch_23_simple import cases, check_against_jax, ids
+
+torch.set_num_threads(1)
+
+CASES_HERE = cases("SimpleTrustRegion", "SimpleTrustRegion-NLsolve")
+
+
+@pytest.mark.parametrize("row,index", CASES_HERE, ids=ids(CASES_HERE))
+def test_simple_rows_against_jax(row, index):
+    check_against_jax(row, index)

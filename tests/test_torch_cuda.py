@@ -1631,3 +1631,124 @@ def test_two_sparse_lu_device_solves_in_a_row_on_card(cuda):
         assert _backend.LAUNCHES["gather_spmv"] > before
         roots.append(sol.u)
     assert torch.equal(roots[0], roots[1])
+
+
+# ---------------------------------------------------------------------------
+# the batched tier (the simple solvers, bracketing, ensembles)
+# ---------------------------------------------------------------------------
+
+def _nan_equal(a, b):
+    a, b = a.cpu(), b.cpu()
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n", [4, 10, 32])
+def test_batched_gauss_jordan_on_card_matches_cpu(cuda, n, dtype):
+    """The batched Gauss–Jordan (a CUDA graph a (B, n) shape on the card)
+    against the CPU's host helper on the same matrices: each row's rel-inf
+    difference within n·eps·κ∞(A) (the forward-error bound of the two
+    eliminations' rounding; the card's rounds apart from the host's, by
+    up to about 6.5e-15 at n = 32, f64), NaN in the same rows (a zero
+    pivot); and each row of the batch bit-equal to the same matrix solved
+    alone on the card (B = 1: the same operations on one matrix).
+    solve_dense_batched's ridge fallback takes the singular row on both."""
+    from nonlinearsolve_tpu_torch.ops import linear_solve as ls
+    dt = TORCH_DT[dtype]
+    gen = torch.Generator().manual_seed(11 + n)
+    A = torch.randn((64, n, n), generator=gen, dtype=dt)
+    b = torch.randn((64, n), generator=gen, dtype=dt)
+    A[3] = 0.0                            # a zero pivot: NaN
+    x_cpu = ls.gauss_jordan_batched(A, b)
+    bad = torch.isnan(x_cpu).any(-1)
+    assert bad.tolist() == [i == 3 for i in range(64)]
+    kappa = torch.linalg.cond(A[~bad].double(), p=float("inf"))
+    bound = n * torch.finfo(dt).eps * kappa
+    for _ in range(2):                    # capture, then replay
+        x_gpu = ls.gauss_jordan_batched(A.to(cuda), b.to(cuda))
+        assert x_gpu.device.type == "cuda"
+        assert torch.equal(torch.isnan(x_gpu).any(-1).cpu(), bad)
+        got, ref = x_gpu.cpu()[~bad].double(), x_cpu[~bad].double()
+        rel = (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+        assert bool((rel <= bound).all()), float((rel / bound).max())
+    for i in (0, 3, 63):
+        alone = ls.gauss_jordan_batched(A[i:i + 1].to(cuda),
+                                        b[i:i + 1].to(cuda))
+        assert _nan_equal(alone[0], x_gpu[i]), i
+    y_cpu, ok_cpu = ls.solve_dense_batched(A, b)
+    y_gpu, ok_gpu = ls.solve_dense_batched(A.to(cuda), b.to(cuda))
+    assert bool(ok_cpu.all()) and bool(ok_gpu.all())
+    assert torch.equal(y_gpu[3].cpu(), y_cpu[3])    # the ridge: x = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["SimpleNewtonRaphson", "SimpleBroyden",
+                                  "SimpleTrustRegion"])
+def test_simple_ensemble_stays_on_card(cuda, name):
+    """A small ensemble on the simple tier with CUDA tensors: every field
+    comes back on the card, and each row matches the CPU run (retcode and
+    NLStats equal, roots within 1e-12)."""
+    import nonlinearsolve_tpu_torch as tnls
+    ps = torch.linspace(0.5, 10.0, 256, dtype=torch.float64)
+    sols = {}
+    for dev in ("cpu", cuda):
+        prob = tnls.NonlinearProblem(lambda u, p: u * u - p,
+                                     torch.ones(2, dtype=torch.float64,
+                                                device=dev))
+        sols[str(dev)] = tnls.solve_ensemble(prob, getattr(tnls, name)(),
+                                             ps=ps.to(dev))
+    cpu, gpu = sols["cpu"], sols[str(cuda)]
+    for t in (gpu.u, gpu.resid, gpu.retcode, gpu.stats.nsteps):
+        assert t.device.type == "cuda"
+    assert torch.equal(gpu.retcode.cpu(), cpu.retcode)
+    assert bool(gpu.success.all())
+    for k in ("nf", "njacs", "nsolve", "nsteps"):
+        assert torch.equal(getattr(gpu.stats, k).cpu(),
+                           getattr(cpu.stats, k)), k
+    assert float((gpu.u.cpu() - cpu.u).abs().max()) <= 1e-12 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Bisection", "Brent", "ITP", "ModAB"])
+def test_bracketing_batch_stays_on_card(cuda, name):
+    """A bracketing batch on CUDA tensors: the fields come back on the
+    card, equal to the CPU run (retcode, nf, steps; u to 4 ulps); the
+    gradient du/dp on the card against 1/(2√p)."""
+    import nonlinearsolve_tpu_torch as tnls
+    ps = torch.linspace(0.5, 10.0, 1000, dtype=torch.float64)
+    sols = {}
+    for dev in ("cpu", cuda):
+        sols[str(dev)] = tnls.solve(tnls.IntervalNonlinearProblem(
+            lambda u, p: u * u - p,
+            (torch.tensor(0.1, dtype=torch.float64, device=dev), 5.0),
+            ps.to(dev)), getattr(tnls, name)())
+    cpu, gpu = sols["cpu"], sols[str(cuda)]
+    assert gpu.u.device.type == gpu.retcode.device.type == "cuda"
+    assert torch.equal(gpu.retcode.cpu(), cpu.retcode)
+    assert torch.equal(gpu.stats.nf.cpu(), cpu.stats.nf)
+    assert torch.equal(gpu.stats.nsteps.cpu(), cpu.stats.nsteps)
+    ulps = (gpu.u.cpu().view(torch.int64) - cpu.u.view(torch.int64)).abs()
+    assert int(ulps.max()) <= 4
+    p = ps.to(cuda).requires_grad_(True)
+    u = tnls.solve(tnls.IntervalNonlinearProblem(
+        lambda u, q: u * u - q,
+        (torch.tensor(0.1, dtype=torch.float64, device=cuda), 5.0), p),
+        getattr(tnls, name)()).u
+    g, = torch.autograd.grad(u.sum(), p)
+    assert g.device.type == "cuda"
+    torch.testing.assert_close(g.cpu(), 0.5 / ps.sqrt(), rtol=1e-8, atol=0)
+
+
+def test_interval_problem_of_python_floats_needs_cuda(monkeypatch):
+    """No tensor among the endpoints and p: the solve runs on the card, and
+    raises when there is no CUDA (no CPU fallback)."""
+    import nonlinearsolve_tpu_torch as tnls
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = tnls.IntervalNonlinearProblem(lambda u, p: u * u - p, (1.0, 2.0),
+                                         2.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tnls.solve(prob)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tnls.solve(prob, tnls.Bisection())

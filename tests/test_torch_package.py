@@ -51,6 +51,9 @@ def test_port_imports_no_jax():
             "nonlinearsolve_tpu_torch.ops.krylov, "
             "nonlinearsolve_tpu_torch.ops.direct_sparse, "
             "nonlinearsolve_tpu_torch.ops.device_lu, "
+            "nonlinearsolve_tpu_torch.solvers.simple, "
+            "nonlinearsolve_tpu_torch.solvers.bracketing, "
+            "nonlinearsolve_tpu_torch.core.ensemble, "
             "nonlinearsolve_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'nonlinearsolve_tpu'"
@@ -141,9 +144,27 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="A.33"):
         tnls.solve(lsq, tnls.GaussNewton(           # normal-form Krylov
             linsolve=tnls.LinearSolver(method="bicgstab")))
-    with pytest.raises(NotImplementedError, match="A.17"):
-        tnls.FastShortcutNonlinearPolyalg(          # the simple solvers
-            prefer_simplenonlinearsolve=True)
+    # the simple solvers run since ROADMAP A.17: SimpleBroyden →
+    # SimpleKlement head the ladder, as in the JAX package
+    jladder = jnls.FastShortcutNonlinearPolyalg(
+        prefer_simplenonlinearsolve=True)
+    tladder = tnls.FastShortcutNonlinearPolyalg(
+        prefer_simplenonlinearsolve=True)
+    assert [type(a).__name__ for a in tladder.algs] == \
+        [type(a).__name__ for a in jladder.algs]
+    assert [type(a).__name__ for a in tladder.algs[:2]] == \
+        ["SimpleBroyden", "SimpleKlement"]
+    assert tladder.start_index == jladder.start_index == 1
+    quad = tnls.NonlinearProblem(lambda u, p: u * u - p,
+                                 torch.tensor([1.0, 1.5],
+                                              dtype=torch.float64), 2.0)
+    jsol = jnls.solve(jnls.NonlinearProblem(lambda u, p: u * u - p,
+                                            jnp.array([1.0, 1.5]), 2.0),
+                      jladder)
+    tsol = tnls.solve(quad, tladder)
+    assert tsol.counters["rungs"][0][:2] == (0, int(jsol.retcode)) == \
+        (0, int(tnls.ReturnCode.Success))
+    assert tsol.stats.nsteps == int(jsol.stats.nsteps)
     shaped_sparse = tbru.make_problem(8, device="cpu", with_sparsity=True)
     with pytest.raises(NotImplementedError, match="ROADMAP C"):
         tnls.solve(shaped_sparse, tnls.NewtonRaphson(
@@ -167,7 +188,7 @@ def test_unported_routes_raise():
 # machinery comes with a later ROADMAP item
 NOT_YET_EXPORTED = {
     "HomotopyProblem": "A.30", "SCCNonlinearProblem": "A.30",
-    "SteadyStateProblem": "A.30", "IntervalNonlinearProblem": "A.17",
+    "SteadyStateProblem": "A.30",
     "StatefulJacobianNormalFormOperator": "A.33",
 }
 
@@ -200,6 +221,23 @@ def test_port_exports_the_jax_names_of_its_modules():
     for cls in (tnls.SteepestDescent, tnls.NewtonDescent,
                 tnls.DampedNewtonDescent, tnls.GeodesicAcceleration):
         cls()
+    # the batched tier's names (ROADMAP A.17, A.29), field for field the
+    # JAX package's configs
+    import dataclasses
+    for name in ("SimpleNewtonRaphson", "SimpleBroyden", "SimpleKlement",
+                 "SimpleDFSane", "SimpleHalley", "SimpleTrustRegion",
+                 "SimpleLimitedMemoryBroyden", "Bisection", "Falsi", "Ridder",
+                 "Brent", "ITP", "Alefeld", "Muller", "ModAB"):
+        j, t = getattr(jnls, name)(), getattr(tnls, name)()
+        assert {f.name: getattr(t, f.name) for f in dataclasses.fields(t)} \
+            == {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
+    assert isinstance(tnls.SimpleGaussNewton(), tnls.SimpleNewtonRaphson)
+    assert tnls.SimpleNewtonRaphson.default_termination_callee == "simple"
+    eprob = tnls.EnsembleProblem(tnls.NonlinearProblem(
+        lambda u, p: u - p, torch.zeros(1, dtype=torch.float64)))
+    assert eprob.prob_func is None
+    with pytest.raises(ValueError, match="k2"):
+        tnls.ITP(k2=0.5)
 
 
 def test_vec_jac_operator_matches_jax():

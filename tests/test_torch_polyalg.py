@@ -3,7 +3,7 @@ the rung that wins, the best-residual fallback when every rung fails,
 ``FastShortcutNLLSPolyalg`` (the default for least squares) on the 8 NLLS
 classics, the default algorithm on the dense Brusselator at N=8 and 16,
 the ladders' shapes, and the refusals of what is not ported (ROADMAP
-A.17, A.18, A.30) or not supported (complex states)."""
+A.18, A.30) or not supported (complex states)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -221,8 +221,12 @@ def test_dense_brusselator_n32_engines_are_knife_edges_in_jax(
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="A.17"):
-        tnls.FastShortcutNonlinearPolyalg(prefer_simplenonlinearsolve=True)
+    # the simple solvers came with ROADMAP A.17: SimpleBroyden →
+    # SimpleKlement head the ladder instead of raising
+    ladder = tnls.FastShortcutNonlinearPolyalg(
+        prefer_simplenonlinearsolve=True)
+    assert [a.name for a in ladder.algs[:2]] == ["SimpleBroyden",
+                                                 "SimpleKlement"]
     prob = tnls.NonlinearProblem(_quad, torch.ones(2, dtype=torch.float64),
                                  2.0)
     from nonlinearsolve_tpu_torch.core.descent import DescentCtx
@@ -248,7 +252,8 @@ def test_refusals():
         tnls.solve(prob, DynamicSS())
     with pytest.raises(NotImplementedError, match="A.30"):
         tnls.solve(prob, Custom())
-    with pytest.raises(NotImplementedError, match="A.17"):
+    # a user class named like a simple solver is not one of them
+    with pytest.raises(ValueError, match="cannot dispatch"):
         tnls.solve(prob, SimpleBroyden())
     with pytest.raises(ValueError, match="cannot dispatch"):
         tnls.solve(prob, object())
