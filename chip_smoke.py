@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``nonlinearsolve_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--log PATH]
+    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23]
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a); exits
 non-zero without one, and without the package beside it.  Each phase
 prints one JSON line (``--log`` also appends every line to PATH); a failed
-check raises, so the script exits non-zero.
+check raises, so the script exits non-zero.  ``--only`` runs phases 1
+and 2, then the listed phases of 19–23 alone, each timed, on the set-up
+they take from earlier phases rebuilt (``only_phases``), and prints no
+result line.
 
 1. device: the card's name, and its name and power limit as nvidia-smi
    gives them (on a line of their own);
@@ -171,8 +174,10 @@ check raises, so the script exits non-zero.
    the same N (tests/test_golden_models.py:48-70's ladder), no custom
    kernel launched.  Then NewtonRaphson at N=64 (8192 unknowns, a 512 MiB
    Jacobian; abstol 1e-9, above the f64 floor of |F| there).  For each
-   run: the warm wall (median of 3; LevenbergMarquardt's third warm solve
-   is its profiled one), NLStats, host syncs, the device time by class
+   run: the warm wall (median of 3; LevenbergMarquardt, 15.8 s a solve,
+   takes one warm solve, its profiled one, so that the script keeps its
+   time with phase 23), NLStats,
+   host syncs, the device time by class
    (the Jacobian's batched residual, timed alone; the dense linear algebra
    by kernel name; the rest) and the idle share;
 19. the 23-problem suite on the card (counters at 0 just before, read just
@@ -248,7 +253,47 @@ check raises, so the script exits non-zero.
    steps of the slowest row, host reads, the device idle share and three
    largest kernels (torch.profiler) and the peak memory.  No custom
    kernel is launched;
-23. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+23. differentiating through ``solve`` (counters at 0 just before each
+   run, read just after): (a) the dense branch of the implicit-function
+   rule at its full width, the dense Brusselator ``make_problem(32)``, f64
+   (n = 2048 = ``_DENSE_IFT_LIMIT``), NewtonRaphson, abstol 1e-10: p̄ of
+   ⟨w, u*⟩ over the four entries of p (w seeded) by ``torch.autograd``;
+   u̇ by ``torch.autograd.forward_ad`` for ṗ = e_A and e_B, ⟨w, u̇⟩ equal
+   to p̄'s entry within rel 1e-10; p̄ within rel 1e-5 of central
+   differences of two f64 solves an entry (step 1e-4 relative); the
+   TrustRegion and default-polyalgorithm p̄ within rel 1e-8; no kernel
+   launched.  (b) The Krylov branch at the flagship's width: phase 5's
+   f64 polish (Newton–GMRES(16)–FFT with K1, 524,288 unknowns) with p
+   requiring grad, p̄ by GMRES on the residual's vjp (restart 50, 500
+   iterations, rtol 1e-8, unpreconditioned as in the JAX package): the
+   wall, the iterations, the adjoint solve's relative residual, p̄ and its
+   gap to central differences (solves at abstol 1e-8) are printed.  (c)
+   The reverse rules of K5, K7 and K8 run in phases 7, 12 and 13 on those
+   routes' matrices and plans (``reverse_rule_check``): d̄ata bit for bit
+   and x̄ within rel-inf 1e-12 (f64) or 1e-6 (f32) of autograd through the
+   plain CSR product on the card, the kernel launched by the backward on
+   Aᵀ's tables (the structurally symmetric patterns reuse their forward
+   plan), the backward and its x̄ launches timed by CUDA events beside
+   their byte bound and cuSPARSE's Aᵀ·ȳ.  (d) One grad-mode call each to
+   K1 and K4 raises, naming the kernel, and so does a forward-mode
+   tangent through K1 and through ``CSR.matvec``.  (e) The f32 flagship through
+   ``init`` → two ``step``s → ``solve``: the retcode, NLStats and root of
+   ``solve`` bit for bit; ``store_trace=True`` and
+   ``time_phases=True`` (a trace entry a step, the root unchanged, the
+   phases within 10 % of the wall); ``reinit(u0=root, p=p with A +
+   1 %)`` warm-starts the dense f64 Newton of (a) (fewer steps than the
+   cold solve); the dense Brusselator with ``lb=0`` under TrustRegion
+   (NewtonRaphson ends Unstable from u0's zeros, in the JAX package too)
+   reaches the unbounded root within 1e-8; that solve under a
+   termination mode that keeps no best iterate (AbsNormSafe), longer
+   than one chunk of ``_STEP_CHUNK`` steps, through a cache's
+   ``solve(maxtime=...)`` with half its first chunk's wall stops with
+   MaxTime after 0 < nsteps < its steps, and the cache's next ``solve()``
+   gives its root and NLStats bit for bit (the default safe-best mode
+   resumes from the best iterate, as the JAX package does, and may take
+   other steps);
+24. the kernels line (each SpMV kernel's row with its reverse rule's
+   numbers from (c)), then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
@@ -269,6 +314,7 @@ PEAK_FLOPS = {"float32": 67e12,       # H100 SXM, outside the tensor cores
               # bound is bytes either way)
               "bfloat16": 67e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}   # rel-inf of max|out|
+VJP_TOL = {"float32": 1e-6, "float64": 1e-12}   # x̄ of the reverse rules
 FLOPS_PER_POINT = {"brusselator_jvp": 27, "brusselator_jvp_scaled": 31,
                    "rd3d_jvp": 13, "rd3d_jvp_scaled": 15}
 REPLACES = {
@@ -1095,6 +1141,123 @@ def csr_kernel_checks(torch, dev, spmv, cplan, jac_data):
     return records
 
 
+def reverse_rule_check(torch, _backend, spmv, name, tables, pattern,
+                       jac_data):
+    """Phase 23 (c): the reverse rule of ``name`` (K5, K7 or K8) on a
+    route's own matrix (``pattern``'s tier and plan, ``jac_data`` as its
+    data).  ȳ = w and the gradient of ⟨w, A·x⟩ w.r.t. the data and x
+    through ``CSR.matvec`` (x̄ by the kernel on Aᵀ's tables), the launches
+    of the backward counted, against autograd through the plain CSR
+    product on the card: d̄ata bit for bit (the same products), x̄ within
+    rel-inf VJP_TOL (the plain version adds by atomics).  Timed: the
+    backward, and its x̄ launches alone, by CUDA events; their byte bound;
+    cuSPARSE's Aᵀ·ȳ.  Emits and returns the record; raises on a
+    disagreement."""
+    import numpy as np
+    dev = jac_data.device
+    dtype = jac_data.dtype
+    dname = str(dtype).split(".")[-1]
+    item = jac_data.element_size()
+    n_rows, n_cols = pattern.shape
+    nnz = pattern.nnz
+    g = np.random.default_rng(23)
+    w = torch.as_tensor(g.standard_normal(n_rows), dtype=dtype, device=dev)
+    x = torch.as_tensor(g.standard_normal(n_cols), dtype=dtype, device=dev)
+    C = pattern.with_data(jac_data)
+    route, reordered = spmv.csr_route(C)
+    t0 = time.perf_counter()
+    troute, _tperm = route.transpose()
+    tperm = route.tperm(dev)
+    transpose_s = time.perf_counter() - t0
+    data = jac_data.detach().clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    y = C.with_data(data).matvec(xr)
+    loss = (w * y).sum()
+    torch.cuda.synchronize()
+    before = dict(_backend.LAUNCHES)
+    gd, gx = torch.autograd.grad(loss, (data, xr), retain_graph=True)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _backend.LAUNCHES.items()
+                if v != before[k]}
+    indptr, indices = pattern.device_tables(dev)
+    data_p = jac_data.detach().clone().requires_grad_(True)
+    x_p = x.clone().requires_grad_(True)
+    y_p = spmv.gather_spmv_plain(indptr, indices, data_p, x_p)
+    gd_p, gx_p = torch.autograd.grad((w * y_p).sum(), (data_p, x_p))
+    del y_p, data_p, x_p
+    dbar_equal = bool(torch.equal(gd, gd_p))
+    xbar_abs, xbar_rel = rel_err(gx, gx_p)
+    xbar_equal = bool(torch.equal(gx, gx_p))
+    del gd_p, gx_p
+    # x̄'s launches alone: the kernel on Aᵀ's tables with the permuted data
+    tdata = jac_data.index_select(0, tperm)
+    if troute.kind == "gather":
+        tptr, tidx = troute.pattern.device_tables(dev)
+        xbar = lambda: spmv.gather_spmv(tptr, tidx, tdata, w)  # noqa: E731
+        nbytes = nnz * (item + 4) + (n_cols + 1) * 4 + (n_rows + n_cols) * item
+    elif troute.kind == "stream":
+        from nonlinearsolve_tpu_torch.ops import spmv_stream
+        packed = troute.plan.pack_data(tdata)
+        cols = troute.plan.cols_table(dev)
+        xbar = lambda: spmv_stream.band_spmv_packed(  # noqa: E731
+            cols, packed, w, n_cols)
+        nbytes = cols.numel() * 4 + nnz * item + (n_rows + n_cols) * item
+    elif troute.kind == "scatter":
+        staged = troute.plan.stage(tdata)
+        parts = troute.plan.tables(dev)
+        xbar = lambda: troute.plan.apply_staged(staged, w)  # noqa: E731
+        nbytes = n_cols * item + sum(
+            t.gcol.shape[0] * (4 + item) + t.pos.shape[0] * 4
+            + (t.rptr.shape[0] + t.zstart.shape[0]) * 4
+            + (t.c1 - t.c0) * item for t in parts)
+    else:
+        raise AssertionError(f"{name}: Aᵀ took the {troute.kind} route")
+    xbar_direct_equal = bool(torch.equal(xbar(), gx))
+    tptr, tidx = troute.pattern.device_tables(dev)
+    lib_t = torch.sparse_csr_tensor(tptr, tidx, tdata, (n_cols, n_rows))
+    library_ms = profiled_ms(torch, lambda: lib_t @ w)
+    library_rel = rel_err(lib_t @ w, gx)[1]
+    ms = graph_time_ms(torch, xbar)
+    bms, by = roofline_ms(nbytes, 2 * nnz, dname)
+    backward_ms = event_time_ms(
+        torch, lambda: torch.autograd.grad(loss, (data, xr),
+                                           retain_graph=True), calls=10)
+    kernel_launches = launches.get(name, 0)
+    expect = (len(troute.plan.parts) if troute.kind == "scatter" else 1)
+    rec = {"phase": "reverse_rule", "kernel": name, "tables": tables,
+           "dtype": dname, "shape": [n_rows, n_cols, nnz],
+           "route": route.kind, "reordered": reordered,
+           "transpose_route": troute.kind,
+           "transpose_reuses_forward_plan": troute.plan is route.plan
+           and route.plan is not None,
+           "transpose_host_s": transpose_s,
+           "launches_per_backward": launches,
+           "dbar_bit_equal_to_plain": dbar_equal,
+           "xbar_bit_equal_to_plain": xbar_equal,
+           "xbar_max_abs_err": xbar_abs, "xbar_rel_err": xbar_rel,
+           "xbar_tolerance": VJP_TOL[dname],
+           "xbar_equals_its_launches_alone": xbar_direct_equal,
+           "backward_ms": backward_ms, "xbar_ms": ms,
+           "xbar_bound_ms": bms, "xbar_bound_by": by,
+           "xbar_bound_bytes": nbytes, "xbar_share_of_bound": bms / ms,
+           "library_ms": library_ms, "library": "cuSPARSE CSR matvec of "
+           "Aᵀ (torch.sparse_csr_tensor of the transposed tables @ ȳ)",
+           "library_rel_err": library_rel}
+    checks = {
+        "d̄ata bit for bit": dbar_equal,
+        "x̄ within tolerance": xbar_rel <= VJP_TOL[dname],
+        "x̄ is the kernel's on Aᵀ": xbar_direct_equal,
+        f"{name} launched by the backward": kernel_launches == expect,
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"reverse rule of {name} failed: {failed}")
+    del gd, gx, tdata, lib_t, loss, y, data, xr
+    return rec
+
+
 def bsr_kernel_checks(torch, dev, spmv, Jb):
     """K6 against its plain version on the block-sparse phase's matrix (the
     512² Jacobian at the root, b = 2) with seeded X, nrhs 8 and 37, f32 and
@@ -1481,8 +1644,8 @@ def dense_run_report(torch, nls, _backend, name, prob, alg, jac_fn,
     first solve timed, then the warm wall (median of 3), the device time
     by class (the Jacobian timed alone × njacs; the dense linear algebra by
     kernel name; the rest) and the idle share of a profiled solve — with
-    ``profile_last_warm`` (a solve of many seconds) the third warm solve
-    is the profiled one."""
+    ``profile_last_warm`` (a solve of many seconds) the one warm solve is
+    the profiled one."""
     t_report = time.perf_counter()
     torch.cuda.synchronize()
     _backend.reset_counters()
@@ -1493,8 +1656,8 @@ def dense_run_report(torch, nls, _backend, name, prob, alg, jac_fn,
     launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
     if sol.retcode != nls.ReturnCode.Success:
         raise AssertionError(f"dense {name}: {sol.retcode.name}")
-    walls = warm_walls(torch, lambda: nls.solve(prob, alg, **kw),
-                       count=2 if profile_last_warm else 3)
+    walls = ([] if profile_last_warm else
+             warm_walls(torch, lambda: nls.solve(prob, alg, **kw)))
     prof = profile_device(torch, lambda: nls.solve(prob, alg, **kw),
                           groups=DENSE_GROUPS, host_events=False)
     if profile_last_warm:
@@ -1514,7 +1677,8 @@ def dense_run_report(torch, nls, _backend, name, prob, alg, jac_fn,
            "stats": vars(sol.stats),
            "host_syncs": sol.counters["host_syncs"],
            "custom_kernel_launches": launches, "first_solve_s": first_s,
-           "warm_wall_s": walls, "warm_wall_s_median": sorted(walls)[1],
+           "warm_wall_s": walls,
+           "warm_wall_s_median": sorted(walls)[len(walls) // 2],
            "device_ms_by_class": by_class,
            "device_busy_ms": prof["device_busy_ms"],
            "device_idle_share": prof["device_idle_share"],
@@ -2633,6 +2797,377 @@ def batched_tier_phase(torch, nls, _backend, card):
         raise AssertionError(f"batched tier phase failed: {failed}")
 
 
+def _refusal(fn):
+    """The message of the NotImplementedError ``fn()`` raises, else None
+    (a refusal is what phase 23 (d) checks for)."""
+    try:
+        fn()
+    except NotImplementedError as exc:
+        return str(exc)
+    return None
+
+
+def sensitivity_phase(torch, nls, _backend, brusselator, stencil, spmv,
+                      card, flag_prob, flag_alg, prob64, alg64):
+    """Phase 23: differentiating through ``solve`` and the A.18 surface on
+    the card ((c), the reverse rules of K5, K7 and K8, runs in phases 7, 12
+    and 13, on their matrices).  Each run with the launch counters at 0
+    just before and read just after.  Returns the phase's record."""
+    import numpy as np
+    from torch.autograd import forward_ad as fwAD
+    from nonlinearsolve_tpu_torch.core import cache as cache_mod
+    from nonlinearsolve_tpu_torch.core import sensitivity as sens
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    dev = flag_prob.u0.device
+    out = {"phase": "sensitivity", "card": card}
+
+    def run(fn):
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, {
+            k: v for k, v in _backend.LAUNCHES.items() if v}
+
+    def idle(fn):
+        """One more run of ``fn`` under torch.profiler: its wall, the
+        device's busy time and idle share."""
+        prof = profile_device(torch, fn, groups={}, host_events=False)
+        return {k: prof[k] for k in ("profiled_solve_s", "device_busy_ms",
+                                     "device_idle_share")}
+
+    # --- (a) the dense branch at n = 2048 = _DENSE_IFT_LIMIT ---------------
+    base = brusselator.make_problem(32, f64)
+    n = base.u0.numel()
+    g = np.random.default_rng(23)
+    w = torch.as_tensor(g.standard_normal(tuple(base.u0.shape)), device=dev)
+    p0 = base.p.detach().clone()
+    eye = torch.eye(4, dtype=f64, device=dev)
+
+    def reverse(alg):
+        p = p0.clone().requires_grad_(True)
+        sol = nls.solve(base.remake(p=p), alg, abstol=1e-10)
+        pbar, = torch.autograd.grad((w * sol.u).sum(), p)
+        return sol, pbar, dict(sens.STATS)
+
+    (sol_nr, pbar, st), wall, launches = run(
+        lambda: reverse(nls.NewtonRaphson()))
+    wdot = []
+    fwd_wall = 0.0
+    for i in (0, 1):
+        def forward(i=i):
+            with fwAD.dual_level():
+                s = nls.solve(base.remake(p=fwAD.make_dual(p0, eye[i])),
+                              nls.NewtonRaphson(), abstol=1e-10)
+                return float((w * fwAD.unpack_dual(s.u).tangent).sum())
+        val, secs, _ = run(forward)
+        wdot.append(val)
+        fwd_wall += secs
+    fd = []
+    for i in range(4):
+        h = 1e-4 * abs(float(p0[i]))
+        vals = []
+        for sgn in (1.0, -1.0):
+            s = nls.solve(base.remake(u0=sol_nr.u.detach(),
+                                      p=p0 + sgn * h * eye[i]),
+                          nls.NewtonRaphson(), abstol=1e-10)
+            vals.append(float((w * s.u).sum()))
+        fd.append((vals[0] - vals[1]) / (2 * h))
+    pb = pbar.cpu().numpy()
+    scale = float(np.abs(pb).max())
+    fd_rel = float(np.abs(np.array(fd) - pb).max()) / scale
+    jvp_rel = [abs(wdot[i] - pb[i]) / abs(pb[i]) for i in (0, 1)]
+    a_prof = idle(lambda: reverse(nls.NewtonRaphson()))
+    (_, pbar_tr, _), wall_tr, _ = run(lambda: reverse(nls.TrustRegion()))
+    (sol_pa, pbar_pa, _), wall_pa, _ = run(lambda: reverse(None))
+    tr_rel = float((pbar_tr - pbar).abs().max()) / scale
+    pa_rel = float((pbar_pa - pbar).abs().max()) / scale
+    out["a_dense"] = {
+        "N": 32, "n": n, "dtype": "float64", "abstol": 1e-10,
+        "retcode": sol_nr.retcode.name, "nsteps": sol_nr.stats.nsteps,
+        "branch": st.get("branch"), "pbar": pb.tolist(),
+        "wdot_forward_A_B": wdot, "forward_rel_err": jvp_rel,
+        "fd_rel_err": fd_rel, "fd_step_rel": 1e-4,
+        "trust_region_rel": tr_rel, "polyalg_rel": pa_rel,
+        "polyalg_winner": sol_pa.counters.get("winner"),
+        "wall_solve_and_backward_s": wall, "wall_two_forward_s": fwd_wall,
+        "wall_trust_region_s": wall_tr, "wall_polyalg_s": wall_pa,
+        "profiled_solve_and_backward": a_prof, "launches": launches}
+    checks = {
+        "(a) Success": sol_nr.retcode == nls.ReturnCode.Success,
+        "(a) dense branch": st.get("branch") == "dense",
+        "(a) <w, u_dot> = p_bar (rel 1e-10)": max(jvp_rel) <= 1e-10,
+        "(a) central differences (rel 1e-5)": fd_rel <= 1e-5,
+        "(a) TrustRegion's p_bar (rel 1e-8)": tr_rel <= 1e-8,
+        "(a) the polyalgorithm's p_bar (rel 1e-8)": pa_rel <= 1e-8,
+        "(a) no kernel launched": not launches,
+    }
+
+    # --- (b) the Krylov branch at the flagship's width, f64 --------------
+    wb = torch.as_tensor(np.random.default_rng(24).standard_normal(
+        tuple(prob64.u0.shape)), device=dev)
+    pb0 = prob64.p.detach().clone()
+
+    def krylov():
+        p = pb0.clone().requires_grad_(True)
+        sol = nls.solve(prob64.remake(p=p), alg64, abstol=1e-4, maxiters=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pbar, = torch.autograd.grad((wb * sol.u).sum(), p)
+        torch.cuda.synchronize()
+        return sol, pbar, time.perf_counter() - t0, dict(sens.STATS)
+
+    (sol_b, pbar_b, adjoint_s, st_b), wall_b, launches_b = run(krylov)
+    b_prof = idle(krylov)
+    fd_b = []
+    for i in range(4):
+        h = 1e-4 * abs(float(pb0[i]))
+        vals = []
+        for sgn in (1.0, -1.0):
+            s = nls.solve(prob64.remake(u0=sol_b.u.detach(),
+                                        p=pb0 + sgn * h * eye[i]), alg64,
+                          abstol=1e-8, maxiters=10)
+            vals.append(float((wb * s.u).sum()))
+        fd_b.append((vals[0] - vals[1]) / (2 * h))
+    pbb = pbar_b.cpu().numpy()
+    out["b_krylov"] = {
+        "N": 512, "n": prob64.u0.numel(), "dtype": "float64",
+        "retcode": sol_b.retcode.name, "nsteps": sol_b.stats.nsteps,
+        "branch": st_b.get("branch"),
+        "gmres_iterations": st_b.get("iterations"),
+        "adjoint_rel_residual": st_b.get("rel_residual"),
+        "adjoint_met_rtol_1e-8": st_b.get("success"),
+        "pbar": pbb.tolist(), "central_differences": fd_b,
+        "fd_rel_gap": float(np.abs(np.array(fd_b) - pbb).max())
+        / float(np.abs(pbb).max()),
+        "wall_solve_and_backward_s": wall_b, "backward_s": adjoint_s,
+        "profiled_solve_and_backward": b_prof, "launches": launches_b}
+    checks["(b) the polish's Success"] = \
+        sol_b.retcode == nls.ReturnCode.Success
+    checks["(b) GMRES branch"] = st_b.get("branch") == "gmres"
+    checks["(b) K1 in the solve"] = launches_b.get("brusselator_jvp", 0) > 0
+
+    # --- (d) refusals: grad mode through K1 and K4 on the card ------------
+    U = flag_prob.u0.detach().clone().requires_grad_(True)
+    k1 = _refusal(lambda: stencil.brusselator_jvp(
+        U, torch.ones_like(U), flag_prob.p))
+    xd = torch.ones(1024, device=dev, requires_grad=True)
+    k4 = _refusal(lambda: spmv.dia_spmv(torch.ones((3, 1024), device=dev),
+                                        (-1, 0, 1), xd))
+    # and a forward-mode tangent through K1 and through CSR.matvec
+    T1 = torch.ones_like(flag_prob.u0)
+    pat = brusselator.sparsity_pattern(64)
+    Cd = pat.with_data(torch.ones(pat.nnz, dtype=f64, device=dev))
+    x64 = torch.ones(pat.shape[1], dtype=f64, device=dev)
+    with fwAD.dual_level():
+        k1_fwd = _refusal(lambda: stencil.brusselator_jvp(
+            flag_prob.u0, fwAD.make_dual(T1, T1), flag_prob.p))
+        csr_fwd = _refusal(lambda: Cd.matvec(fwAD.make_dual(x64, x64)))
+    out["d_refusals"] = {"K1": k1, "K4": k4, "K1_tangent": k1_fwd,
+                         "csr_matvec_tangent": csr_fwd}
+    checks["(d) K1 refuses grad"] = k1 is not None and "K1" in k1
+    checks["(d) K4 refuses grad"] = k4 is not None and "K4" in k4
+    checks["(d) K1 refuses a tangent"] = k1_fwd is not None \
+        and "K1" in k1_fwd
+    checks["(d) CSR.matvec refuses a tangent"] = csr_fwd is not None \
+        and "csr_spmv" in csr_fwd
+
+    # --- (e) the A.18 surface on the f32 flagship -------------------------
+    kw = {"abstol": 5.0, "maxiters": 30}
+    ref, ref_s, ref_launches = run(lambda: nls.solve(flag_prob, flag_alg,
+                                                     **kw))
+
+    def iterate():
+        cache = nls.init(flag_prob, flag_alg, **kw)
+        cache.step(2)
+        return cache, cache.solve()
+
+    (cache, it_sol), it_s, it_launches = run(iterate)
+    e_prof = idle(iterate)
+    # reinit warm-starts the dense f64 Newton of (a) at A + 1 % from its
+    # root (the f32 flagship sits on its f32 floor, where a start near
+    # the root is no better than u0)
+    p2 = p0.clone()
+    p2[0] = p2[0] * 1.01
+    cold, cold_s, _ = run(lambda: nls.solve(base.remake(p=p2),
+                                            nls.NewtonRaphson(),
+                                            abstol=1e-10))
+    dense_cache = nls.init(base, nls.NewtonRaphson(), abstol=1e-10)
+    dense_root = dense_cache.solve().u
+    warm, warm_s, _ = run(lambda: dense_cache.reinit(u0=dense_root,
+                                                     p=p2).solve())
+    traced, traced_s, _ = run(lambda: nls.solve(
+        flag_prob, flag_alg, store_trace=True, time_phases=True, **kw))
+    tm = traced.timer
+    phase_sum = sum(tm[k] for k in ("jacobian", "descent", "linesearch",
+                                    "other"))
+    bounded_prob = nls.NonlinearProblem(base.f, base.u0, p0, lb=0.0)
+    bounded, bounded_s, _ = run(lambda: nls.solve(
+        bounded_prob, nls.TrustRegion(), abstol=1e-10))
+    bounded_gap = float((bounded.u - sol_nr.u.detach()).abs().max())
+    # a budget stops a solve that has done work: the bounded TrustRegion
+    # takes more steps than one chunk, and half its first chunk's wall
+    # (from the solve just timed) lets that chunk run and stops the next;
+    # the same cache then resumes and gives the solve's root bit for bit.
+    # A stop returns the safe-best iterate and the next solve resumes
+    # from it, as in the JAX package, which may take other steps; a mode
+    # that keeps no best iterate resumes where the stop left off
+    chunk = cache_mod._STEP_CHUNK
+    no_best = {"abstol": 1e-10, "termination_condition":
+               nls.AbsNormSafeTerminationMode(norm="linf",
+                                              max_stalled_steps=32)}
+    whole, whole_s, _ = run(lambda: nls.solve(
+        bounded_prob, nls.TrustRegion(), **no_best))
+    budget_set = 0.5 * whole_s * chunk / max(whole.stats.nsteps, 1)
+    budget_cache = nls.init(bounded_prob, nls.TrustRegion(), **no_best)
+    budget, budget_s, _ = run(
+        lambda: budget_cache.solve(maxtime=budget_set))
+    resumed = budget_cache.solve()
+    out["e_a18"] = {
+        "iterator": {"retcode": it_sol.retcode.name,
+                     "stats": vars(it_sol.stats),
+                     "solve_stats": vars(ref.stats),
+                     "root_bit_equal": bool(torch.equal(it_sol.u, ref.u)),
+                     "wall_s": it_s, "solve_wall_s": ref_s,
+                     "profiled": e_prof,
+                     "launches": it_launches,
+                     "solve_launches": ref_launches},
+        "reinit_warm": {"problem": "dense Brusselator N=32 f64, "
+                        "NewtonRaphson, abstol 1e-10, A + 1 %",
+                        "p_A": float(p2[0]), "retcode": warm.retcode.name,
+                        "nsteps": warm.stats.nsteps, "wall_s": warm_s,
+                        "cold_retcode": cold.retcode.name,
+                        "cold_nsteps": cold.stats.nsteps,
+                        "cold_wall_s": cold_s},
+        "trace_and_timer": {"trace_n": traced.trace.n,
+                            "nsteps": traced.stats.nsteps,
+                            "fnorm": traced.trace.fnorm[
+                                :traced.trace.n].tolist(),
+                            "timer": tm, "phase_sum_s": phase_sum,
+                            "wall_s": traced_s,
+                            "timer_share_of_wall": tm["total"] / traced_s},
+        "maxtime": {"problem": "the bounded dense Brusselator below, "
+                    "AbsNormSafe termination (linf)",
+                    "step_chunk": chunk, "maxtime_s": budget_set,
+                    "retcode": budget.retcode.name,
+                    "nsteps": budget.stats.nsteps, "wall_s": budget_s,
+                    "unbudgeted_nsteps": whole.stats.nsteps,
+                    "unbudgeted_wall_s": whole_s,
+                    "resumed_retcode": resumed.retcode.name,
+                    "resumed_nsteps": resumed.stats.nsteps},
+        "bounded": {"N": 32, "lb": 0.0, "alg": "TrustRegion",
+                    "retcode": bounded.retcode.name,
+                    "nsteps": bounded.stats.nsteps,
+                    "gap_to_unbounded_root": bounded_gap,
+                    "wall_s": bounded_s}}
+    checks.update({
+        "(e) iterator = solve: retcode": it_sol.retcode == ref.retcode
+        == nls.ReturnCode.Success,
+        "(e) iterator = solve: NLStats": it_sol.stats == ref.stats,
+        "(e) iterator = solve: root bit for bit":
+            bool(torch.equal(it_sol.u, ref.u)),
+        "(e) reinit warm-starts": warm.success
+        and warm.stats.nsteps < cold.stats.nsteps,
+        "(e) trace of every step": traced.trace.n == traced.stats.nsteps,
+        "(e) tracing and timing change no root":
+            bool(torch.equal(traced.u, ref.u)),
+        "(e) phases sum to the timer's total":
+            abs(phase_sum - tm["total"]) <= 1e-6 * tm["total"],
+        "(e) phases within 10 % of the wall":
+            abs(tm["total"] - traced_s) <= 0.1 * traced_s,
+        "(e) the solve is longer than one chunk":
+            whole.stats.nsteps > chunk,
+        "(e) maxtime stops a solve that has done work":
+            budget.retcode == nls.ReturnCode.MaxTime
+            and 0 < budget.stats.nsteps < whole.stats.nsteps,
+        "(e) the stopped cache resumes to the solve's root":
+            resumed.retcode == whole.retcode == nls.ReturnCode.Success
+            and resumed.stats == whole.stats
+            and bool(torch.equal(resumed.u, whole.u)),
+        "(e) bounded TrustRegion Success":
+            bounded.retcode == nls.ReturnCode.Success,
+        "(e) bounded root within 1e-8 of the unbounded": bounded_gap <= 1e-8,
+    })
+    checks = {k: bool(v) for k, v in checks.items()}
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t_phase
+    out["ok"] = all(checks.values())
+    emit(out)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 23 failed: {failed}")
+    return out
+
+
+def flagship_setup(torch, nls, brusselator, fft_poisson_preconditioner,
+                   N):
+    """Phase 4's flagship: the N² Brusselator in f32 with K1 as its JVP,
+    Newton–GMRES(8) with the FFT Poisson preconditioner, Eisenstat–Walker
+    forcing 0.1.  Returns ``(prob, alg, pm)``, ``pm`` the preconditioner;
+    it is solved at abstol 5, 30 steps at most."""
+    prob = brusselator.make_problem(N, torch.float32, kernel_jvp=True)
+    pm = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
+                                    shift=3.0, n_components=2)
+    alg = nls.NewtonRaphson(
+        linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                  krylov_maxiter=100, precond_fn=pm),
+        forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+    return prob, alg, pm
+
+
+def polish_setup(torch, nls, brusselator, fft_poisson_preconditioner, N,
+                 u0):
+    """Phase 5's f64 polish from the flagship's root ``u0``: K1 in f64,
+    Newton–GMRES(16) with the same preconditioner, forcing 1e-4.  Returns
+    ``(prob64, alg64)``; it is solved at abstol 1e-4, 10 steps at most."""
+    prob64 = brusselator.make_problem(N, torch.float64, kernel_jvp=True)
+    prob64 = prob64.remake(u0=u0.double())
+    pm64 = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
+                                      shift=3.0, n_components=2)
+    alg64 = nls.NewtonRaphson(
+        linsolve=nls.LinearSolver(method="gmres", restart=16,
+                                  krylov_maxiter=200, precond_fn=pm64),
+        forcing=nls.EisenstatWalkerForcing(eta_0=1e-4, eta_max=1e-4))
+    return prob64, alg64
+
+
+def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
+                fft_poisson_preconditioner, card, phases):
+    """``--only``: phases 19–23 alone, in the order given, each on the
+    set-up it takes from the earlier phases rebuilt here: phase 18's
+    NewtonRaphson root at N=32 for 20; the flagship and its polish, solved
+    as phases 4 and 5 solve them, for 23."""
+    f64 = torch.float64
+    for ph in phases:
+        t0 = time.perf_counter()
+        if ph == "19":
+            problems23_phase(torch, nls, _backend, card)
+        elif ph == "20":
+            nr_root = nls.solve(brusselator.make_problem(32, f64),
+                                nls.NewtonRaphson(), abstol=1e-10).u
+            qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root,
+                             card)
+        elif ph == "21":
+            sparse_direct_phase(torch, nls, _backend, spmv, card)
+        elif ph == "22":
+            batched_tier_phase(torch, nls, _backend, card)
+        elif ph == "23":
+            prob, alg, _pm = flagship_setup(torch, nls, brusselator,
+                                            fft_poisson_preconditioner, 512)
+            sol = nls.solve(prob, alg, abstol=5.0, maxiters=30)
+            prob64, alg64 = polish_setup(torch, nls, brusselator,
+                                         fft_poisson_preconditioner, 512,
+                                         sol.u)
+            sensitivity_phase(torch, nls, _backend, brusselator, stencil,
+                              spmv, card, prob, alg, prob64, alg64)
+        else:
+            raise ValueError(f"--only takes phases 19 to 23, not {ph!r}")
+        emit({"phase": "only_phase", "only": ph,
+              "seconds": time.perf_counter() - t0, "card": card})
+
+
 def main(argv):
     import torch
 
@@ -2699,6 +3234,13 @@ def main(argv):
             rec["sass_instructions"] = sass_counts(so)
         emit(rec)
     emit({"phase": "build", "seconds": build_s})
+
+    if "--only" in argv:
+        only_phases(torch, nls, _backend, brusselator, stencil, spmv,
+                    fft_poisson_preconditioner, card,
+                    argv[argv.index("--only") + 1].split(","))
+        emit({"phase": "only", "seconds": time.perf_counter() - t_start})
+        return 0
 
     # --- 3. kernels against their plain versions ---------------------------
     gen = torch.Generator().manual_seed(0)
@@ -2798,13 +3340,8 @@ def main(argv):
     # --- 4. main path ------------------------------------------------------
     N = 512
     f32 = torch.float32
-    prob = brusselator.make_problem(N, f32, kernel_jvp=True)
-    pm = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
-                                    shift=3.0, n_components=2)
-    alg = nls.NewtonRaphson(
-        linsolve=nls.LinearSolver(method="gmres", restart=8,
-                                  krylov_maxiter=100, precond_fn=pm),
-        forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+    prob, alg, pm = flagship_setup(torch, nls, brusselator,
+                                   fft_poisson_preconditioner, N)
     chain_steps = 1000
 
     def chain(steps):
@@ -2889,14 +3426,8 @@ def main(argv):
           "card": card})
 
     # --- 5. f64 polish -----------------------------------------------------
-    prob64 = brusselator.make_problem(N, torch.float64, kernel_jvp=True)
-    prob64 = prob64.remake(u0=sol.u.double())
-    pm64 = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
-                                      shift=3.0, n_components=2)
-    alg64 = nls.NewtonRaphson(
-        linsolve=nls.LinearSolver(method="gmres", restart=16,
-                                  krylov_maxiter=200, precond_fn=pm64),
-        forcing=nls.EisenstatWalkerForcing(eta_0=1e-4, eta_max=1e-4))
+    prob64, alg64 = polish_setup(torch, nls, brusselator,
+                                 fft_poisson_preconditioner, N, sol.u)
     t0 = time.perf_counter()
     sol64 = nls.solve(prob64, alg64, abstol=1e-4, maxiters=10)
     torch.cuda.synchronize()
@@ -3066,6 +3597,10 @@ def main(argv):
     # root as data (outside the counted run)
     jac = cplan(lambda u: cprob.f.f(u, cprob.p), csol.u)
     csr_summary = csr_kernel_checks(torch, dev, spmv, cplan, jac.data)
+    # phase 23 (c): K5's reverse rule on this route's matrix
+    vjp_summary = {"gather_spmv": reverse_rule_check(
+        torch, _backend, spmv, "gather_spmv", "csr_route_512_permuted",
+        cplan.pattern, jac.data)}
     del jac, cprob, csol, back
 
     # --- 8. 3D kernels against their plain versions -------------------------
@@ -3337,6 +3872,10 @@ def main(argv):
     jac3 = bcj(lambda u: bprob.f.f(u, bprob.p), bsol.u)
     band_summary = band_kernel_checks(torch, dev, spmv, spmv_stream, pat3,
                                       bplan3, jac3.data)
+    # phase 23 (c): K7's reverse rule on this route's matrix and plan
+    vjp_summary["band_spmv"] = reverse_rule_check(
+        torch, _backend, spmv, "band_spmv", "band_route_256", pat3,
+        jac3.data)
     del jac3, bprob, bsol, bcj, u3_64, sol3, prob3
     spmv.clear_plan_caches()
     del pat3, bplan3, tier3
@@ -3450,6 +3989,10 @@ def main(argv):
     jac96 = scj(lambda u: sprob96.f.f(u, sprob96.p), ssol96.u)
     scatter_summary = scatter_kernel_checks(torch, dev, spmv, spmv_scatter,
                                             spat, splan96, jac96.data)
+    # phase 23 (c): K8's reverse rule on this route's matrix and plan
+    vjp_summary["scatter_spmv_part"] = reverse_rule_check(
+        torch, _backend, spmv, "scatter_spmv_part",
+        "scatter_route_96_permuted", spat, jac96.data)
     del jac96, sprob96, ssol96, nprob, nsol
 
     # --- 14. the bf16 path: the flagship with the bf16 basis (and K3) -------
@@ -3693,7 +4236,11 @@ def main(argv):
     # --- 22. the batched tier (simple solvers, bracketing, ensembles) -------
     batched_tier_phase(torch, nls, _backend, card)
 
-    # --- 23. summary -------------------------------------------------------
+    # --- 23. differentiating through solve, and the A.18 surface ---------
+    sens_rec = sensitivity_phase(torch, nls, _backend, brusselator, stencil,
+                                 spmv, card, prob, alg, prob64, alg64)
+
+    # --- 24. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
@@ -3864,6 +4411,27 @@ def main(argv):
                                             "k5_columns_index_select_ms")}
                     for (d, k), v in bsr_summary.items()
                     if (d, k) != ("float64", 8)}})
+    # phase 23 (c): each SpMV kernel's reverse rule on its route's matrix
+    for row in out:
+        r = vjp_summary.get(row["name"])
+        if r is not None:
+            row["reverse_rule"] = {
+                "tables": r["tables"], "dtype": r["dtype"],
+                "launches_per_backward": r["launches_per_backward"],
+                "dbar_bit_equal": r["dbar_bit_equal_to_plain"],
+                "xbar_rel_err": r["xbar_rel_err"],
+                "backward_ms": r["backward_ms"], "xbar_ms": r["xbar_ms"],
+                "xbar_bound_ms": r["xbar_bound_ms"],
+                "xbar_share_of_bound": r["xbar_share_of_bound"],
+                "library_ms": r["library_ms"],
+                "library": "cuSPARSE Aᵀ·ȳ",
+                "transpose_reuses_forward_plan":
+                    r["transpose_reuses_forward_plan"]}
+    emit({"phase": "sensitivity_summary",
+          "seconds": sens_rec["seconds"],
+          "a_forward_rel_err": sens_rec["a_dense"]["forward_rel_err"],
+          "b_adjoint_rel_residual":
+              sens_rec["b_krylov"]["adjoint_rel_residual"]})
     emit({"kernels": out})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})

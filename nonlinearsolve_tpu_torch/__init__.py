@@ -24,17 +24,25 @@ no algorithm runs the JAX package's default ladder; the batched tier: the
 simple solvers (``SimpleNewtonRaphson`` … ``SimpleLimitedMemoryBroyden``),
 the bracketing methods on ``IntervalNonlinearProblem`` (with the
 implicit-function derivative of the root) and ``EnsembleProblem`` /
-``solve_ensemble``, a batch running in lockstep on the device.  See
-ROADMAP.md for what is still to come.
+``solve_ensemble``, a batch running in lockstep on the device;
+differentiation through ``solve`` by the implicit-function rule (reverse
+and forward mode, second order), with the reverse rules of the SpMV
+kernels; bounds, pre- and postconditioning, the initialization hook,
+traces, messages, phase timers, ``maxtime`` and the iterator ``init`` /
+``step`` / ``solve`` / ``reinit``.  See ROADMAP.md for what is still to
+come.
 """
 
 from .core.autodiff import JacobianPolicy, pickchunksize
+from .core.cache import NonlinearSolveCache, init
+from .core.conditioning import PostconditionSpace, PostconditionSpecifier
 from .core.descent import (DampedNewtonDescent, DescentResult, Dogleg,
                            GeodesicAcceleration, NewtonDescent,
                            SteepestDescent)
 from .core.linesearch import (BackTracking, LiFukushimaLineSearch,
                               RobustNonMonotoneLineSearch)
 from .core.ensemble import EnsembleProblem, solve_ensemble
+from .core.initialization import InitializationData
 from .core.problems import (IntervalNonlinearProblem, NonlinearFunction,
                             NonlinearLeastSquaresProblem, NonlinearProblem)
 from .core.returncode import ReturnCode
@@ -48,9 +56,12 @@ from .core.termination import (AbsNormSafeBestTerminationMode,
                                RelNormSafeTerminationMode,
                                RelNormTerminationMode, RelTerminationMode,
                                TerminationCondition)
+from .core.tracing import (TraceAll, TraceConfig, TraceMinimal,
+                           TraceWithJacobianConditionNumber)
 from .core.trust_region import (GenericTrustRegionScheme,
                                 LevenbergMarquardtTrustRegion,
                                 RadiusUpdateSchemes)
+from .core.verbosity import NonlinearVerbosity
 from .core.wolfe_linesearch import (HagerZhang, LineSearchesJL, MoreThuente,
                                     StaticLineSearch, StrongWolfe)
 from .ops.linear_solve import LinearSolver
@@ -80,14 +91,15 @@ __all__ = [
     "Falsi", "FastShortcutNLLSPolyalg", "FastShortcutNonlinearPolyalg",
     "GaussNewton", "GeneralizedDFSane", "GeneralizedFirstOrderAlgorithm",
     "GenericTrustRegionScheme", "GeodesicAcceleration", "HagerZhang", "ITP",
-    "IntervalNonlinearProblem", "JacVecOperator", "JacobianOperator",
-    "JacobianPolicy", "Klement", "LevenbergMarquardt",
+    "InitializationData", "IntervalNonlinearProblem", "JacVecOperator",
+    "JacobianOperator", "JacobianPolicy", "Klement", "LevenbergMarquardt",
     "LevenbergMarquardtTrustRegion", "LiFukushimaLineSearch",
     "LimitedMemoryBroyden", "LineSearchesJL", "LinearSolver", "ModAB",
     "MoreThuente", "Muller", "NLStats", "NewtonDescent", "NewtonRaphson",
     "NonlinearFunction", "NonlinearLeastSquaresProblem", "NonlinearProblem",
-    "NonlinearSolution", "NonlinearSolvePolyAlgorithm",
-    "NormTerminationMode", "PseudoTransient", "QuasiNewtonAlgorithm",
+    "NonlinearSolution", "NonlinearSolveCache", "NonlinearSolvePolyAlgorithm",
+    "NonlinearVerbosity", "NormTerminationMode", "PostconditionSpace",
+    "PostconditionSpecifier", "PseudoTransient", "QuasiNewtonAlgorithm",
     "RadiusUpdateSchemes", "RelNormSafeBestTerminationMode",
     "RelNormSafeTerminationMode", "RelNormTerminationMode",
     "RelTerminationMode", "ReturnCode", "Ridder", "RobustMultiNewton",
@@ -95,6 +107,7 @@ __all__ = [
     "SimpleGaussNewton", "SimpleHalley", "SimpleKlement",
     "SimpleLimitedMemoryBroyden", "SimpleNewtonRaphson", "SimpleTrustRegion",
     "StatefulJacobianOperator", "StaticLineSearch", "SteepestDescent",
-    "StrongWolfe", "TerminationCondition", "TrustRegion", "VecJacOperator",
-    "pickchunksize", "solve", "solve_ensemble",
+    "StrongWolfe", "TerminationCondition", "TraceAll", "TraceConfig",
+    "TraceMinimal", "TraceWithJacobianConditionNumber", "TrustRegion",
+    "VecJacOperator", "init", "pickchunksize", "solve", "solve_ensemble",
 ]

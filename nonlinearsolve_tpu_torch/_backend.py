@@ -15,6 +15,12 @@ source and the command, so an edited source is rebuilt and a stale library
 is never loaded.  A build failure raises with the compiler's output;
 nothing falls back.
 
+Grad: ``refuse_grad`` is every kernel wrapper's first line: a wrapper
+whose inputs require grad under grad mode, or carry a forward-mode
+tangent, raises rather than return a result detached from the
+derivative (the reverse rules live in ``ops/spmv.py`` ``SpmvFunction``
+and ``DiaFunction``).
+
 Counters: ``LAUNCHES`` counts kernel launches per kernel (each wrapper adds
 one where it launches its kernel, and nowhere else); ``HOST_SYNCS`` counts
 device-to-host reads made by ``fetch`` — the points where the host waits for
@@ -35,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -65,6 +72,40 @@ def count_launch(name: str) -> None:
 
 def count_route(name: str) -> None:
     ROUTES[name] += 1
+
+
+def refuse_grad(kernel: str, *inputs, via: str = None) -> None:
+    """Raise, on every device, when an input is to be differentiated: a
+    kernel wrapper never returns a result detached from the derivative it
+    was asked to carry.
+
+    - Reverse mode (grad mode on and an input requires grad): without
+      ``via`` the kernel has no reverse rule, as the JAX package's Pallas
+      kernel has none (``jax.grad`` through it raises); with it, the rule
+      lives in the differentiable entry ``via`` names, and the bare wrapper
+      is forward-only.
+    - Forward mode (an input carries a ``torch.autograd.forward_ad``
+      tangent, as inside ``torch.func.jvp``): no kernel has a tangent
+      rule, as the JAX package's custom VJPs refuse ``jax.jvp``."""
+    if forward_ad._current_level >= 0 and any(
+            isinstance(t, torch.Tensor)
+            and forward_ad.unpack_dual(t).tangent is not None
+            for t in inputs):
+        raise NotImplementedError(
+            f"{kernel} has no forward-mode rule: a tangent "
+            f"(torch.autograd.forward_ad, torch.func.jvp) through it is "
+            f"not supported")
+    if not torch.is_grad_enabled() or not any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
+        return
+    if via is None:
+        raise NotImplementedError(
+            f"{kernel} has no reverse rule: reverse-mode differentiation "
+            f"through it is not supported (jax.grad through the JAX "
+            f"package's kernel raises as well)")
+    raise NotImplementedError(
+        f"the {kernel} wrapper is forward-only: differentiate through "
+        f"{via}, which carries the kernel's reverse rule")
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,12 @@ forward mode (``jacfwd``, or ``vmap`` of ``jvp`` over chunks of the
 identity), reverse mode (``jacrev``) or forward differences (``vmap`` over
 the columns).  The residual may take a shaped state: its Jacobian comes
 back as ``out_shape + in_shape`` and ``core/jacobian.py`` makes it 2-D.
+
+``jvp`` and ``jacfwd`` are the forward-mode products every engine takes.
+PyTorch does not nest forward-AD levels, so inside one (a caller
+differentiating a solve with ``torch.autograd.forward_ad``) they take the
+same products in reverse mode: J·v as the VJP of the VJP, the Jacobian by
+``jacrev``.
 """
 
 from __future__ import annotations
@@ -14,6 +20,34 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch._functorch import eager_transforms as _eager
+from torch.autograd import forward_ad
+
+
+def forward_level_active() -> bool:
+    """True inside a caller's ``torch.autograd.forward_ad`` dual level.
+    ``torch.func.jvp`` enters one too, at its outermost call, but nests
+    its own levels inside it: there (``JVP_NESTING`` > 0) forward mode
+    stays available."""
+    return forward_ad._current_level >= 0 and _eager.JVP_NESTING == 0
+
+
+def jvp(f: Callable, u, v):
+    """``(f(u), J(u)·v)``: ``torch.func.jvp``, or inside a forward-AD
+    level the VJP of the (linear) VJP."""
+    if not forward_level_active():
+        return torch.func.jvp(f, (u,), (v,))
+    fu, vjp_fn = torch.func.vjp(f, u)
+    _, back = torch.func.vjp(lambda w: vjp_fn(w)[0], torch.zeros_like(fu))
+    return fu, back(v)[0]
+
+
+def jacfwd(f: Callable) -> Callable:
+    """``torch.func.jacfwd(f)``, or ``jacrev`` inside a forward-AD
+    level."""
+    if forward_level_active():
+        return torch.func.jacrev(f)
+    return torch.func.jacfwd(f)
 
 
 def pickchunksize(n: int, threshold: int = 12) -> int:
@@ -60,7 +94,7 @@ def _chunked_jacfwd(f_flat: Callable, u: torch.Tensor, chunk: int,
 
     def one_chunk(tangents):
         return torch.func.vmap(
-            lambda t: torch.func.jvp(f_flat, (u,), (t,))[1])(tangents)
+            lambda t: jvp(f_flat, u, t)[1])(tangents)
 
     eye = torch.eye(n, dtype=u.dtype, device=u.device)
     cols = [one_chunk(eye[c * chunk:(c + 1) * chunk]).reshape(-1, n_out)
@@ -98,7 +132,7 @@ def construct_dense_jacobian_fn(
         if policy.chunk_size is not None:
             chunk = max(1, min(int(policy.chunk_size), n_in))
             return lambda u: _chunked_jacfwd(f_flat, u, chunk, n_out)
-        return lambda u: torch.func.jacfwd(f_flat)(u)
+        return lambda u: jacfwd(f_flat)(u)
     if mode == "reverse":
         return lambda u: torch.func.jacrev(f_flat)(u)
     if mode == "finite":

@@ -45,6 +45,15 @@ class DescentCtx:
     n_out: int
     is_least_squares: bool = False
     out_shape: Any = None       # the residual's shape (the simple tier)
+    # the iterate corrector H(u_proposed, u_prev) -> u at every commit point
+    postcondition: Callable = None
+    trace: Any = None           # core.tracing.TraceConfig or None
+    verbosity: Any = None       # core.verbosity.NonlinearVerbosity or None
+    timer: Any = None           # core.timer.PhaseTimer or None
+
+    def mark(self, phase: str) -> None:
+        if self.timer is not None:
+            self.timer.mark(phase)
 
     @property
     def square(self) -> bool:
@@ -161,20 +170,37 @@ def descent_init(cfg, ctx: DescentCtx, J, fu, u):
     raise ValueError(f"unknown descent {cfg!r}")
 
 
-def _matrix_precond(cfg: LinearSolver, J):
+def _matrix_precond(cfg: LinearSolver, J, verbosity=None):
     """Built-in preconditioners for materialized Jacobians.  'jacobi'
     scales by the diagonal (none for the matrix-free operator, as in the
     JAX package).  'device_lu' is the exact host-factored, device-applied
     sparse LU (``ops/device_lu.py``): one refresh a Newton linearization,
     then every Krylov iteration applies the factors on the device.  Where
     no plan applies (J not CSR, an unsupported schedule) it proceeds
-    unpreconditioned, as the JAX package does; the JAX package's
-    ``precond_unavailable`` message comes with the verbosity layer
-    (ROADMAP A.18)."""
+    unpreconditioned, as the JAX package does, and says so through the
+    linear ``precond_unavailable`` message class."""
     if cfg.precond == "device_lu":
         from ..ops.device_lu import device_lu_preconditioner
         from ..ops.sparse import CSR
-        return device_lu_preconditioner(J) if isinstance(J, CSR) else None
+        from .verbosity import NonlinearVerbosity
+
+        def _notify(why):
+            lin = (getattr(verbosity, "linear", None)
+                   if isinstance(verbosity, NonlinearVerbosity)
+                   else verbosity)
+            if lin is not None and hasattr(lin, "emit"):
+                lin.emit("precond_unavailable",
+                         f"precond='device_lu' requested but {why}; "
+                         "proceeding unpreconditioned")
+
+        if not isinstance(J, CSR):
+            _notify(f"the operator is {type(J).__name__}, not CSR")
+            return None
+        M = device_lu_preconditioner(J)
+        if M is None:
+            _notify("no device-LU plan applies to this pattern "
+                    "(native lib missing or schedule unsupported)")
+        return M
     if cfg.precond != "jacobi" or isinstance(J, StatefulJacobianOperator):
         return None
     diag = J.diagonal()
@@ -238,14 +264,24 @@ def _krylov_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
         if not callable(M):
             M = cfg.linsolve.precond_fn
     else:
-        M = _matrix_precond(cfg.linsolve, J)
+        M = _matrix_precond(cfg.linsolve, J, ctx.verbosity)
     kw = {}
     if method == "gmres" and cfg.linsolve.krylov_basis_dtype:
         kw["basis_dtype"] = _BASIS_DTYPES[cfg.linsolve.krylov_basis_dtype]
     res = solve_krylov(method, matvec, fu, restart=cfg.linsolve.restart,
                        maxiter=cfg.linsolve.krylov_maxiter, rtol=rtol, M=M,
                        **kw)
-    return -res.x, torch.isfinite(res.x).all(), res.iterations, products[0]
+    finite = torch.isfinite(res.x).all()
+    from .verbosity import traced_emit_linear
+    traced_emit_linear(
+        ctx.verbosity, "krylov_unconverged", not res.success,
+        "Krylov solve did not reach rtol (|r| = {rn} after {it} "
+        "iterations)", rn=res.residual_norm, it=res.iterations)
+    traced_emit_linear(
+        ctx.verbosity, "krylov_breakdown", ~finite,
+        "Krylov breakdown: non-finite iterate (|r| = {rn})",
+        rn=res.residual_norm)
+    return -res.x, finite, res.iterations, products[0]
 
 
 def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
@@ -265,7 +301,8 @@ def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
             return du, ok, 0, 0
     fu_flat = fu.reshape(-1)
     if ctx.square:
-        x, ok = solve_dense(J, fu_flat, cfg.linsolve)
+        x, ok = solve_dense(J, fu_flat, cfg.linsolve,
+                            verbosity=ctx.verbosity)
     else:
         x = _lstsq(J, fu_flat)[0]
         ok = torch.isfinite(x).all()

@@ -146,7 +146,7 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
                                 alg, **merged)
     if alg is None:
         alg = _default_algorithm(prob)
-    if is_simple_alg(alg):
+    if is_simple_alg(alg) and not _lone_options(prob, merged):
         return _solve_simple_batch(prob, alg, u0s, ps, **merged)
 
     B = (u0s if u0s is not None else _first_leaf(ps)).shape[0]
@@ -167,18 +167,28 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
                                     for s in sols)})
 
 
+def _lone_options(prob, merged) -> bool:
+    """Options the lockstep batch does not take (bounds, conditioning,
+    traces, messages, timers): with them, a simple batch is solved
+    trajectory by trajectory, each lone solve giving the batch's row."""
+    return (getattr(prob, "lb", None) is not None
+            or getattr(prob, "ub", None) is not None
+            or any(merged.get(k) for k in (
+                "precondition", "postcondition", "show_trace",
+                "store_trace", "trace_level", "verbose", "time_phases")))
+
+
 def _first_leaf(tree):
     return tree[0] if isinstance(tree, (tuple, list)) else tree
 
 
 def _solve_simple_batch(prob, alg, u0s, ps, *, abstol=None, reltol=None,
                         maxiters=1000, termination_condition=None,
-                        alias_u0=False, **opts) -> NonlinearSolution:
-    """The batch as one lockstep run of the simple tier."""
+                        alias_u0=False, **_off) -> NonlinearSolution:
+    """The batch as one lockstep run of the simple tier (``_off``: options
+    that are unset, see ``_lone_options``)."""
     from ..solvers.simple import BatchedResidual, run_simple_batched
-    from .solve import _refuse_unported
 
-    _refuse_unported(**opts)
     u0 = prob.u0
     if not isinstance(u0, torch.Tensor):
         raise NotImplementedError(

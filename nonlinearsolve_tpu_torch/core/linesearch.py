@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _backend
+from .autodiff import jvp
 from ..ops.operators import mv
 from .lockstep import any_row
 from ..utils.norms import l2_norm, tree_dot
@@ -148,7 +149,7 @@ def _backtracking(cfg: BackTracking, ctx: DescentCtx, u, du, fu, J, read,
     if J is not None:
         slope_t = tree_dot(fu, mv(J, du))
     else:
-        slope_t = tree_dot(fu, torch.func.jvp(ctx.f_flat, (u,), (du,))[1])
+        slope_t = tree_dot(fu, jvp(ctx.f_flat, u, du)[1])
     alpha = npdt(cfg.initial_alpha)
     phi0, slope, phival = read(_merit(fu), slope_t,
                                _merit(ctx.f_flat(at(u, alpha, du))))

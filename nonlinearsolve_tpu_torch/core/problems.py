@@ -27,6 +27,8 @@ class NonlinearFunction:
       ``CSR`` pattern, a COO ``(rows, cols)`` tuple or a dense mask), for
       colored sparse-AD Jacobians
     - ``colorvec``: a precomputed column coloring of that pattern
+    - ``initialization_data``: an ``InitializationData`` whose sub-problem
+      is solved before the main solve
     """
 
     f: Callable
@@ -36,6 +38,7 @@ class NonlinearFunction:
     jac_prototype: Any = None
     sparsity: Any = None
     colorvec: Any = None
+    initialization_data: Any = None
 
     def __call__(self, u, p=None):
         return self.f(u, p)
@@ -52,7 +55,8 @@ class NonlinearProblem:
     """Find ``u`` with ``f(u, p) = 0`` (square system).
 
     ``kwargs`` are default solve options merged below call-site kwargs.
-    ``lb``/``ub`` (bounds) are accepted so that a solve can refuse them.
+    ``lb``/``ub``: elementwise bounds (None, scalars or tensors), enforced
+    by a change of variable (``core/bounds.py``).
     """
 
     f: NonlinearFunction

@@ -51,7 +51,10 @@ class NonlinearSolution:
     ``counters`` is the port's own record of what the solve cost on the
     device: Jacobian-vector products (``jvp``), Krylov iterations
     (``krylov_iters``) and host syncs (``host_syncs``).  ``original``: the
-    final bracket ``(left, right)`` of a bracketing solve.
+    final bracket ``(left, right)`` of a bracketing solve, or the
+    initialization sub-solution of a solve aborted by it.  ``trace``: the
+    stored per-iteration record (``store_trace=True``); ``timer``: seconds
+    per phase (``time_phases=True``).
     """
 
     u: Any
@@ -61,6 +64,8 @@ class NonlinearSolution:
     counters: Optional[dict] = None
 
     original: Any = None
+    trace: Any = None
+    timer: Any = None
 
     @property
     def success(self):

@@ -1,18 +1,25 @@
 """Top-level ``solve`` (the port of ``core/solve.py``).
 
 ``solve`` checks the keyword arguments, merges call-site over problem
-kwargs and runs ``solve_nonlinear`` on a ``NonlinearProblem`` or a
-``NonlinearLeastSquaresProblem``, ``solvers.bracketing.solve_bracketing``
-on an ``IntervalNonlinearProblem`` and ``core.ensemble`` on an
-``EnsembleProblem``.  The port runs the shaped path only: the iterate is
-``u0`` itself, one tensor of any shape (≥ 1-d), never flattened — except
-on the simple tier, which runs on the flattened state as the JAX package
-does (so a 0-d ``u0`` is accepted there); an empty ``u0`` returns
-``Success`` at once, as in the JAX package.  The engine runs under
-``torch.no_grad()`` on the device that ``u0`` is on.  When the algorithm takes the colored sparse-AD path, the
-host-side plan (pattern, coloring, DIA tier) is built once before the loop
-and cached.  Options whose machinery is not ported raise
-``NotImplementedError`` naming the ROADMAP item that brings it.
+kwargs, runs a problem's initialization hook and then
+``solve_nonlinear`` on a ``NonlinearProblem`` or a
+``NonlinearLeastSquaresProblem`` (through the iterator, ``core/cache.py``,
+when given ``maxtime``), ``solvers.bracketing.solve_bracketing`` on an
+``IntervalNonlinearProblem`` and ``core.ensemble`` on an
+``EnsembleProblem``.  The port runs the shaped path: the iterate is ``u0``
+itself, one tensor of any shape (≥ 1-d), never flattened — except on the
+simple tier, which runs on the flattened state as the JAX package does (so
+a 0-d ``u0`` is accepted there); an empty ``u0`` returns ``Success`` at
+once, as in the JAX package.  Bounds (``lb``/``ub``) solve in the
+unbounded variable of ``core/bounds.py``, elementwise on that shape.
+
+The engine runs under ``torch.no_grad()`` on the device that ``u0`` is
+on.  When ``p`` carries a gradient (a leaf that requires grad, or a
+forward-mode tangent), the root is joined to it by the implicit-function
+rule (``core/sensitivity.py``) on the bounded and preconditioned
+residual, as in the JAX package.  When the algorithm takes the colored
+sparse-AD path, the host-side plan (pattern, coloring, DIA tier) is built
+once before the loop and cached.
 
 ``NonlinearSolution.counters``: ``jvp`` (products with the Jacobian in the
 linear solves), ``krylov_iters`` and ``host_syncs``; a polyalgorithm's
@@ -100,21 +107,30 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
         raise TypeError(
             f"keyword argument(s) {ens_only} apply to ensemble solves only; "
             f"wrap the problem in an EnsembleProblem to use them")
+    # the initialization hook: its sub-problem first; abort on failure
+    init_data = getattr(prob.f, "initialization_data", None)
+    if init_data is not None:
+        from .initialization import (initial_failure_solution,
+                                     run_initialization)
+        prob, init_sol, ok = run_initialization(prob, init_data)
+        if not ok:
+            return initial_failure_solution(prob, init_sol)
     if isinstance(prob, IntervalNonlinearProblem):
         from ..solvers.bracketing import solve_bracketing
         return solve_bracketing(prob, alg, **merged)
     if alg is None:
         alg = _default_algorithm(prob)
-    if merged.pop("maxtime", None) is not None:
-        raise NotImplementedError("maxtime is ROADMAP A.18")
+    # a time budget runs through the iterator, checked between chunks of
+    # steps on the host clock
+    maxtime = merged.pop("maxtime", None)
+    if maxtime is not None:
+        from .cache import init as cache_init
+        cache = cache_init(
+            prob, alg, **{k: v for k, v in merged.items()
+                          if k in ("abstol", "reltol", "maxiters",
+                                   "termination_condition")})
+        return cache.solve(maxtime=float(maxtime))
     return solve_nonlinear(prob, alg, **merged)
-
-
-def _refuse_unported(**opts) -> None:
-    for name, value in opts.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"solve option {name!r} is ROADMAP A.18")
 
 
 # NonlinearFunction -> {(shape, dtype): ColoredJacobian}; a plan (and the
@@ -122,17 +138,18 @@ def _refuse_unported(**opts) -> None:
 _SPARSE_PLANS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
-def _maybe_sparse_plan(f, alg, spec, ctx, u0):
-    """The host-side sparse Jacobian plan (pattern, coloring), built once
-    before the loop when ``alg`` takes the colored sparse-AD path, and
-    cached per (function, shape, dtype) so repeated solves reuse it."""
+def _maybe_sparse_plan(f, alg, spec, f_flat, n_in, n_out, u0):
+    """The host-side sparse Jacobian plan (pattern, coloring) of the
+    residual ``f_flat``, built once before the loop when ``alg`` takes the
+    colored sparse-AD path, and cached per (function, shape, dtype) so
+    repeated solves reuse it."""
     if not wants_sparse(alg, spec):
         return None
     plans = _SPARSE_PLANS.setdefault(f, {})
     key = (tuple(u0.shape), u0.dtype)
     if key not in plans:
         plans[key] = plan_sparse_jacobian(
-            ctx.f_flat, ctx.n_in, ctx.n_out, sparsity=spec.sparsity,
+            f_flat, n_in, n_out, sparsity=spec.sparsity,
             colorvec=spec.colorvec)
     return plans[key]
 
@@ -160,6 +177,160 @@ def _null_solution(prob, abstol) -> NonlinearSolution:
         counters={"jvp": 0, "krylov_iters": 0, "host_syncs": syncs})
 
 
+def _postcondition_of(postcondition, p, bounds):
+    """The corrector on the iterate: ``H(u, u_prev, p)`` itself, or, with
+    bounds and a corrector written in the original space (the default),
+    mapped back, corrected, clamped into the interior and mapped forward
+    again."""
+    if postcondition is None:
+        return None
+    corrector = getattr(postcondition, "corrector", postcondition)
+    space = getattr(postcondition, "space", "original")
+    if bounds is None or space != "original":
+        return lambda u, u_prev: corrector(u, u_prev, p)
+    from .bounds import clamp_to_bounds, from_unbounded, to_unbounded
+    lbf, ubf = bounds
+
+    def post(t, t_prev):
+        u = corrector(from_unbounded(t, lbf, ubf),
+                      from_unbounded(t_prev, lbf, ubf), p)
+        return to_unbounded(clamp_to_bounds(u, lbf, ubf), lbf, ubf)
+    return post
+
+
+def _emit_solve_messages(verbosity, alias_u0, postcondition, has_bounds):
+    if verbosity is None:
+        return
+    if alias_u0:
+        verbosity.emit(
+            "alias_u0_immutable",
+            "alias_u0=True has no effect: the solver never writes into u0, "
+            "it always works on fresh buffers")
+    verbosity.emit(
+        "sensitivity_vjp_choice",
+        "reverse-mode sensitivities solve the transposed implicit-function "
+        "system at the root (core/sensitivity.py) — no adjoint solver "
+        "selection needed")
+    if postcondition is not None and not has_bounds and getattr(
+            postcondition, "space", "original") == "transformed":
+        verbosity.emit(
+            "unsupported_postcondition",
+            "postcondition declared in the transformed space but the "
+            "problem has no bounds — the corrector runs in the original "
+            "coordinates (conditioning.jl:46-66)")
+
+
+@dataclasses.dataclass
+class Prepared:
+    """A problem set up for an engine: the context and Jacobian spec on
+    the iterate (the unbounded variable when there are bounds), the
+    starting iterate ``x0``, the tolerances in the working dtype, the
+    termination mode, the residual of the iterate and ``p``, ``bounds``
+    (the normalized (lb, ub) or None) and the indices of ``p``'s leaves
+    that carry a gradient."""
+
+    ctx: DescentCtx
+    spec: JacobianSpec
+    x0: torch.Tensor
+    abstol: object
+    reltol: object
+    term_cfg: object
+    residual: object
+    bounds: object
+    grad_index: list
+
+
+def prepare(prob, alg, *, abstol=None, reltol=None,
+            termination_condition=None, precondition=None,
+            postcondition=None, trace=None, verbosity=None,
+            timer=None) -> Prepared:
+    """Set ``prob`` up for ``alg`` (shared by ``solve_nonlinear`` and the
+    iterator, ``core/cache.py``): the left preconditioner composed first,
+    then the bounds' change of variable, the corrector on the iterate, the
+    analytic derivatives and the sparse plan of the raw residual."""
+    from .sensitivity import differentiable_leaves, strip_tangents
+    u0, p = prob.u0, prob.p
+    grad_index = differentiable_leaves(p)
+    u0 = strip_tangents(u0).detach()
+    p_run = strip_tangents(p)
+    npdt = _backend.np_dtype(u0.dtype)
+    is_lsq = prob.is_least_squares
+    if termination_condition is None:
+        termination_condition = default_termination_mode(
+            is_lsq, getattr(alg, "default_termination_callee", "regular"))
+    f = prob.f
+    if precondition is not None:
+        def f_eff(u, q):
+            return precondition(f.f(u, q), u, q)
+    else:
+        f_eff = f.f
+
+    bounds = None
+    if prob.lb is not None or prob.ub is not None:
+        from .bounds import (clamp_to_bounds, from_unbounded,
+                             normalize_bounds, to_unbounded)
+        bounds = normalize_bounds(prob.lb, prob.ub, u0)
+        lbf, ubf = bounds
+        x0 = to_unbounded(clamp_to_bounds(u0, lbf, ubf), lbf, ubf)
+
+        def residual(t, q):
+            return f_eff(from_unbounded(t, lbf, ubf), q)
+    else:
+        x0 = u0
+        residual = f_eff
+
+    def f_flat(u):
+        return residual(u, p_run)
+
+    with torch.no_grad():
+        fu0 = f_flat(x0)
+    if not isinstance(fu0, torch.Tensor):
+        raise NotImplementedError(
+            "the residual must return one tensor; pytree residuals are "
+            "ROADMAP A.33")
+    ctx = DescentCtx(
+        f_flat=f_flat, n_in=x0.numel(), n_out=fu0.numel(),
+        is_least_squares=is_lsq, out_shape=tuple(fu0.shape),
+        postcondition=_postcondition_of(postcondition, p_run, bounds),
+        trace=trace, verbosity=verbosity, timer=timer)
+    sparsity = f.sparsity if f.sparsity is not None else f.jac_prototype
+    spec = JacobianSpec(
+        analytic=(None if f.jac is None else (
+            lambda u: f.jac(u, p_run).reshape(ctx.n_out, ctx.n_in))),
+        analytic_jvp=(None if f.jvp is None
+                      else (lambda v, u: f.jvp(v, u, p_run))),
+        analytic_vjp=(None if f.vjp is None
+                      else (lambda v, u: f.vjp(v, u, p_run))),
+        sparsity=sparsity, colorvec=f.colorvec)
+    with torch.no_grad():
+        spec = dataclasses.replace(spec, sparse_plan=_maybe_sparse_plan(
+            f, alg, spec, lambda u: f.f(u, p_run), ctx.n_in, ctx.n_out,
+            u0))
+    return Prepared(ctx=ctx, spec=spec, x0=x0, abstol=npdt(
+        get_tolerance(abstol, npdt)), reltol=npdt(get_tolerance(reltol, npdt)),
+        term_cfg=termination_condition, residual=residual, bounds=bounds,
+        grad_index=grad_index)
+
+
+def solution_of(prob, prep: Prepared, carry, counters, trace=None,
+                timer=None) -> NonlinearSolution:
+    """The solution from an engine's final carry: the root joined to
+    ``p``'s graph by the implicit-function rule when ``p`` carries a
+    gradient, and mapped back from the unbounded variable."""
+    from .sensitivity import differentiable_root
+    u = carry.u
+    if prep.grad_index:
+        u = differentiable_root(u, prep.residual, prob.p, prep.grad_index,
+                                square=carry.fu.numel() == u.numel())
+    if prep.bounds is not None:
+        from .bounds import from_unbounded
+        u = from_unbounded(u, *prep.bounds)
+    return NonlinearSolution(
+        u=u, resid=carry.fu, retcode=ReturnCode(carry.retcode),
+        stats=carry.stats, counters=counters, trace=trace,
+        timer=None if timer is None else timer.summarize())
+
+
 def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
                     termination_condition=None, precondition=None,
                     postcondition=None, show_trace=False, store_trace=False,
@@ -169,14 +340,9 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
         check_kwargs(extra)
         raise TypeError(
             f"keyword argument(s) {sorted(extra)} are handled by the "
-            f"solve() front door, not solve_nonlinear(); call solve()")
-    _refuse_unported(show_trace=show_trace, store_trace=store_trace,
-                     trace_level=trace_level, verbose=verbose,
-                     time_phases=time_phases, precondition=precondition,
-                     postcondition=postcondition)
-    if prob.lb is not None or prob.ub is not None:
-        raise NotImplementedError("bounds (lb/ub) are ROADMAP A.18")
-    u0, p = prob.u0, prob.p
+            f"solve() front door (maxtime/ensemble routing), not "
+            f"solve_nonlinear(); call solve() instead")
+    u0 = prob.u0
     from ..solvers.simple import is_simple_alg
     simple = is_simple_alg(alg)
     if not isinstance(u0, torch.Tensor) or (u0.dim() == 0 and not simple):
@@ -184,58 +350,38 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
             "u0 must be one tensor of ≥ 1 dimension (a 0-d tensor on the "
             "simple tier): pytree and scalar states (the flat path) are "
             "ROADMAP A.33")
-    for name, t in (("u0", u0), ("p", p)):
-        if isinstance(t, torch.Tensor) and t.requires_grad:
-            raise NotImplementedError(
-                f"{name} requires grad: differentiating through the solve "
-                f"(the implicit-function rule) is ROADMAP A.28")
     if u0.numel() == 0:
         return _null_solution(prob, abstol)
-    # alias_u0 has no effect: the engine never writes into u0.
-
-    npdt = _backend.np_dtype(u0.dtype)
-    abstol_v = npdt(get_tolerance(abstol, npdt))
-    reltol_v = npdt(get_tolerance(reltol, npdt))
-    is_lsq = prob.is_least_squares
-    if termination_condition is None:
-        termination_condition = default_termination_mode(
-            is_lsq, getattr(alg, "default_termination_callee", "regular"))
-
-    f = prob.f
-
-    def f_flat(u):
-        return f.f(u, p)
-
+    # alias_u0 has no effect: the engine never writes into u0.  The root
+    # depends on p alone: u0's and the bounds' tangents are zero.
+    from .timer import PhaseTimer
+    from .tracing import finalize_trace, trace_config
+    from .verbosity import normalize_verbosity
+    trace_cfg = trace_config(show_trace, store_trace, trace_level)
+    verbosity = normalize_verbosity(verbose)
+    _emit_solve_messages(verbosity, alias_u0, postcondition,
+                         prob.lb is not None or prob.ub is not None)
+    timer = None
+    if time_phases:
+        # the set-up counts as "other", up to the engine's first mark
+        timer = PhaseTimer(u0.device)
+        timer.mark("other")
+    prep = prepare(prob, alg, abstol=abstol, reltol=reltol,
+                   termination_condition=termination_condition,
+                   precondition=precondition, postcondition=postcondition,
+                   trace=trace_cfg, verbosity=verbosity, timer=timer)
+    from ..solvers.dispatch import run_algorithm
     with torch.no_grad():
-        fu0 = f_flat(u0)
-        if not isinstance(fu0, torch.Tensor):
-            raise NotImplementedError(
-                "the residual must return one tensor; pytree residuals are "
-                "ROADMAP A.33")
-        ctx = DescentCtx(f_flat=f_flat, n_in=u0.numel(), n_out=fu0.numel(),
-                         is_least_squares=is_lsq, out_shape=tuple(fu0.shape))
-        sparsity = (f.sparsity if f.sparsity is not None
-                    else f.jac_prototype)
-        spec = JacobianSpec(
-            analytic=(None if f.jac is None else (
-                lambda u: f.jac(u, p).reshape(ctx.n_out, ctx.n_in))),
-            analytic_jvp=(None if f.jvp is None
-                          else (lambda v, u: f.jvp(v, u, p))),
-            analytic_vjp=(None if f.vjp is None
-                          else (lambda v, u: f.vjp(v, u, p))),
-            sparsity=sparsity, colorvec=f.colorvec)
-        spec = dataclasses.replace(
-            spec, sparse_plan=_maybe_sparse_plan(f, alg, spec, ctx, u0))
-        from ..solvers.dispatch import run_algorithm
         syncs0 = _backend.HOST_SYNCS["n"]
-        carry = run_algorithm(alg, ctx, termination_condition, spec, u0,
-                              abstol_v, reltol_v, int(maxiters))
+        carry = run_algorithm(alg, prep.ctx, prep.term_cfg, prep.spec,
+                              prep.x0, prep.abstol, prep.reltol,
+                              int(maxiters))
         counters = {"jvp": carry.njvp, "krylov_iters": carry.krylov_iters,
                     "host_syncs": _backend.HOST_SYNCS["n"] - syncs0}
         if hasattr(carry, "winner"):
             counters["rungs"] = list(carry.rungs)
             counters["winner"] = carry.winner
-    return NonlinearSolution(u=carry.u, resid=carry.fu,
-                             retcode=ReturnCode(carry.retcode),
-                             stats=carry.stats,
-                             counters=counters)
+    return solution_of(
+        prob, prep, carry, counters,
+        trace=finalize_trace(trace_cfg, getattr(carry, "trace_state", None)),
+        timer=timer)

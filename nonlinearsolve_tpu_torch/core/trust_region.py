@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .._backend import np_dtype
+from .autodiff import jvp
 from ..ops.operators import mv, rmv
 from ..utils.norms import l2_norm, tree_dot
 from .descent import DescentCtx, DescentResult
@@ -199,7 +200,7 @@ def tr_candidate(cfg, state, ctx: DescentCtx, J, fu, u, du,
     elif cfg.method == "bastin":
         # ρ re-estimated with the operators at u_NEW, as the reference does
         _, vjp_new = torch.func.vjp(ctx.f_flat, u_new)
-        Jdu_new = torch.func.jvp(ctx.f_flat, (u_new,), (du,))[1]
+        Jdu_new = jvp(ctx.f_flat, u_new, du)[1]
         jtfu_new = vjp_new(fu_new)[0]
         jt_jdu = vjp_new(Jdu_new)[0]
         reads += [tree_dot(jtfu_new, jtfu_new), tree_dot(jt_jdu, jt_jdu)]

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.norms import tree_dot
+from .autodiff import jvp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +107,7 @@ def _phi_dphi(ctx, u, du, read):
     from .linesearch import at
 
     def ev(alpha):
-        fu_a, jdu = torch.func.jvp(ctx.f_flat, (at(u, alpha, du),), (du,))
+        fu_a, jdu = jvp(ctx.f_flat, at(u, alpha, du), du)
         return tuple(read(0.5 * tree_dot(fu_a, fu_a), tree_dot(fu_a, jdu)))
 
     return ev

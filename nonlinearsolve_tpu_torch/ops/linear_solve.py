@@ -286,12 +286,14 @@ def _ridge_fallback(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def solve_dense(A: torch.Tensor, b: torch.Tensor,
-                cfg: LinearSolver = LinearSolver()):
+                cfg: LinearSolver = LinearSolver(), *, verbosity=None):
     """Solve ``A x = b``; returns ``(x, ok)`` with ``ok`` a 0-d device bool
     (x finite).  'auto' is LU for square and least squares for non-square
     systems.  LU, Cholesky and QR results that are not finite on finite
     inputs are retried with the ridge fallback, the JAX package's contract
-    (see the module docstring for when that decision is read)."""
+    (see the module docstring for when that decision is read); the linear
+    ``rank_deficient_fallback`` message says so when ``verbosity`` has it
+    on."""
     m, n = A.shape
     method = cfg.method
     if method == "auto":
@@ -324,6 +326,12 @@ def solve_dense(A: torch.Tensor, b: torch.Tensor,
     ok = torch.isfinite(x).all()
     if method in ("lu", "cholesky", "qr"):
         if _decide(~ok & _all_finite(A, b)):
+            from ..core.verbosity import traced_emit_linear
+            traced_emit_linear(
+                verbosity, "rank_deficient_fallback", True,
+                "factorization produced non-finite values on finite inputs "
+                "— retrying with the damped-normal-equation fallback "
+                "(linear_solve.jl:48-56 role)")
             x = _ridge_fallback(A, b)
             ok = torch.isfinite(x).all()
     return x, ok

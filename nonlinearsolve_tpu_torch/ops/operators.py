@@ -15,6 +15,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core.autodiff import jvp as fwd_jvp
+
 
 class JacobianOperator:
     """Lazy Jacobian of ``f_flat`` providing the JVP and the VJP."""
@@ -29,7 +31,7 @@ class JacobianOperator:
     def jvp(self, u, v):
         if self.analytic_jvp is not None:
             return self.analytic_jvp(v, u)
-        return torch.func.jvp(self.f_flat, (u,), (v,))[1]
+        return fwd_jvp(self.f_flat, u, v)[1]
 
     def vjp(self, u, v):
         if self.analytic_vjp is not None:

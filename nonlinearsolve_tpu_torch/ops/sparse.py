@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from .. import _backend
-from .spmv import (bsr_scalar_pattern, bsr_spmv, csr_spmv, csr_spmv_staged,
-                   dia_spmv, select_spmv_plan)
+from .spmv import (DiaFunction, bsr_route, bsr_scalar_pattern, bsr_spmv,
+                   csr_spmv, csr_spmv_staged, select_spmv_plan)
 
 
 class CSR:
@@ -112,6 +112,13 @@ class CSR:
         if key not in self._shared:
             self._shared[key] = (torch.as_tensor(self.indptr, device=key),
                                  torch.as_tensor(self.indices, device=key))
+        return self._shared[key]
+
+    def row_table(self, device):
+        """``row_ids`` as an int32 tensor on ``device`` (cached)."""
+        key = ("rows", torch.device(device))
+        if key not in self._shared:
+            self._shared[key] = torch.as_tensor(self.row_ids, device=key[1])
         return self._shared[key]
 
     def todense(self):
@@ -255,7 +262,9 @@ class DIA:
         return DIA(data, self.offsets, self.shape)
 
     def matvec(self, x):
-        return dia_spmv(self.data, self.offsets, x)
+        """``A·x`` on K4; differentiable in the data and in x
+        (``DiaFunction``: the transposed product on K4 too)."""
+        return DiaFunction.apply(self.data, x, tuple(self.offsets))
 
     def rmatvec(self, y):
         """Aᵀ y: the shifted chain with data and vector shifted together
@@ -380,17 +389,17 @@ class BSR:
 
     def scalar_tables(self, device):
         """The expanded scalar pattern's ``(indptr, indices)`` as int32
-        tensors and its take order as int64, on ``device`` (cached)."""
+        tensors (its K5 route's, ``bsr_route``) and its take order as int64,
+        on ``device`` (cached)."""
         key = ("scalar", torch.device(device))
         if key not in self._shared:
-            indptr, indices, take = bsr_scalar_pattern(self)
+            indptr, _indices, take = bsr_scalar_pattern(self)
             if indptr[-1] > 2 ** 31 - 1:
                 raise ValueError(f"{indptr[-1]} scalar nonzeros exceed the "
                                  f"int32 tables of K5")
-            self._shared[key] = tuple(
-                torch.as_tensor(a.astype(dt), device=key[1])
-                for a, dt in ((indptr, np.int32), (indices, np.int32),
-                              (take, np.int64)))
+            self._shared[key] = (
+                *bsr_route(self).pattern.device_tables(key[1]),
+                torch.as_tensor(take, device=key[1]))
         return self._shared[key]
 
     def matvec(self, x):

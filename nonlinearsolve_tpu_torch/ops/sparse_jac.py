@@ -26,6 +26,7 @@ import torch
 from .coloring import greedy_column_coloring, pattern_from
 from .selection import StaticSelection
 from .sparse import CSR, DIA
+from ..core.autodiff import jvp
 
 
 class ColoredJacobian:
@@ -88,7 +89,7 @@ class ColoredJacobian:
     def _compressed(self, f_flat: Callable, u):
         """(n_colors, n_out): one forward JVP per color, batched by vmap."""
         def one_color(seed):
-            return torch.func.jvp(f_flat, (u,), (seed,))[1].reshape(-1)
+            return jvp(f_flat, u, seed)[1].reshape(-1)
 
         return torch.func.vmap(one_color)(self._seeds_for(u))
 

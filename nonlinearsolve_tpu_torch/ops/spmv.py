@@ -30,9 +30,19 @@ does not take raises.
 Tier selection is the JAX package's, to the bit (``select_spmv_plan``):
 "dia", "resident", "stream", "scatter" or None, by its op-count model of
 the TPU kernels, with RCM reordering where that makes a plan fit.  The
-port routes the tiers to its kernels (``csr_spmv_staged``): "dia" to K4,
-"stream" to K7, "scatter" to K8, "resident" and None to K5 on the pattern
-as given.
+port routes the tiers to its kernels (``csr_route``, one ``SpmvRoute``
+per pattern): "dia" to K4, "stream" to K7, "scatter" to K8, "resident"
+and None to K5 on the pattern as given.  ``csr_spmv_staged`` and
+``csr_spmv`` both launch through the route.
+
+Reverse rules: ``csr_spmv`` (``CSR.matvec``) is ``SpmvFunction`` on the
+tier's route: x̄ = Aᵀȳ by the same kernel on Aᵀ's tables, d̄ata =
+ȳ[row]·x[col] (the JAX package's custom VJPs of K5, K7 and K8; on the
+"dia" tier K4 on Aᵀ's diagonals).  ``DIA.matvec`` has ``DiaFunction``,
+the K5 product of a BSR the same ``SpmvFunction``.  The bare wrappers
+refuse grad and forward-mode tangents (``_backend.refuse_grad``): K4 and
+K6 have no reverse rule, as in the JAX package, and K5, K7 and K8 name
+``csr_spmv``.  No kernel has a forward-mode rule.
 """
 
 from __future__ import annotations
@@ -145,6 +155,7 @@ def _fits_int32(name, n):
 def dia_spmv(dd, offsets, x):
     """``y[i] = Σ_d dd[d, i]·x[i + offsets[d]]`` with ``dd`` (ndiag, n) and
     ``x`` (n,); slots whose column falls outside [0, n) are not read."""
+    _backend.refuse_grad("K4 dia_spmv", dd, x)
     if x.device.type == "cpu":
         return dia_spmv_plain(dd, offsets, x)
     dtype = _value_dtype(x)
@@ -179,6 +190,7 @@ def dia_spmv(dd, offsets, x):
 def gather_spmv(indptr, indices, data, x):
     """``y = A·x`` for A in CSR (``indptr``, ``indices`` int32 tensors on
     x's device, ``data`` (nnz,)); ``x`` is (n_cols,)."""
+    _backend.refuse_grad("K5 gather_spmv", data, x, via="csr_spmv")
     if x.device.type == "cpu":
         return gather_spmv_plain(indptr, indices, data, x)
     dtype = _value_dtype(x)
@@ -202,6 +214,7 @@ def gather_spmv(indptr, indices, data, x):
 def gather_select(src, values):
     """``y[i] = values[src[i]]``, and 0 where ``src[i] == len(values)``;
     ``src`` is an int32 tensor on the values' device."""
+    _backend.refuse_grad("K5 gather_select", values)
     if values.device.type == "cpu":
         return gather_select_plain(src, values)
     dtype = _value_dtype(values)
@@ -270,9 +283,9 @@ def bsr_spmv(bsr, x):
     pattern (its int32 tables cached per pattern and device); the data
     reshuffle is one static take, as in the JAX package's
     ``bsr_spmv_pallas``."""
-    indptr, indices, take = bsr.scalar_tables(x.device)
-    return gather_spmv(indptr, indices,
-                       bsr.data.reshape(-1).index_select(0, take), x)
+    _indptr, _indices, take = bsr.scalar_tables(x.device)
+    data = bsr.data.reshape(-1).index_select(0, take)
+    return SpmvFunction.apply(data, x, bsr_route(bsr))
 
 
 def bsr_spmm_plain(bsr, X):
@@ -364,6 +377,7 @@ def bsr_spmm(bsr, X):
     (n_cols, nrhs) of the data's dtype: K6, launched with
     ``bsr_spmm_plan``.  An empty Y (no rows or no columns) comes back
     without a launch."""
+    _backend.refuse_grad("K6 bsr_spmm", bsr.data, X)
     data = bsr.data
     if X.dtype != data.dtype:
         raise TypeError(f"X has dtype {X.dtype} and the BSR data "
@@ -451,14 +465,17 @@ def pattern_key(indptr, indices, *extra) -> tuple:
 
 def transpose_pattern_of(indptr, indices, n_rows, n_cols):
     """(tindptr, tindices, tperm): the CSR pattern of Aᵀ plus the
-    permutation mapping A's data order into Aᵀ's.  Host."""
+    permutation mapping A's data order into Aᵀ's (each column's rows
+    ascending: the JAX package's lexsort order).  Host; SciPy's linear-time
+    CSR → CSC conversion with the positions as data."""
+    import scipy.sparse as sp
     indptr = np.asarray(indptr, np.int64)
     indices = np.asarray(indices, np.int64)
-    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr))
-    order = np.lexsort((rows, indices))     # sort by (col, row)
-    counts = np.bincount(indices, minlength=n_cols)
-    tindptr = np.concatenate([[0], np.cumsum(counts)])
-    return tindptr, rows[order], order
+    pos = np.arange(indices.shape[0], dtype=np.int64)
+    csc = sp.csr_matrix((pos, indices, indptr),
+                        shape=(int(n_rows), int(n_cols))).tocsc()
+    return (csc.indptr.astype(np.int64), csc.indices.astype(np.int64),
+            csc.data.astype(np.int64))
 
 
 class EllPlan:
@@ -685,42 +702,268 @@ def clear_plan_caches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# the CSR entry points, routed by tier
+# the CSR entry points, routed by tier, and the reverse rules of K5, K7 and
+# K8 (and of the DIA tier's K4)
 # ---------------------------------------------------------------------------
 
-def csr_spmv_staged(csr):
-    """Staged matvec closure for a Krylov loop, by the pattern's tier:
+class SpmvRoute:
+    """One pattern's product ``y = A·x`` on one kernel, and what its
+    reverse rule reads.  ``kind``: "gather" (K5 on the pattern), "dia" (the
+    repack, then K4), "stream" (the band repack, then K7), "scatter" (the
+    G staging, then K8 a part) or "segment_sum" (the products and
+    ``index_add_`` by row: the JAX package's XLA route where no plan of the
+    kind fits Aᵀ).  ``plan`` is the kind's plan of this pattern;
+    ``pattern`` a ``CSR`` whose ``device_tables`` and ``row_table`` the
+    route reads (its data is not used)."""
 
-    - "dia": the DIA repack (K5's selection) once here, then K4;
-    - "stream": the band repack (K5's selection) once here, then K7, with
-      x gathered by ``perm`` and y by ``pinv`` when the plan is of the
-      RCM-reordered pattern;
-    - "scatter": the parts' G data staged (K5's selection) once here, then
-      K8's expand and regroup passes;
+    def __init__(self, kind, plan, pattern):
+        self.kind, self.plan, self.pattern = kind, plan, pattern
+        self.shape = pattern.shape
+        self._transpose = None
+
+    def staged(self, data):
+        """The closure ``x ↦ A·x`` for A's CSR-ordered ``data``: the kind's
+        staging once, then its kernel per product."""
+        kind, plan = self.kind, self.plan
+        if kind == "dia":
+            from .spmv_dia import dia_spmv_staged
+            return dia_spmv_staged(plan, data)
+        if kind == "stream":
+            from .spmv_stream import band_spmv_staged
+            return band_spmv_staged(plan, data)
+        if kind == "scatter":
+            from .spmv_scatter import scatter_spmv_staged
+            return scatter_spmv_staged(plan, data)
+        indptr, indices = self.pattern.device_tables(data.device)
+        if kind == "gather":
+            return lambda x: gather_spmv(indptr, indices, data, x)
+        rows = self.pattern.row_table(data.device)
+        n_rows = self.shape[0]
+        return lambda x: torch.zeros(
+            n_rows, dtype=x.dtype, device=x.device).index_add_(
+            0, rows, data * x.index_select(0, indices))
+
+    def transpose(self):
+        """``(route of Aᵀ, tperm)``: the same kind on Aᵀ's pattern when its
+        plan of that kind fits (K5 takes any pattern), else "segment_sum";
+        ``tperm`` maps A's data order into Aᵀ's.  A structurally symmetric
+        pattern is its own transpose: the route itself, plan and tables.
+        Built once a route."""
+        if self._transpose is None:
+            from .sparse import CSR
+            p = self.pattern
+            n_rows, n_cols = self.shape
+            tindptr, tindices, tperm = transpose_pattern_of(
+                p.indptr, p.indices, n_rows, n_cols)
+            if (n_rows == n_cols and np.array_equal(tindptr, p.indptr)
+                    and np.array_equal(tindices, p.indices)):
+                troute = self
+            else:
+                kind, plan = self.kind, None
+                if kind in ("dia", "stream", "scatter"):
+                    plan = _kind_plan(kind, tindptr, tindices, n_cols, n_rows)
+                    if not plan.supported:
+                        kind, plan = "segment_sum", None
+                troute = SpmvRoute(kind, plan, CSR(None, tindices, tindptr,
+                                                   (n_cols, n_rows)))
+            self._transpose = (troute, tperm.astype(np.int32), {})
+        return self._transpose[:2]
+
+    def tperm(self, device):
+        """``tperm`` as an int32 tensor on ``device`` (cached)."""
+        _troute, tperm = self.transpose()
+        on_device = self._transpose[2]
+        key = torch.device(device)
+        if key not in on_device:
+            on_device[key] = torch.as_tensor(tperm, device=key)
+        return on_device[key]
+
+
+def _kind_plan(kind, indptr, indices, n_rows, n_cols):
+    if kind == "dia":
+        from .spmv_dia import dia_plan_for
+        return dia_plan_for(indptr, indices, n_rows, n_cols)
+    if kind == "stream":
+        from .spmv_stream import band_plan_for
+        return band_plan_for(indptr, indices, n_rows, n_cols)
+    from .spmv_scatter import scatter_plan_for
+    return scatter_plan_for(indptr, indices, n_rows, n_cols)
+
+
+def csr_route(csr):
+    """``(route, reordered)`` of a CSR's tier (cached with the pattern):
+
+    - "dia": the DIA repack (K5's selection), then K4;
+    - "stream": the band repack (K5's selection), then K7; ``reordered``
+      when the plan is of the RCM-reordered pattern, whose ``CSR`` the
+      route then holds (built from the tier's ``perm`` and ``dperm``);
+    - "scatter": the parts' G data staged (K5's selection), then K8's
+      expand and regroup passes;
     - "resident": K5 on the pattern as given.  The JAX package's RCM
       reorder only made its TPU windows fit; K5 takes any pattern and gives
       the same y;
     - None: K5.  The JAX package uses XLA's segment_sum there; the port
-      keeps its hand-written kernel."""
-    tier, plan, perm, _pinv, _dperm = csr.tier
+      keeps its hand-written kernel.
+
+    The route's pattern shares the CSR's device tables."""
+    if "route" not in csr._shared:
+        from .sparse import CSR
+        tier, plan, perm, pinv, dperm = csr.tier
+        reordered = tier == "stream" and perm is not None
+        if reordered:
+            counts = np.diff(csr.indptr.astype(np.int64))[perm]
+            pattern = CSR(None, pinv[csr.indices[dperm]],
+                          np.concatenate([[0], np.cumsum(counts)]),
+                          csr.shape)
+        else:
+            pattern = CSR(None, csr.indices, csr.indptr, csr.shape,
+                          csr._shared)
+        kind = tier if tier in ("dia", "stream", "scatter") else "gather"
+        csr._shared["route"] = (
+            SpmvRoute(kind, None if kind == "gather" else plan, pattern),
+            reordered)
+    return csr._shared["route"]
+
+
+def csr_spmv_staged(csr):
+    """Staged matvec closure for a Krylov loop, on the tier's route
+    (``csr_route``): the route's staging once, with x gathered by ``perm``
+    and y by ``pinv`` when the plan is of the RCM-reordered pattern.
+    Forward-only, as the JAX package's staged closure is."""
+    route, reordered = csr_route(csr)
     data = csr.data
-    if tier == "dia":
-        from .spmv_dia import dia_spmv_staged
-        return dia_spmv_staged(plan, data)
-    if tier == "stream":
-        from .spmv_stream import band_spmv_staged
-        if perm is None:
-            return band_spmv_staged(plan, data)
-        perm_t, pinv_t, dperm_t = csr.perm_tables(data.device)
-        inner = band_spmv_staged(plan, data[dperm_t])
-        return lambda x: inner(x[perm_t])[pinv_t]
-    if tier == "scatter":
-        from .spmv_scatter import scatter_spmv_staged
-        return scatter_spmv_staged(plan, data)
-    indptr, indices = csr.device_tables(data.device)
-    return lambda x: gather_spmv(indptr, indices, data, x)
+    if not reordered:
+        return route.staged(data)
+    perm_t, pinv_t, dperm_t = csr.perm_tables(data.device)
+    inner = route.staged(data[dperm_t])
+    return lambda x: inner(x[perm_t])[pinv_t]
 
 
 def csr_spmv(csr, x):
-    """One product ``A·x`` through the pattern's tier."""
-    return csr_spmv_staged(csr)(x)
+    """One product ``A·x`` through the pattern's tier, differentiable in
+    ``csr.data`` and in ``x`` (the counterpart of the JAX package's
+    ``csr_spmv_pallas``): ``SpmvFunction`` on the tier's route, a "stream"
+    plan of the RCM-reordered pattern differentiated through its
+    permutations, as there."""
+    route, reordered = csr_route(csr)
+    data = csr.data
+    if not reordered:
+        return SpmvFunction.apply(data, x, route)
+    perm_t, pinv_t, dperm_t = csr.perm_tables(data.device)
+    return SpmvFunction.apply(data[dperm_t], x[perm_t], route)[pinv_t]
+
+
+class SpmvFunction(torch.autograd.Function):
+    """``y = A·x`` on a route, with the reverse rule of the JAX package's
+    custom VJPs (``ops/pallas_spmv.py`` ``_ell_spmv_bwd``,
+    ``pallas_spmv_stream.py`` ``_band_spmv_bwd``, ``pallas_spmv_scatter.py``
+    ``_scatter_spmv_bwd``): x̄ = Aᵀȳ by the route's kernel on Aᵀ's tables
+    (``SpmvRoute.transpose``, data permuted by ``tperm``), and
+    d̄ata_k = ȳ[row_k]·x[col_k] by ``index_select`` products, which the
+    JAX package computes in XLA too.  x̄ goes through this same Function,
+    so the rule is differentiable again.  A forward-mode tangent is
+    refused, as ``jax.jvp`` through a custom VJP is."""
+
+    @staticmethod
+    def forward(data, x, route):
+        return route.staged(data)(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        data, x, route = inputs
+        ctx.save_for_backward(data, x)
+        ctx.route = route
+
+    @staticmethod
+    def backward(ctx, gy):
+        data, x = ctx.saved_tensors
+        route = ctx.route
+        gy = gy.contiguous()
+        gdata = gx = None
+        if ctx.needs_input_grad[0]:
+            _indptr, indices = route.pattern.device_tables(gy.device)
+            rows = route.pattern.row_table(gy.device)
+            gdata = gy.index_select(0, rows) * x.index_select(0, indices)
+        if ctx.needs_input_grad[1]:
+            troute = route.transpose()[0]
+            gx = SpmvFunction.apply(
+                data.index_select(0, route.tperm(gy.device)), gy, troute)
+        return gdata, gx, None
+
+    @staticmethod
+    def jvp(ctx, tdata, tx, _troute):
+        raise NotImplementedError(
+            f"csr_spmv on the {ctx.route.kind!r} route has no forward-mode "
+            f"rule: a tangent (torch.autograd.forward_ad, torch.func.jvp) "
+            f"through it is not supported")
+
+
+def bsr_route(bsr):
+    """The K5 route of a BSR's expanded scalar pattern (cached with the
+    pattern; ``BSR.scalar_tables`` reads its tables)."""
+    if "route" not in bsr._shared:
+        from .sparse import CSR
+        indptr, indices, _take = bsr_scalar_pattern(bsr)
+        bsr._shared["route"] = SpmvRoute(
+            "gather", None, CSR(None, indices, indptr, bsr.shape))
+    return bsr._shared["route"]
+
+
+def _dia_shift(rows, offsets, n, transpose):
+    """Per diagonal d of offset ``off``: ``rows[d]`` shifted by ``off`` into
+    the slots of Aᵀ's diagonal −off (``transpose``), or by −off back;
+    slots outside the matrix are 0."""
+    out = []
+    for d, off in enumerate(offsets):
+        off = int(off) if transpose else -int(off)
+        r = rows[d]
+        if off == 0:
+            out.append(r)
+        elif abs(off) >= n:
+            out.append(torch.zeros_like(r))
+        elif off > 0:
+            out.append(torch.cat([r.new_zeros(off), r[:n - off]]))
+        else:
+            out.append(torch.cat([r[-off:], r.new_zeros(-off)]))
+    return torch.stack(out)
+
+
+class DiaFunction(torch.autograd.Function):
+    """``DIA.matvec``: K4 forward; x̄ = K4 on Aᵀ's diagonals (offsets −off,
+    each diagonal's data shifted by off), d̄d[d, i] = ȳ[i]·x[i + off_d] in
+    the valid slots (0 in the rest).  The JAX package's ``DIA.matvec`` is
+    an XLA chain that XLA differentiates; this is that gradient with the
+    transposed product on the kernel."""
+
+    @staticmethod
+    def forward(dd, x, offsets):
+        return dia_spmv(dd, offsets, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dd, x, offsets = inputs
+        ctx.save_for_backward(dd, x)
+        ctx.offsets = tuple(int(o) for o in offsets)
+
+    @staticmethod
+    def backward(ctx, gy):
+        dd, x = ctx.saved_tensors
+        offs = ctx.offsets
+        n = x.shape[0]
+        gy = gy.contiguous()
+        gdd = gx = None
+        if ctx.needs_input_grad[0]:
+            # ȳ[i]·x[i + off]: x shifted by off, ȳ in place
+            xs = _dia_shift(x.expand(len(offs), n), offs, n, False)
+            gdd = gy * xs
+        if ctx.needs_input_grad[1]:
+            ddt = _dia_shift(dd, offs, n, True).flip(0).contiguous()
+            gx = DiaFunction.apply(ddt, gy, tuple(-o for o in offs[::-1]))
+        return gdd, gx, None
+
+    @staticmethod
+    def jvp(ctx, tdd, tx, _toffsets):
+        raise NotImplementedError(
+            "K4 dia_spmv (DIA.matvec) has no forward-mode rule: a tangent "
+            "(torch.autograd.forward_ad, torch.func.jvp) through it is not "
+            "supported")

@@ -34,8 +34,9 @@ summed in the R chain's association with no FMA, so y is bit-equal to
 the two passes (``scatter_part_plain``, the CPU path:
 ``scatter_expand_plain`` then ``scatter_regroup_plain``) and to
 ``scatter_part_sequential``, the reference the card is held to.  The
-custom VJP and ``stage_unit`` are not ported (ROADMAP A.28; the port's
-``StaticSelection`` stays on ``gather_select``).
+JAX package's custom VJP is ``ops/spmv.py``'s ``SpmvFunction`` on the
+"scatter" route (K8 on Aᵀ's scatter plan); ``stage_unit`` is not ported
+(the port's ``StaticSelection`` stays on ``gather_select``).
 """
 
 from __future__ import annotations
@@ -314,6 +315,8 @@ class ScatterPlan:
     def apply_staged(self, staged, x):
         """y = Σ_parts R·((G∘data)·x[c0:c1]) with the staged G data, the
         parts added in order (one K8 launch a part)."""
+        _backend.refuse_grad("K8 scatter_spmv_part", x, *staged,
+                             via="csr_spmv")
         parts = list(zip(self.tables(x.device), staged))
         if not parts or x.device.type == "cpu":
             y = None
@@ -434,6 +437,8 @@ def scatter_spmv_part(t: PartTables, gdata, x, y=None):
     (n_cols,) the whole vector.  The products are rounded one by one and
     each row summed in the R chain's association, with no FMA:
     ``scatter_part_sequential``'s bits."""
+    _backend.refuse_grad("K8 scatter_spmv_part", gdata, x, y,
+                        via="csr_spmv")
     if x.device.type == "cpu":
         p = scatter_part_plain(t, gdata, x)
         return p if y is None else y.add_(p)

@@ -22,7 +22,9 @@ K7 ``band_spmv_packed(cols, data, x, n_rows)`` (``csrc/spmv.cu``) replaces
 which is the row's sorted column order, so its sum is taken in K5's order.
 A pad slot is skipped, never multiplied by 0: where the JAX kernel
 multiplies a pad's zero data by x at its window's first position, the two
-differ only when that x is not finite.  The custom VJP is ROADMAP A.28.
+differ only when that x is not finite.  The JAX package's custom VJP is
+``ops/spmv.py``'s ``SpmvFunction`` on the "stream" route (K7 on Aᵀ's band
+plan, or the segment-sum route when no band plan fits Aᵀ).
 """
 
 from __future__ import annotations
@@ -247,6 +249,7 @@ def band_spmv_packed(cols, data, x, n_rows):
     """``y[r] = Σ_s data[s, r]·x[cols[s, r]]`` over the slots with
     ``cols[s, r] ≥ 0``, for ``cols`` int32 and ``data`` (w, n_pad), ``x``
     (n_cols,), r < ``n_rows``."""
+    _backend.refuse_grad("K7 band_spmv", data, x, via="csr_spmv")
     if x.device.type == "cpu":
         return band_spmv_plain(cols, data, x, n_rows)
     dtype = _value_dtype(x)

@@ -195,6 +195,7 @@ def _inv_scale_args(inv_scale, dtype, device):
 def brusselator_jvp(U, T, p):
     """Fused JVP of ``models.brusselator.brusselator_2d`` at ``U`` applied to
     the tangent ``T``; both (N, N, 2) interleaved (u, v) pairs."""
+    _backend.refuse_grad("K1 brusselator_jvp", U, T, p)
     if U.device.type == "cpu":
         return brusselator_jvp_plain(U, T, p)
     N = _grid_n("U", U, 3)
@@ -219,6 +220,7 @@ def brusselator_jvp(U, T, p):
 def brusselator_jvp_bf16(U, T, p):
     """K1 at bf16: ``U`` and ``T`` (N, N, 2) bf16, ``p`` (A, B, alpha, dx)
     f32; the result is (N, N, 2) bf16."""
+    _backend.refuse_grad("K3 brusselator_jvp_bf16", U, T, p)
     if U.device.type == "cpu":
         return brusselator_jvp_bf16_plain(U, T, p)
     N = _grid_n("U", U, 3)
@@ -242,6 +244,7 @@ def brusselator_jvp_bf16_f32(U, T, p):
     ``.to(torch.bfloat16)``), ``p`` f32; the bf16 result comes back widened
     to f32.  Bit for bit ``brusselator_jvp_bf16(U, T.to(bf16), p).float()``.
     Counted as a ``brusselator_jvp_bf16`` launch."""
+    _backend.refuse_grad("K3 brusselator_jvp_bf16", U, T, p)
     if U.device.type == "cpu":
         return brusselator_jvp_bf16_f32_plain(U, T, p)
     N = _grid_n("U", U, 3)
@@ -286,6 +289,7 @@ def make_brusselator_jvp_bf16(U, p):
 def brusselator_jvp_scaled(U, T, p, inv_scale):
     """``(J · (T · inv_scale), max|out|)`` in one pass, on (N, N, 2) state
     and tangent.  The max is a 0-d tensor left on the device."""
+    _backend.refuse_grad("K2 brusselator_jvp_scaled", U, T, p, inv_scale)
     if U.device.type == "cpu":
         return brusselator_jvp_scaled_plain(U, T, p, inv_scale)
     N = _grid_n("U", U, 3)
@@ -308,6 +312,8 @@ def brusselator_jvp_scaled(U, T, p, inv_scale):
 def brusselator_jvp_scaled_pair(u, v, tu, tv, p, inv_scale):
     """``brusselator_jvp_scaled`` on component planes (four (N, N) tensors);
     returns ``(ou, ov, absmax)``."""
+    _backend.refuse_grad("K2 brusselator_jvp_scaled", u, v, tu, tv, p,
+                        inv_scale)
     if u.device.type == "cpu":
         return brusselator_jvp_scaled_pair_plain(u, v, tu, tv, p, inv_scale)
     N = _grid_n("u", u, 2)

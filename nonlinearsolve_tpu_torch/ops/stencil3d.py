@@ -153,6 +153,7 @@ def _launch_jvp(counter, u, t, lo, hi, d, h2, dtype, shape, bz):
 def rd3d_jvp_blocked(u, t, D, *, bz: int = 8, double_buffer: bool = False):
     """JVP of ``D Δu + u − u³ + g`` at ``u`` applied to ``t``:
     ``D Δt + (1 − 3u²) t`` on a periodic (nz, ny, nx) grid, h = 1/nz."""
+    _backend.refuse_grad("K9 rd3d_jvp_blocked", u, t, D)
     _check_bz(t, bz)
     if u.device.type == "cpu":
         return rd3d_jvp_blocked_plain(u, t, D)
@@ -167,6 +168,7 @@ def rd3d_jvp_blocked_halo(u, t, lo, hi, D, *, bz: int = 8,
     before z = 0 is ``lo`` and after z = nz-1 is ``hi`` (each (1, ny, nx),
     received from the neighbouring shards), with h = 1/n_global (1/nz when
     None).  ``bz`` must divide the local nz."""
+    _backend.refuse_grad("K11 rd3d_jvp_blocked_halo", u, t, lo, hi, D)
     _check_bz(t, bz, "local Nz")
     if u.device.type == "cpu":
         return rd3d_jvp_blocked_halo_plain(u, t, lo, hi, D, n_global)
@@ -181,6 +183,7 @@ def rd3d_jvp_blocked_halo(u, t, lo, hi, D, *, bz: int = 8,
 def rd3d_jvp_scaled(u, t, D, inv_scale, *, bz: int = 4):
     """``((J·t)·inv_scale, max|out|)`` in one pass; the max is a 0-d tensor
     of the state's dtype, left on the device."""
+    _backend.refuse_grad("K10 rd3d_jvp_scaled", u, t, D, inv_scale)
     nz = _check_bz(t, bz)
     if u.device.type == "cpu":
         return rd3d_jvp_scaled_plain(u, t, D, inv_scale)

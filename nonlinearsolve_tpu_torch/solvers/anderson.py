@@ -20,6 +20,7 @@ import torch
 from ..core import termination as trm
 from ..core.returncode import ReturnCode
 from ..core.solution import NLStats
+from ..core.tracing import init_trace, record_trace
 from ..ops.linear_solve import _square_solve
 from .quasi_newton import finish, flat_ctx
 
@@ -49,6 +50,7 @@ class AndersonCarry:
     term: trm.TermState
     njvp: int = 0
     krylov_iters: int = 0
+    trace_state: Any = None
 
     def replace(self, **kw) -> "AndersonCarry":
         return dataclasses.replace(self, **kw)
@@ -81,7 +83,8 @@ def init_anderson(alg: AndersonAcceleration, ctx, term_cfg, u0,
         u=u0, fu=fu0, dU=zeros, dF=zeros.clone(), count=0, nsteps=0,
         force_stop=False, retcode=int(ReturnCode.Default),
         stats=NLStats.zeros().incr(nf=1),
-        term=trm.init_termination(term_cfg, fu0, u0, reltol))
+        term=trm.init_termination(term_cfg, fu0, u0, reltol),
+        trace_state=init_trace(ctx.trace, u0))
 
 
 def step_anderson(alg: AndersonAcceleration, ctx, term_cfg,
@@ -99,6 +102,10 @@ def step_anderson(alg: AndersonAcceleration, ctx, term_cfg,
              - torch.add(carry.dU, carry.dF, alpha=beta).T @ gamma)
     fu_new = ctx.f_flat(u_new)
     stats = carry.stats.incr(nf=1, nsteps=1)
+    if ctx.postcondition is not None:
+        u_new = ctx.postcondition(u_new, u)
+        fu_new = ctx.f_flat(u_new)
+        stats = stats.incr(nf=1)
 
     # the ring takes the new (Δu, ΔF) pair
     slot = carry.count % m
@@ -113,7 +120,10 @@ def step_anderson(alg: AndersonAcceleration, ctx, term_cfg,
         u=u_new, fu=fu_new, dU=dU, dF=dF, count=carry.count + 1,
         nsteps=carry.nsteps + 1, force_stop=stop,
         retcode=term.retcode if stop else int(ReturnCode.Default),
-        stats=stats, term=term)
+        stats=stats, term=term,
+        trace_state=record_trace(ctx.trace, carry.trace_state,
+                                 carry.nsteps + 1, fu_new, u_new - u, None,
+                                 u_new))
 
 
 def run_anderson(alg: AndersonAcceleration, ctx, term_cfg, u0, abstol,

@@ -579,6 +579,24 @@ def _vmapped(f, p, pdim):
     return fb
 
 
+def _say_non_enclosing(verbose, retcode, lt, rt) -> None:
+    """The ``non_enclosing_interval`` message, once for each interval that
+    encloses no sign change (a read of the codes when the class is on)."""
+    from ..core.verbosity import normalize_verbosity
+    vrb = normalize_verbosity(verbose)
+    if vrb is None or not vrb.enabled("non_enclosing_interval"):
+        return
+    codes = (retcode.reshape(-1) if isinstance(retcode, torch.Tensor)
+             else torch.tensor([int(retcode)]))
+    codes, left, right = _backend.fetch(codes.to(lt.device).int(), lt, rt)
+    for code, a, b in zip(codes, left, right):
+        if int(code) == int(ReturnCode.InitialFailure):
+            vrb.emit("non_enclosing_interval",
+                     f"the interval ({float(a)}, {float(b)}) does not "
+                     "enclose a sign change; returning InitialFailure "
+                     "(BracketingNonlinearSolve pre-check)")
+
+
 def solve_bracketing(prob: IntervalNonlinearProblem, alg=None, *,
                      abstol=None, maxiters=1000, verbose=None,
                      **_ignored) -> NonlinearSolution:
@@ -589,9 +607,6 @@ def solve_bracketing(prob: IntervalNonlinearProblem, alg=None, *,
     ``u``, ``resid``, ``retcode`` and stats carry the batch axis; else
     they are scalars (retcode a ``ReturnCode``, stats ints, read in one
     host sync).  ``original``: the final bracket ``(left, right)``."""
-    if verbose:
-        raise NotImplementedError(
-            "solve(IntervalNonlinearProblem, verbose=...) is ROADMAP A.18")
     if alg is None:
         alg = ModAB()
     if not isinstance(alg, BRACKETING_ALGS):
@@ -641,6 +656,7 @@ def solve_bracketing(prob: IntervalNonlinearProblem, alg=None, *,
         nf, nsteps = int(codes[1][0]), int(codes[2][0])
         stats = NLStats(nf=nf, nsteps=nsteps)
         resid, original = resid[0], (final.left[0], final.right[0])
+    _say_non_enclosing(verbose, retcode, lt, rt)
     return NonlinearSolution(
         u=u, resid=resid, retcode=retcode, stats=stats,
         counters={"host_syncs": _backend.HOST_SYNCS["n"] - syncs0},

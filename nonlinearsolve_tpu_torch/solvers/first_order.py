@@ -34,6 +34,8 @@ from ..core.autodiff import JacobianPolicy
 from ..core.jacobian import construct_jacobian
 from ..core.returncode import ReturnCode
 from ..core.solution import NLStats
+from ..core.tracing import init_trace, record_trace
+from ..core.verbosity import traced_emit
 from ..ops.linear_solve import deferred_fallbacks, recorded_fallbacks
 from ..utils.norms import l2_norm
 
@@ -197,6 +199,7 @@ class FOCarry:
     njvp: int = 0
     krylov_iters: int = 0
     exact_fallbacks: bool = False   # the last step needed a fallback
+    trace_state: Any = None
 
     def replace(self, **kw) -> "FOCarry":
         return dataclasses.replace(self, **kw)
@@ -240,7 +243,8 @@ def init_first_order(alg: GeneralizedFirstOrderAlgorithm, ctx: dsc.DescentCtx,
                   if alg.trustregion is not None else None),
         ls_state=(lsr.ls_init(alg.linesearch, fu0, host["ls"])
                   if alg.linesearch is not None else None),
-        forcing_state=forcing_state)
+        forcing_state=forcing_state,
+        trace_state=init_trace(ctx.trace, u0))
 
 
 def _forcing_eta(fcfg: EisenstatWalkerForcing, fs: ForcingState, nsteps: int,
@@ -266,6 +270,7 @@ class _Trial:
     fu_new: Any
     ls_res: Any = None
     host: dict = dataclasses.field(default_factory=dict)
+    nf_post: int = 0            # the postcondition's residual evaluation
 
 
 def _attempt(alg, ctx, term_cfg, carry: FOCarry, J, krylov_rtol, abstol,
@@ -276,6 +281,7 @@ def _attempt(alg, ctx, term_cfg, carry: FOCarry, J, krylov_rtol, abstol,
     each as it comes (key "fell_back": whether one ran)."""
     u, fu = carry.u, carry.fu
     pending = _backend.PendingReads()
+    ctx.mark("descent")
     with (deferred_fallbacks() if deferred
           else recorded_fallbacks()) as flags:
         tr_radius = (carry.tr_state.trust_region
@@ -293,6 +299,8 @@ def _attempt(alg, ctx, term_cfg, carry: FOCarry, J, krylov_rtol, abstol,
                    fu_new=None)
     glob = alg.globalization
     groups = {}
+    ctx.mark("linesearch" if glob in ("linesearch", "trustregion")
+             else "other")
     if glob == "linesearch":
         trial.ls_res = lsr.ls_solve(alg.linesearch, carry.ls_state, ctx, u,
                                     du, fu, J, carry.nsteps,
@@ -309,6 +317,12 @@ def _attempt(alg, ctx, term_cfg, carry: FOCarry, J, krylov_rtol, abstol,
     else:
         trial.u_new = u + du
         trial.fu_new = ctx.f_flat(trial.u_new)
+    if ctx.postcondition is not None:
+        # the corrector at the commit point (a rejected trust-region step
+        # keeps the old iterate instead)
+        trial.u_new = ctx.postcondition(trial.u_new, u)
+        trial.fu_new = ctx.f_flat(trial.u_new)
+        trial.nf_post = 1
     groups["term"] = trm.termination_norms(
         term_cfg, trial.fu_new, trial.u_new, u, abstol=abstol, reltol=reltol)
     if alg.forcing is not None:
@@ -327,6 +341,7 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
     """One iteration (solve.jl:298-426)."""
     u, fu = carry.u, carry.fu
     npdt = _backend.np_dtype(u.dtype)
+    ctx.mark("jacobian")
     J = jac_fn(u)
     stats = carry.stats.incr(njacs=1, nsteps=1)
 
@@ -336,6 +351,9 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
         eta = _forcing_eta(alg.forcing, forcing_state, carry.nsteps, npdt)
         forcing_state = dataclasses.replace(forcing_state, eta=eta)
         krylov_rtol = eta
+        traced_emit(ctx.verbosity, "forcing", True,
+                    "Eisenstat-Walker forcing eta = {eta} "
+                    "(eisenstat_walker.jl:44)", eta=eta)
 
     # A step defers its fallbacks unless the last one needed one (then a
     # run of singular steps pays one read a fallback, not a wasted attempt)
@@ -347,7 +365,7 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
         trial = _attempt(alg, ctx, term_cfg, carry, J, krylov_rtol, abstol,
                          reltol, deferred=False)
     result, host = trial.result, trial.host
-    stats = stats.incr(nf=result.nf, nsolve=result.nsolve,
+    stats = stats.incr(nf=result.nf + trial.nf_post, nsolve=result.nsolve,
                        nfactors=result.nfactors)
     linsolve_ok = bool(host["linsolve_ok"])
     success = bool(host["success"])
@@ -378,6 +396,7 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
 
     # keep the old iterate when the descent was rejected (the geodesic
     # accept test); the termination check counts only when it succeeded
+    ctx.mark("other")
     if not descent_ok:
         u_new, fu_new = u, fu
         stop, term = False, carry.term
@@ -401,6 +420,9 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
         retcode = term.retcode
     if not linsolve_ok:
         retcode = int(ReturnCode.InternalLinearSolveFailed)
+    traced_emit(ctx.verbosity, "termination_condition", stop,
+                "termination condition met at step {n} (retcode {rc})",
+                n=carry.nsteps + 1, rc=term.retcode)
 
     if alg.forcing is not None:
         # ‖fu_new‖ of the iterate kept; a kept old iterate has the old norm
@@ -418,7 +440,10 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
         forcing_state=forcing_state,
         njvp=carry.njvp + result.njvp,
         krylov_iters=carry.krylov_iters + result.krylov_iters,
-        exact_fallbacks=bool(host.get("fell_back")))
+        exact_fallbacks=bool(host.get("fell_back")),
+        trace_state=record_trace(ctx.trace, carry.trace_state,
+                                 carry.nsteps + 1, fu_new, result.du, J,
+                                 u_new))
 
 
 def run_first_order(alg: GeneralizedFirstOrderAlgorithm, ctx: dsc.DescentCtx,
@@ -431,6 +456,12 @@ def run_first_order(alg: GeneralizedFirstOrderAlgorithm, ctx: dsc.DescentCtx,
     while not carry.force_stop and carry.nsteps < maxiters:
         carry = step_first_order(alg, ctx, term_cfg, jac_fn, carry, abstol,
                                  reltol)
+    return finalize_first_order(ctx, term_cfg, carry, maxiters)
+
+
+def finalize_first_order(ctx, term_cfg, carry: FOCarry, maxiters):
+    """The end of a run from ``carry``."""
+    ctx.mark("other")
 
     # _run_cache_to_completion! (solve.jl:360-384): Default → MaxIters or
     # Success, then the safe-best iterate with f re-evaluated at it.

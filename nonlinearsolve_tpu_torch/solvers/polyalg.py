@@ -128,14 +128,17 @@ class PolyCarry:
 def run_polyalg(alg: NonlinearSolvePolyAlgorithm, ctx, term_cfg, jac_spec,
                 u0, abstol, reltol, maxiters, start_hint=None):
     """Run the ladder from ``start_index``; ``winner`` is the index (from
-    0) of the rung that succeeded.  ``start_hint`` (the best-rung
-    retention of warm restarts) comes with the cache's init / reinit."""
+    0) of the rung that succeeded.  ``start_hint`` is the best-rung
+    retention of warm restarts: the rungs before it are skipped on a first
+    pass and run only in a second, wrap-around pass, if no rung from the
+    hint on succeeded."""
     from .dispatch import run_algorithm
 
+    rungs = list(enumerate(alg.algs))[alg.start_index - 1:]
     if start_hint is not None:
-        raise NotImplementedError(
-            "run_polyalg(start_hint=...) serves the cache's reinit and "
-            "the homotopy solvers: ROADMAP A.18")
+        hint = max(int(start_hint), alg.start_index - 1)
+        rungs = ([r for r in rungs if r[0] >= hint]
+                 + [r for r in rungs if r[0] < hint])
     fu0 = ctx.f_flat(u0)
     npdt = _backend.np_dtype(u0.dtype)
     carry = PolyCarry(
@@ -143,7 +146,7 @@ def run_polyalg(alg: NonlinearSolvePolyAlgorithm, ctx, term_cfg, jac_spec,
         stats=NLStats.zeros(), done=False, best_u=u0, best_fu=fu0,
         best_resid=npdt(np.inf), best_retcode=int(ReturnCode.Failure),
         winner=-1)
-    for idx, sub in list(enumerate(alg.algs))[alg.start_index - 1:]:
+    for idx, sub in rungs:
         if carry.done:
             break
         final = run_algorithm(sub, ctx, term_cfg, jac_spec, u0, abstol,

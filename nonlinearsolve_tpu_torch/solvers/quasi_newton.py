@@ -43,6 +43,8 @@ from ..core import trust_region as trg
 from ..core.autodiff import JacobianPolicy, construct_dense_jacobian_fn
 from ..core.returncode import ReturnCode
 from ..core.solution import NLStats
+from ..core.tracing import init_trace, record_trace
+from ..core.verbosity import traced_emit
 from ..ops.linear_solve import (LinearSolver, deferred_fallbacks,
                                 recorded_fallbacks, solve_dense)
 from ..utils.norms import l2_norm
@@ -421,6 +423,7 @@ class QNCarry:
     exact_fallbacks: bool = False   # the last step needed a fallback
     njvp: int = 0
     krylov_iters: int = 0
+    trace_state: Any = None
 
     def replace(self, **kw) -> "QNCarry":
         return dataclasses.replace(self, **kw)
@@ -432,14 +435,20 @@ def flat_ctx(ctx: dsc.DescentCtx, shape):
     seen = {}
     if len(shape) == 1:
         return ctx, seen
-    f = ctx.f_flat
+    f, post = ctx.f_flat, ctx.postcondition
 
     def f_flat(v):
         out = f(v.reshape(shape))
         seen["fu"] = out.shape
         return out.reshape(-1)
 
-    return dataclasses.replace(ctx, f_flat=f_flat), seen
+    flat_post = None
+    if post is not None:
+        def flat_post(v, v_prev):
+            return post(v.reshape(shape), v_prev.reshape(shape)).reshape(-1)
+
+    return dataclasses.replace(ctx, f_flat=f_flat,
+                               postcondition=flat_post), seen
 
 
 def init_quasi_newton(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn, u0,
@@ -469,7 +478,8 @@ def init_quasi_newton(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn, u0,
         update_fu_prev=fu0,
         reset_state=ResetRuleState(0, 0, fu0), reset_flags=host["reset"],
         tr_state=(trg.tr_init(alg.trustregion, u0, host["tr"])
-                  if alg.trustregion is not None else None))
+                  if alg.trustregion is not None else None),
+        trace_state=init_trace(ctx.trace, u0))
 
 
 @dataclasses.dataclass
@@ -486,6 +496,7 @@ class _Trial:
     ls_res: Any = None
     ls_reset: bool = False      # a failed search after the burn-in
     host: dict = dataclasses.field(default_factory=dict)
+    nf_post: int = 0            # the postcondition's residual evaluation
 
 
 def _attempt(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn,
@@ -547,6 +558,12 @@ def _attempt(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn,
     else:
         trial.u_new = u + du
         trial.fu_new = ctx.f_flat(trial.u_new)
+    if ctx.postcondition is not None:
+        # the corrector at the commit point (a rejected trust-region step
+        # keeps the old iterate instead)
+        trial.u_new = ctx.postcondition(trial.u_new, u)
+        trial.fu_new = ctx.f_flat(trial.u_new)
+        trial.nf_post = 1
     groups["term"] = trm.termination_norms(
         term_cfg, trial.fu_new, trial.u_new, u, abstol=abstol, reltol=reltol)
 
@@ -584,6 +601,9 @@ def step_quasi_newton(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn,
                               else carry.steps_since_last_reset + 1)
     # the secant base residual: a reset clears it too
     update_fu_prev = fu if reinit else carry.update_fu_prev
+    traced_emit(ctx.verbosity, "threshold_state", reinit,
+                "approximate-Jacobian reset #{n} (structure "
+                f"{alg.structure}, threshold {alg.threshold})", n=nresets)
 
     trial = _attempt(alg, ctx, term_cfg, jac_fn, carry, reinit,
                      update_fu_prev, steps_since_last_reset, abstol, reltol,
@@ -597,7 +617,7 @@ def step_quasi_newton(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn,
     host, J, du = trial.host, trial.J, trial.du
     linsolve_ok = bool(host["linsolve_ok"])
     stats = carry.stats.incr(
-        nsteps=1, nsolve=1,
+        nsteps=1, nsolve=1, nf=trial.nf_post,
         njacs=int(reinit and alg.init_jacobian == "true_jacobian"))
 
     # --- globalization ----------------------------------------------------
@@ -637,8 +657,11 @@ def step_quasi_newton(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn,
     # a failed solve right after a reset is a hard failure; otherwise the
     # next step reinitializes (solve.jl:377-397)
     hard_lin_fail = (not linsolve_ok) and steps_since_last_reset == 0
-    force_reinit_next = force_reinit_next or (
-        (not linsolve_ok) and steps_since_last_reset > 0)
+    stale_lin_fail = (not linsolve_ok) and steps_since_last_reset > 0
+    force_reinit_next = force_reinit_next or stale_lin_fail
+    traced_emit(ctx.verbosity, "linsolve_failed_noncurrent", stale_lin_fail,
+                "linear solve failed with a stale approximate Jacobian; "
+                "retrying with a reinitialized Jacobian (QN solve.jl:385)")
 
     # --- termination ------------------------------------------------------
     if linsolve_ok:
@@ -679,7 +702,10 @@ def step_quasi_newton(alg: QuasiNewtonAlgorithm, ctx, term_cfg, jac_fn,
         retcode=retcode, stats=stats, term=term, ls_state=ls_state,
         update_fu_prev=update_fu_prev, reset_state=reset_state,
         reset_flags=flags, tr_state=tr_state, tr_rejects=tr_rejects,
-        exact_fallbacks=bool(host.get("fell_back")))
+        exact_fallbacks=bool(host.get("fell_back")),
+        trace_state=record_trace(ctx.trace, carry.trace_state,
+                                 carry.nsteps + 1, fu_new, du, J_next,
+                                 u_new))
 
 
 def finish(carry, ctx, term_cfg, maxiters: int, shape, seen):

@@ -31,6 +31,7 @@ import torch
 from .. import _backend
 from ..core import linesearch as lsr
 from ..core import termination as trm
+from ..core.autodiff import jacfwd, jvp
 from ..core.linesearch import ipow
 from ..core.lockstep import row_flags, select_rows
 from ..core.returncode import ReturnCode
@@ -146,7 +147,7 @@ class BatchedResidual:
         return torch.func.vmap(self.jac1, in_dims=(0, self.pdim))(X, self.p)
 
     def jacfwd(self, X):
-        return torch.func.vmap(torch.func.jacfwd(self.f1),
+        return torch.func.vmap(jacfwd(self.f1),
                                in_dims=(0, self.pdim))(X, self.p)
 
     def hvvp(self, X, A):
@@ -155,8 +156,8 @@ class BatchedResidual:
 
         def one(x, a, p):
             def df(y):
-                return torch.func.jvp(lambda z: f1(z, p), (y,), (a,))[1]
-            return torch.func.jvp(df, (x,), (a,))[1]
+                return jvp(lambda z: f1(z, p), y, a)[1]
+            return jvp(df, x, a)[1]
 
         return torch.func.vmap(one, in_dims=(0, 0, self.pdim))(X, A, self.p)
 

@@ -20,6 +20,7 @@ from ..core import linesearch as lsr
 from ..core import termination as trm
 from ..core.returncode import ReturnCode
 from ..core.solution import NLStats
+from ..core.tracing import init_trace, record_trace
 from ..utils.norms import l2_norm, tree_dot
 from .first_order import _read_groups
 from .quasi_newton import finish, flat_ctx
@@ -61,6 +62,7 @@ class DFSaneCarry:
     ls_state: Any
     njvp: int = 0
     krylov_iters: int = 0
+    trace_state: Any = None
 
     def replace(self, **kw) -> "DFSaneCarry":
         return dataclasses.replace(self, **kw)
@@ -94,7 +96,8 @@ def init_dfsane(alg: GeneralizedDFSane, ctx, term_cfg, u0,
         stats=NLStats.zeros().incr(nf=1),
         term=trm.init_termination(term_cfg, fu0, u0, reltol,
                                   norms=host["term"]),
-        ls_state=lsr.ls_init(alg.linesearch, fu0, host["ls"]))
+        ls_state=lsr.ls_init(alg.linesearch, fu0, host["ls"]),
+        trace_state=init_trace(ctx.trace, u0))
 
 
 def step_dfsane(alg: GeneralizedDFSane, ctx, term_cfg, carry: DFSaneCarry,
@@ -106,6 +109,10 @@ def step_dfsane(alg: GeneralizedDFSane, ctx, term_cfg, carry: DFSaneCarry,
     u_new = lsr.at(u, ls_res.alpha, du)
     fu_new = ctx.f_flat(u_new)
     stats = carry.stats.incr(nf=ls_res.nf + 1, nsteps=1)
+    if ctx.postcondition is not None:
+        u_new = ctx.postcondition(u_new, u)
+        fu_new = ctx.f_flat(u_new)
+        stats = stats.incr(nf=1)
     host = _read_groups({
         "term": trm.termination_norms(term_cfg, fu_new, u_new, u,
                                       abstol=abstol, reltol=reltol),
@@ -129,7 +136,10 @@ def step_dfsane(alg: GeneralizedDFSane, ctx, term_cfg, carry: DFSaneCarry,
     return DFSaneCarry(
         u=u_new, fu=fu_new, sigma=sigma, nsteps=carry.nsteps + 1,
         force_stop=stop or ls_failed, retcode=retcode, stats=stats,
-        term=term, ls_state=ls_state)
+        term=term, ls_state=ls_state,
+        trace_state=record_trace(ctx.trace, carry.trace_state,
+                                 carry.nsteps + 1, fu_new,
+                                 ls_res.alpha * du, None, u_new))
 
 
 def run_dfsane(alg: GeneralizedDFSane, ctx, term_cfg, u0, abstol, reltol,

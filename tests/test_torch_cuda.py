@@ -1752,3 +1752,184 @@ def test_interval_problem_of_python_floats_needs_cuda(monkeypatch):
         tnls.solve(prob)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tnls.solve(prob, tnls.Bisection())
+
+
+# ---------------------------------------------------------------------------
+# the reverse rules of K5, K7 and K8, the grad refusals, and differentiating
+# through solve on the card (ROADMAP A.28, A.18)
+# ---------------------------------------------------------------------------
+
+def _reverse_case(route, dtype, monkeypatch, device):
+    """A CSR on the card whose tier is ``route``, seeded data and x."""
+    from nonlinearsolve_tpu_torch.ops import spmv, spmv_dia
+    spmv.clear_plan_caches()
+    if route == "resident":
+        pat = _periodic7(12, np.random.default_rng(3).permutation(12 ** 3))
+        monkeypatch.setattr(spmv, "_SCATTER_TRY_THRESHOLD", 1e9)
+    elif route == "stream":
+        monkeypatch.setattr(spmv_dia, "DIA_MAX_TABLE", 50_000)
+        monkeypatch.setattr(spmv, "MAX_X_ELEMS_VMEM", 2048)
+        pat = _periodic7(16)
+    elif route == "scatter":
+        pat = _periodic7(20, np.random.default_rng(42).permutation(20 ** 3))
+    else:
+        from nonlinearsolve_tpu_torch.models.brusselator import \
+            sparsity_pattern
+        pat = sparsity_pattern(16)
+    gen = torch.Generator().manual_seed(31)
+    dt = TORCH_DT[dtype]
+    data = torch.randn(pat.nnz, generator=gen, dtype=dt).to(device)
+    x = torch.randn(pat.shape[1], generator=gen, dtype=dt).to(device)
+    w = torch.randn(pat.shape[0], generator=gen, dtype=dt).to(device)
+    return pat.with_data(data), x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("route", ["resident", "stream", "scatter", "dia"])
+def test_spmv_reverse_rules_on_card(cuda, route, dtype, monkeypatch):
+    """A loss through ``CSR.matvec`` gets x̄ from the route's kernel on Aᵀ
+    (its launch counter rises by the backward) and d̄ata = ȳ[row]·x[col]:
+    d̄ata bit for bit and x̄ at RTOL against autograd through the plain CSR
+    product."""
+    from nonlinearsolve_tpu_torch.ops import spmv
+    kernel = {"resident": "gather_spmv", "stream": "band_spmv",
+              "scatter": "scatter_spmv_part", "dia": "dia_spmv"}[route]
+    C, x, w = _reverse_case(route, dtype, monkeypatch, cuda)
+    assert C.tier[0] == route
+    data = C.data.clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    loss = (w * C.with_data(data).matvec(xr)).sum()
+    before = _backend.LAUNCHES[kernel]
+    gd, gx = torch.autograd.grad(loss, (data, xr))
+    troute = spmv.csr_route(C)[0].transpose()[0]
+    parts = len(troute.plan.parts) if route == "scatter" else 1
+    assert _backend.LAUNCHES[kernel] == before + parts
+    indptr, indices = C.device_tables(cuda)
+    dp = C.data.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    gd_p, gx_p = torch.autograd.grad(
+        (w * spmv.gather_spmv_plain(indptr, indices, dp, xp)).sum(),
+        (dp, xp))
+    assert torch.equal(gd, gd_p)
+    _close(gx, gx_p, dtype)
+    spmv.clear_plan_caches()
+
+
+@pytest.mark.cuda
+def test_spmv_second_derivative_on_card(cuda, monkeypatch):
+    """x̄ runs through the same Function: a Hessian-vector product of
+    Σ sin(A·x) on the band route, against the dense formula."""
+    from nonlinearsolve_tpu_torch.ops import spmv
+    C, x, v = _reverse_case("stream", "float64", monkeypatch, cuda)
+    xr = x.clone().requires_grad_(True)
+    g, = torch.autograd.grad(torch.sin(C.matvec(xr)).sum(), xr,
+                             create_graph=True)
+    hv, = torch.autograd.grad((g * v).sum(), xr)
+    D = C.todense()
+    ref = D.T @ (-torch.sin(D @ x) * (D @ v))
+    _close(hv, ref, "float64")
+    spmv.clear_plan_caches()
+
+
+@pytest.mark.cuda
+def test_kernel_grad_refusals_on_card(cuda):
+    """Under grad, the wrappers of kernels without a reverse rule raise on
+    the card and name the kernel; the bare K5, K7 and K8 point to
+    ``csr_spmv``."""
+    from nonlinearsolve_tpu_torch.ops import spmv
+    from nonlinearsolve_tpu_torch.ops import stencil3d as t3
+    U, T, p = _inputs(16, "float32", 1, cuda)
+    Tg = T.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K1 brusselator_jvp"):
+        tst.brusselator_jvp(U, Tg, p)
+    with pytest.raises(NotImplementedError, match="K2"):
+        tst.brusselator_jvp_scaled(U, Tg, p, 0.5)
+    with pytest.raises(NotImplementedError, match="K3"):
+        tst.make_brusselator_jvp_bf16(U, p)(Tg)
+    xg = torch.ones(64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K4 dia_spmv"):
+        spmv.dia_spmv(torch.ones((3, 64), device=cuda), (-1, 0, 1), xg)
+    with pytest.raises(NotImplementedError, match="K5 gather_spmv.*csr_spmv"):
+        spmv.gather_spmv(torch.tensor([0, 1], dtype=torch.int32,
+                                      device=cuda),
+                         torch.tensor([0], dtype=torch.int32, device=cuda),
+                         torch.ones(1, device=cuda), xg)
+    with pytest.raises(NotImplementedError, match="K5 gather_select"):
+        spmv.gather_select(torch.zeros(4, dtype=torch.int32, device=cuda),
+                           xg)
+    u3 = torch.rand((8, 8, 8), device=cuda)
+    t3g = torch.ones((8, 8, 8), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K9"):
+        t3.rd3d_jvp_blocked(u3, t3g, 0.01, bz=4)
+    with pytest.raises(NotImplementedError, match="K10"):
+        t3.rd3d_jvp_scaled(u3, t3g, 0.01, 1.0, bz=4)
+    with torch.no_grad():
+        assert torch.isfinite(tst.brusselator_jvp(U, Tg, p)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["resident", "stream", "scatter"])
+def test_forward_mode_tangents_refused_on_card(cuda, route, monkeypatch):
+    """A forward-mode tangent through ``CSR.matvec`` on each SpMV route,
+    and through K1, raises on the card rather than come back without its
+    tangent (``forward_ad`` and ``torch.func.jvp`` alike)."""
+    from torch.autograd import forward_ad as fwAD
+    from nonlinearsolve_tpu_torch.ops import spmv
+    C, x, _w = _reverse_case(route, "float64", monkeypatch, cuda)
+    U, T, p = _inputs(16, "float32", 1, cuda)
+    for f, arg in ((C.matvec, x),
+                   (lambda t: tst.brusselator_jvp(U, t, p), T)):
+        with fwAD.dual_level():
+            with pytest.raises(NotImplementedError,
+                               match="no forward-mode rule"):
+                f(fwAD.make_dual(arg, torch.ones_like(arg)))
+        with pytest.raises(NotImplementedError, match="no forward-mode rule"):
+            torch.func.jvp(f, (arg,), (torch.ones_like(arg),))
+    spmv.clear_plan_caches()
+
+
+@pytest.mark.cuda
+def test_gradient_through_solve_on_card_matches_cpu(cuda):
+    """p̄ of ⟨w, u*⟩ on the dense Brusselator (N=8, f64) and u̇ by forward
+    mode, on the card and on the CPU: rel 1e-10."""
+    import nonlinearsolve_tpu_torch as tnls
+    from torch.autograd import forward_ad as fwAD
+    out = {}
+    for d in (cuda, "cpu"):
+        prob = tbru.make_problem(8, torch.float64, device=d)
+        w = torch.linspace(-1.0, 1.0, prob.u0.numel(),
+                           dtype=torch.float64).reshape(prob.u0.shape).to(d)
+        p = prob.p.clone().requires_grad_(True)
+        u = tnls.solve(prob.remake(p=p), tnls.NewtonRaphson(),
+                       abstol=1e-10).u
+        pbar, = torch.autograd.grad((w * u).sum(), p)
+        with fwAD.dual_level():
+            ud = tnls.solve(prob.remake(p=fwAD.make_dual(
+                prob.p, torch.eye(4, dtype=torch.float64, device=d)[0])),
+                tnls.NewtonRaphson(), abstol=1e-10).u
+            wdot = float((w * fwAD.unpack_dual(ud).tangent).sum())
+        out[str(d)] = (pbar.cpu(), wdot)
+    (g_pbar, g_wdot), (c_pbar, c_wdot) = out[str(cuda)], out["cpu"]
+    torch.testing.assert_close(g_pbar, c_pbar, rtol=1e-10, atol=0)
+    assert abs(g_wdot - float(g_pbar[0])) <= 1e-10 * abs(g_wdot)
+    assert abs(g_wdot - c_wdot) <= 1e-10 * abs(c_wdot)
+
+
+@pytest.mark.cuda
+def test_iterator_equals_solve_on_card(cuda):
+    """init → step → solve on the card: the solve's retcode, stats and root
+    bit for bit; a trace and a phase timer change no root."""
+    import nonlinearsolve_tpu_torch as tnls
+    prob = tbru.make_problem(16, torch.float64, device=cuda)
+    alg = tnls.NewtonRaphson()
+    ref = tnls.solve(prob, alg, abstol=1e-10)
+    cache = tnls.init(prob, alg, abstol=1e-10)
+    cache.step(2)
+    sol = cache.solve()
+    assert sol.retcode == ref.retcode == tnls.ReturnCode.Success
+    assert sol.stats == ref.stats and torch.equal(sol.u, ref.u)
+    traced = tnls.solve(prob, alg, abstol=1e-10, store_trace=True,
+                        time_phases=True)
+    assert torch.equal(traced.u, ref.u)
+    assert traced.trace.n == ref.stats.nsteps and traced.timer["total"] > 0

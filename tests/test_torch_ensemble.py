@@ -1,6 +1,7 @@
 """Ensembles against the JAX package: the tests of
 ``tests/test_ensemble_checkpoint.py`` (its lines 16-38 and 67-112; the
-checkpoint test is ROADMAP A.18 and the mesh test A.29) in both packages
+checkpoint test is in ``test_torch_interfaces.py`` and the mesh test is
+ROADMAP A.29) in both packages
 on the same inputs, f64 on the CPU.
 
 Each trajectory must give the JAX package's vmapped result: the same

@@ -1,5 +1,5 @@
 """The port's package surface: import hygiene, the device policy, the
-options it refuses, and the small modules that must equal the JAX
+options it refuses or runs, and the small modules that must equal the JAX
 package's (return codes, tolerances, norms, termination)."""
 
 import os
@@ -54,6 +54,10 @@ def test_port_imports_no_jax():
             "nonlinearsolve_tpu_torch.solvers.simple, "
             "nonlinearsolve_tpu_torch.solvers.bracketing, "
             "nonlinearsolve_tpu_torch.core.ensemble, "
+            "nonlinearsolve_tpu_torch.core.sensitivity, "
+            "nonlinearsolve_tpu_torch.core.bounds, "
+            "nonlinearsolve_tpu_torch.core.cache, "
+            "nonlinearsolve_tpu_torch.core.timer, "
             "nonlinearsolve_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'nonlinearsolve_tpu'"
@@ -124,17 +128,31 @@ def _alg():
     {"verbose": True}, {"time_phases": True}, {"maxtime": 1.0},
     {"precondition": lambda fu, u, p: fu},
     {"postcondition": lambda u, uprev, p: u}])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, capfd):
+    """The options that raised until ROADMAP A.18 ported them now run:
+    none of these changes an iterate, so each solve gives the plain
+    solve's root bit for bit (``maxtime`` through the iterator)."""
     prob = tbru.make_problem(8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnls.solve(prob, _alg(), **option)
+    ref = tnls.solve(prob, tnls.NewtonRaphson(), abstol=1e-10)
+    sol = tnls.solve(prob, tnls.NewtonRaphson(), abstol=1e-10, **option)
+    assert sol.retcode == ref.retcode == tnls.ReturnCode.Success
+    assert torch.equal(sol.u, ref.u)
+    assert (sol.trace is not None) == ("store_trace" in option)
+    assert (sol.timer is not None) == ("time_phases" in option)
+    out = capfd.readouterr()
+    assert ("iter 1:" in out.out) == ("show_trace" in option)
 
 
 def test_unported_routes_raise():
     prob = tbru.make_problem(8, device="cpu")
-    bounded = tnls.NonlinearProblem(prob.f, prob.u0, prob.p, lb=-1.0, ub=1.0)
-    with pytest.raises(NotImplementedError, match="bounds"):
-        tnls.solve(bounded, _alg())
+    # bounds run since ROADMAP A.18: TrustRegion from the clamped u0 to the
+    # unbounded root, as in the JAX package (NewtonRaphson from u0's zeros
+    # ends Unstable in both)
+    ref = tnls.solve(prob, tnls.NewtonRaphson(), abstol=1e-10)
+    bounded = tnls.NonlinearProblem(prob.f, prob.u0, prob.p, lb=0.0)
+    sol = tnls.solve(bounded, tnls.TrustRegion(), abstol=1e-10)
+    assert sol.retcode == tnls.ReturnCode.Success
+    assert float((sol.u - ref.u).abs().max()) < 1e-8
     with pytest.raises(ValueError, match="unknown linesearch"):
         tnls.solve(prob, tnls.NewtonRaphson(
             linsolve=tnls.LinearSolver(method="gmres"),
@@ -179,9 +197,13 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="A.33"):
         tnls.solve(tnls.NonlinearProblem(lambda u, p: u - 1.0,
                                          torch.tensor(0.5)), _alg())
+    # differentiating through the solve runs since ROADMAP A.28: the root
+    # depends on p alone, so a u0 that requires grad gets none
     grad_u0 = prob.u0.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A.28"):
-        tnls.solve(prob.remake(u0=grad_u0), _alg())
+    sol = tnls.solve(prob.remake(u0=grad_u0), tnls.NewtonRaphson(),
+                     abstol=1e-10)
+    assert not sol.u.requires_grad
+    assert torch.equal(sol.u, ref.u)
 
 
 # names the JAX package exports from a module the port has, whose

@@ -2,8 +2,8 @@
 the rung that wins, the best-residual fallback when every rung fails,
 ``FastShortcutNLLSPolyalg`` (the default for least squares) on the 8 NLLS
 classics, the default algorithm on the dense Brusselator at N=8 and 16,
-the ladders' shapes, and the refusals of what is not ported (ROADMAP
-A.18, A.30) or not supported (complex states)."""
+the ladders' shapes, the warm-restart start hint, and the refusals of
+what is not ported (ROADMAP A.30) or not supported (complex states)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -233,10 +233,14 @@ def test_refusals():
     from nonlinearsolve_tpu_torch.core.termination import \
         default_termination_mode
     ctx = DescentCtx(f_flat=lambda u: _quad(u, 2.0), n_in=2, n_out=2)
-    with pytest.raises(NotImplementedError, match="A.18"):
-        tpa.run_polyalg(tnls.FastShortcutNonlinearPolyalg(), ctx,
-                        default_termination_mode(False), None, prob.u0,
-                        3e-13, 3e-13, 10, start_hint=0)
+    # start_hint runs since ROADMAP A.18: from rung 2 on, then wrapping
+    # around to the rungs before it
+    with torch.no_grad():
+        carry = tpa.run_polyalg(tnls.FastShortcutNonlinearPolyalg(), ctx,
+                                default_termination_mode(False), None,
+                                prob.u0, 3e-13, 3e-13, 10, start_hint=2)
+    assert carry.rungs[0][0] == 2 and carry.winner >= 2
+    np.testing.assert_allclose(carry.u.numpy(), np.sqrt(2.0), rtol=1e-10)
 
     class DynamicSS:
         pass

@@ -185,8 +185,8 @@ def test_qn_tr_reject_streak_resets_jacobian():
 
 def test_qn_tr_rejection_keeps_iterate_monotone():
     """A rejected step keeps the iterate; the solve ends below where it
-    started (the JAX test reads its trace; the port's trace options are
-    ROADMAP A.18, so the end points are compared)."""
+    started, in both packages' stored traces (rejected steps hold ‖f‖
+    flat)."""
     def alg(m):
         return m.QuasiNewtonAlgorithm(
             update_rule="good_broyden", structure="full",
@@ -198,11 +198,18 @@ def test_qn_tr_rejection_keeps_iterate_monotone():
     def ft(u, p):
         return torch.stack([torch.exp(u[0]) - 2.0, u[1] ** 3 - u[0]])
 
-    jsol, tsol = both(fj, ft, [3.0, 2.0], None, alg, maxiters=500)
+    jsol, tsol = both(fj, ft, [3.0, 2.0], None, alg, maxiters=500,
+                      store_trace=True)
     assert tsol.success
     f0 = float(ft(_t([3.0, 2.0]), None).norm())
     assert float(tsol.resid.norm()) < f0
     same(jsol, tsol)
+    n = tsol.trace.n
+    assert n == int(jsol.trace.n) == tsol.stats.nsteps
+    fn = tsol.trace.fnorm[:n].numpy()
+    assert fn[-1] < fn[0]
+    np.testing.assert_allclose(fn, np.asarray(jsol.trace.fnorm[:n]),
+                               rtol=1e-10, atol=1e-14 * fn[0])
 
 
 def test_qn_tr_shrink_threshold_exceeded():
