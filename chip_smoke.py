@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``nonlinearsolve_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23]
+    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24]
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a); exits
 non-zero without one, and without the package beside it.  Each phase
 prints one JSON line (``--log`` also appends every line to PATH); a failed
 check raises, so the script exits non-zero.  ``--only`` runs phases 1
-and 2, then the listed phases of 19–23 alone, each timed, on the set-up
+and 2, then the listed phases of 19–24 alone, each timed, on the set-up
 they take from earlier phases rebuilt (``only_phases``), and prints no
 result line.
 
@@ -292,9 +292,42 @@ result line.
    gives its root and NLStats bit for bit (the default safe-best mode
    resumes from the best iterate, as the JAX package does, and may take
    other steps);
-24. the kernels line (each SpMV kernel's row with its reverse rule's
-   numbers from (c)), then ``{"ok": true, "device": {...}}`` as the last
-   line.
+24. continuation and the other problem types (counters at 0 just before
+   each run, read just after), f64: (a) the Bratu λ-continuation,
+   ``HomotopyProblem`` with H = bratu_2d(u, λ), u0 = 0, λ from 0 to 6.5,
+   abstol 1e-8, at N = 32 (BASELINE config 3's grid) and 64, under
+   HomotopySweep, KantorovichHomotopy and ArcLengthContinuation with a
+   NewtonRaphson inner and the default HomotopyPolyAlgorithm: Success,
+   |H(u, 6.5)|_inf ≤ 1e-8, the four roots within 1e-9 of each other, the
+   NLStats of the JAX package on the CPU, its last λ and max u within
+   1e-10 and its Σu within 1e-8 (JAX_CONTINUATION), no kernel launched;
+   each run's first and warm wall, host reads, idle share and device time
+   by class (CONTINUATION_GROUPS) under torch.profiler.  Then
+   the three methods at N = 32 at the default abstol: the JAX package's
+   MaxIters, their counts and last λ beside its own
+   (JAX_CONTINUATION_FLOOR).  (b) p scaling λ,
+   H = bratu_2d(u, λ·p), p = 1, N = 32 and 64, the sweep: p̄ of ⟨w, u⟩ (w
+   seeded) by reverse mode within rel 1e-12 of forward mode and within
+   rel 1e-6 of the fourth-order central difference (step 1e-3; each point
+   a NewtonRaphson solve at λ = 6.5·p, abstol 1e-10, from the root).  (c)
+   ``SteadyStateProblem`` on Bratu 32² at λ = 3.5: DynamicSS
+   ("rosenbrock23") Success within 1e-6 of the NewtonRaphson root,
+   DynamicSS("tsit5") with the JAX package's retcode (MaxIters), the
+   NLStats beside the JAX package's (JAX_DYNAMIC_SS); the f32 flagship of
+   phase 4 as a SteadyStateProblem under ``SSRootfind``: its root and
+   NLStats bit for bit those of the NonlinearProblem solve, K1 launches =
+   its Jacobian products.  (d) An ``SCCNonlinearProblem``: Bratu 32² at
+   λ = p = 3.5, a ``LinearSCCBlock`` A = J(u₁*) (dense jacfwd), b = −e^{u₁*}
+   (du/dλ), and a HomotopyProblem block H = bratu_2d(u, λ·(p + mean
+   u₁*)), abstol 1e-10: each block's u equal to its lone solve, Success,
+   the NLStats the blocks' sum, ∂⟨w, u⟩/∂p by reverse mode within rel
+   1e-12 of forward mode and rel 1e-6 of the central difference.  (e) The
+   ``run_flat`` Richardson iteration of tests/test_interfaces.py on the
+   card, and ``SciPyRoot("hybr")`` on Bratu 16² from a card u0: the root
+   within 1e-8 of NewtonRaphson's, ``sol.u`` on the card;
+25. the kernels line (each SpMV kernel's row with its reverse rule's
+   numbers from 23 (c)), then ``{"ok": true, "device": {...}}`` as the
+   last line.
 """
 
 import json
@@ -392,6 +425,54 @@ YARDSTICK = {
     "gather_spmv": "torch.index_select(x, 0, indices)",
     "scatter_spmv_part": "torch.index_select(x, 0, indices) over A's "
                          "column indices",
+}
+# Phase 24: the JAX package on the CPU (f64; tools/homotopy_reference.py
+# prints these) — nf / njacs / nsteps, the last λ, max u and Σu of the
+# Bratu λ-continuation (u0 = 0, λ from 0 to 6.5, abstol 1e-8; every run
+# Success) under each method with a NewtonRaphson inner, and under the
+# default HomotopyPolyAlgorithm (its FastShortcut inner); and DynamicSS on
+# Bratu 32² at λ = 3.5 (retcode, nf / njacs / nsteps).
+JAX_CONTINUATION = {
+    32: {"sweep": ([26, 14, 14], 6.5, 1.0023877091495275,
+                   473.80664871755164),
+         "kantorovich": ([19, 11, 11], 6.5, 1.002387709170672,
+                         473.806648725844),
+         "arclength": ([86, 62, 62], 6.6349508758050675,
+                       1.0023877091707218, 473.8066487258636),
+         "polyalg": ([50, 13, 34], 6.5, 1.0023877091495275,
+                     473.80664871755164)},
+    64: {"sweep": ([26, 14, 14], 6.5, 1.0037901137861862,
+                   1840.8359718665906),
+         "kantorovich": ([19, 11, 11], 6.5, 1.0037901138065746,
+                         1840.8359718975887),
+         "arclength": ([86, 62, 62], 6.635817610634698,
+                       1.0037901138066256, 1840.8359718976678),
+         "polyalg": ([48, 13, 32], 6.5, 1.0037901137861862,
+                     1840.8359718665906)},
+}
+CONTINUATION_SIZES = (32, 64)
+# the same three methods at N = 32 at the default abstol (3e-13, the
+# rounding floor of the h⁻²-scaled residual): MaxIters in the JAX package,
+# near λ 3 and max u 0.27; its nf / njacs / nsteps and last λ, which the
+# card's counts may part from (the floor's rounding decides each inner
+# solve's last step; ROADMAP C)
+JAX_CONTINUATION_FLOOR = {
+    "sweep": ("MaxIters", [392, 312, 312], 3.0172801375389096),
+    "kantorovich": ("MaxIters", [290, 236, 236], 3.005132231764292),
+    "arclength": ("MaxIters", [520, 428, 428], 2.985898174963521)}
+JAX_DYNAMIC_SS = {"rosenbrock23": ("Success", [91, 45, 45]),
+                  "tsit5": ("MaxIters", [6001, 0, 999])}
+# the device time of a continuation run by class: the dense LU of every
+# Newton step (cuSOLVER getrf / getrs and the BLAS kernels they call)
+# against the rest, chiefly the batched residual of the forward-mode
+# Jacobian (elementwise kernels)
+CONTINUATION_GROUPS = {
+    "getrf/getrs": ("getrf", "getrs", "laswp", "trsm", "trsv", "gemm",
+                    "gemv", "iamax", "swap", "ger", "scal", "cusolver",
+                    "magma"),
+    "jacfwd and residual (elementwise)": ("elementwise", "vectorized",
+                                          "unrolled", "pad", "exp"),
+    "reductions": ("reduce", "norm", "dot"),
 }
 LOG = {"path": None}
 
@@ -3101,6 +3182,322 @@ def sensitivity_phase(torch, nls, _backend, brusselator, stencil, spmv,
     return out
 
 
+def _fd5(value, x0, h):
+    """The fourth-order central difference of ``value`` at ``x0``."""
+    return (-value(x0 + 2 * h) + 8 * value(x0 + h) - 8 * value(x0 - h)
+            + value(x0 - 2 * h)) / (12 * h)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def continuation_phase(torch, nls, _backend, card, flag_prob, flag_alg):
+    """Phase 24: continuation, steady states, an SCC chain, a user
+    algorithm and the SciPy bridge on the card (see the module docstring).
+    Each run with the launch counters at 0 just before and read just
+    after."""
+    import numpy as np
+    from torch.autograd import forward_ad as fwAD
+    from nonlinearsolve_tpu_torch.core.autodiff import jacfwd
+    from nonlinearsolve_tpu_torch.models.bratu import bratu_2d
+    from nonlinearsolve_tpu_torch.ops.linear_solve import solve_dense
+    from nonlinearsolve_tpu_torch.solvers.custom import run_fixed_point_loop
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    dev = flag_prob.u0.device
+    failed = []
+
+    def check(name, ok):
+        if not ok:
+            failed.append(name)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        syncs0 = _backend.HOST_SYNCS["n"]
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, {
+            "launches": {k: v for k, v in _backend.LAUNCHES.items() if v},
+            "host_reads": _backend.HOST_SYNCS["n"] - syncs0}
+
+    def stats_of(sol):
+        return [sol.stats.nf, sol.stats.njacs, sol.stats.nsteps]
+
+    NR = nls.NewtonRaphson
+    methods = {
+        "sweep": lambda: nls.HomotopySweep(inner=NR()),
+        "kantorovich": lambda: nls.KantorovichHomotopy(inner=NR()),
+        "arclength": lambda: nls.ArcLengthContinuation(inner=NR()),
+        "polyalg": lambda: nls.HomotopyPolyAlgorithm()}
+
+    def H(u, p, lam):
+        return bratu_2d(u, lam)
+
+    def Hp(u, p, lam):
+        return bratu_2d(u, lam * p)
+
+    # --- (a) the Bratu λ-continuation at config 3's width and at 4× -------
+    for N in CONTINUATION_SIZES:
+        prob = nls.HomotopyProblem(H, torch.zeros((N, N), dtype=f64,
+                                                  device=dev), None,
+                                   lambdaspan=(0.0, 6.5))
+        roots = {}
+        for name, make in methods.items():
+            solve = lambda: nls.solve(prob, make(), abstol=1e-8)  # noqa
+            sol, wall, counts = run(solve)
+            warm, = warm_walls(torch, solve, count=1)
+            prof = profile_device(torch, solve, groups=CONTINUATION_GROUPS,
+                                  host_events=False)
+            busy = prof["device_busy_ms"]
+            shares = ({g: ms / busy for g, ms in
+                       prof["device_ms_by_group"].items()}
+                      if isinstance(busy, float) else "not measured")
+            resid = float(bratu_2d(sol.u, 6.5).abs().max())
+            jax_stats, jax_lam, jax_max, jax_sum = JAX_CONTINUATION[N][name]
+            roots[name] = sol.u
+            lam, max_u, sum_u = (float(sol.original), float(sol.u.max()),
+                                 float(sol.u.sum()))
+            emit({"phase": "continuation", "case": f"bratu{N}_{name}",
+                  "retcode": sol.retcode.name, "stats": stats_of(sol),
+                  "jax_stats": jax_stats, "lam_last": lam,
+                  "jax_lam_last": jax_lam, "resid_inf": resid,
+                  "max_u": max_u, "jax_max_u": jax_max, "sum_u": sum_u,
+                  "jax_sum_u": jax_sum,
+                  "first_wall_s": wall, "warm_wall_s": warm, **counts,
+                  "device_idle_share": prof["device_idle_share"],
+                  "device_busy_ms": busy, "device_share_by_group": shares,
+                  "top_device_ms": prof["top_device_ms"][:6], "card": card})
+            check(f"bratu{N} {name}: Success",
+                  sol.retcode == nls.ReturnCode.Success)
+            check(f"bratu{N} {name}: |H(u, 6.5)|_inf <= 1e-8", resid <= 1e-8)
+            check(f"bratu{N} {name}: NLStats {jax_stats} as the JAX "
+                  f"package's", stats_of(sol) == jax_stats)
+            check(f"bratu{N} {name}: the JAX package's last λ and max u "
+                  f"within 1e-10, its Σu within 1e-8",
+                  abs(lam - jax_lam) <= 1e-10
+                  and abs(max_u - jax_max) <= 1e-10
+                  and abs(sum_u - jax_sum) <= 1e-8)
+            check(f"bratu{N} {name}: no kernel launched",
+                  not counts["launches"])
+        spread = max(float((roots[a] - roots[b]).abs().max())
+                     for a in roots for b in roots)
+        emit({"phase": "continuation", "case": f"bratu{N}_roots",
+              "max_pairwise_inf": spread})
+        check(f"bratu{N}: the four roots within 1e-9", spread <= 1e-9)
+    prob = nls.HomotopyProblem(H, torch.zeros((32, 32), dtype=f64,
+                                              device=dev), None,
+                               lambdaspan=(0.0, 6.5))
+    for name, (code, jax_stats, jax_lam) in JAX_CONTINUATION_FLOOR.items():
+        sol, wall, counts = run(lambda: nls.solve(prob, methods[name]()))
+        emit({"phase": "continuation", "case": f"bratu32_{name}_floor",
+              "retcode": sol.retcode.name, "jax_retcode": code,
+              "stats": stats_of(sol), "jax_stats": jax_stats,
+              "lam_last": float(sol.original), "jax_lam_last": jax_lam,
+              "max_u": float(sol.u.max()), "wall_s": wall, **counts,
+              "card": card})
+        check(f"bratu32 {name} at the default abstol: the JAX package's "
+              f"{code}", sol.retcode.name == code
+              and bool(torch.isfinite(sol.u).all()))
+
+    # --- (b) the derivative through a continuation solve -------------------
+    for N in CONTINUATION_SIZES:
+        w = torch.as_tensor(np.random.default_rng(24).standard_normal(
+            (N, N)), device=dev)
+        z = torch.zeros((N, N), dtype=f64, device=dev)
+        p0 = torch.tensor(1.0, dtype=f64, device=dev)
+
+        def problem(p):
+            return nls.HomotopyProblem(Hp, z, p, lambdaspan=(0.0, 6.5))
+
+        def reverse():
+            p = p0.clone().requires_grad_(True)
+            sol = nls.solve(problem(p), methods["sweep"](), abstol=1e-8)
+            pbar, = torch.autograd.grad((w * sol.u).sum(), p)
+            return sol, float(pbar)
+
+        def forward():
+            with fwAD.dual_level():
+                sol = nls.solve(problem(fwAD.make_dual(
+                    p0, torch.ones_like(p0))), methods["sweep"](),
+                    abstol=1e-8)
+                return float((w * fwAD.unpack_dual(sol.u).tangent).sum())
+
+        (sol, pbar), rev_s, _ = run(reverse)
+        wdot, fwd_s, _ = run(forward)
+        u_star = sol.u.detach()
+
+        def value(q):
+            s = nls.solve(nls.NonlinearProblem(
+                lambda u, qq: bratu_2d(u, 6.5 * qq), u_star,
+                torch.tensor(q, dtype=f64, device=dev)), NR(), abstol=1e-10)
+            return float((w * s.u).sum())
+        fd = _fd5(value, 1.0, 1e-3)
+        emit({"phase": "continuation_derivative", "N": N, "pbar": pbar,
+              "forward": wdot, "central_difference": fd,
+              "reverse_forward_rel": _rel(pbar, wdot),
+              "reverse_fd_rel": _rel(pbar, fd), "reverse_s": rev_s,
+              "forward_s": fwd_s, "card": card})
+        check(f"(b) N={N}: reverse within 1e-12 of forward",
+              _rel(pbar, wdot) <= 1e-12)
+        check(f"(b) N={N}: reverse within 1e-6 of central differences",
+              _rel(pbar, fd) <= 1e-6)
+
+    # --- (c) steady states ----------------------------------------------
+    z32 = torch.zeros((32, 32), dtype=f64, device=dev)
+    lam = torch.tensor(3.5, dtype=f64, device=dev)
+    nr_root = nls.solve(nls.NonlinearProblem(bratu_2d, z32, lam), NR(),
+                        abstol=1e-10).u
+    for method in ("rosenbrock23", "tsit5"):
+        sol, wall, counts = run(lambda: nls.solve(
+            nls.SteadyStateProblem(bratu_2d, z32, lam),
+            nls.DynamicSS(method=method)))
+        code, jax_stats = JAX_DYNAMIC_SS[method]
+        gap = float((sol.u - nr_root).abs().max())
+        emit({"phase": "steady_state", "case": f"bratu32_{method}",
+              "retcode": sol.retcode.name, "jax_retcode": code,
+              "stats": stats_of(sol), "jax_stats": jax_stats,
+              "root_gap_to_newton": gap, "wall_s": wall, **counts,
+              "card": card})
+        check(f"DynamicSS {method}: the JAX package's {code}",
+              sol.retcode.name == code)
+        if method == "rosenbrock23":
+            check("DynamicSS rosenbrock23: within 1e-6 of the Newton root",
+                  gap <= 1e-6)
+    ref, ref_s, ref_counts = run(lambda: nls.solve(
+        flag_prob, flag_alg, abstol=5.0, maxiters=30))
+    ss = nls.SteadyStateProblem(flag_prob.f, flag_prob.u0, flag_prob.p)
+    sol, wall, counts = run(lambda: nls.solve(
+        ss, nls.SSRootfind(flag_alg), abstol=5.0, maxiters=30))
+    k1 = counts["launches"].get("brusselator_jvp", 0)
+    emit({"phase": "steady_state", "case": "flagship_ssrootfind",
+          "retcode": sol.retcode.name, "stats": vars(sol.stats),
+          "nonlinear_problem_stats": vars(ref.stats),
+          "root_bit_equal": bool(torch.equal(sol.u, ref.u)),
+          "k1_launches": k1, "jvp": sol.counters["jvp"], "wall_s": wall,
+          "nonlinear_problem_wall_s": ref_s,
+          "host_reads": counts["host_reads"], "card": card})
+    check("SSRootfind flagship: the NonlinearProblem's root bit for bit",
+          bool(torch.equal(sol.u, ref.u)))
+    check("SSRootfind flagship: its retcode and NLStats",
+          sol.retcode == ref.retcode and sol.stats == ref.stats)
+    check("SSRootfind flagship: K1 launches == Jacobian products > 0",
+          k1 == sol.counters["jvp"] == ref_counts["launches"].get(
+              "brusselator_jvp", -1) > 0)
+
+    # --- (d) an SCC chain -----------------------------------------------
+    N = 32
+    wc = torch.as_tensor(np.random.default_rng(24).standard_normal(
+        3 * N * N), device=dev)
+
+    def jac_of(q):
+        u1, lam_ = q
+        return jacfwd(lambda v: bratu_2d(v.reshape(N, N), lam_)
+                      .reshape(-1))(u1.reshape(-1))
+
+    def neg_exp(q):
+        return -torch.exp(q[0]).reshape(-1)
+
+    def chain(p):
+        return nls.SCCNonlinearProblem(
+            [nls.NonlinearProblem(bratu_2d, z32, p),
+             nls.LinearSCCBlock(A=jac_of, b=neg_exp),
+             nls.HomotopyProblem(Hp, z32, None)],
+            explicitfuns=[None, lambda q, sols: (sols[0].u, q),
+                          lambda q, sols: q + sols[0].u.mean()], p=p)
+
+    scc_alg = nls.SCCAlg(nlalg=NR())
+    block_poly = nls.HomotopyPolyAlgorithm(stages=(
+        nls.HomotopySweep(inner=NR()), nls.ArcLengthContinuation(inner=NR())))
+    sol, wall, counts = run(lambda: nls.solve(chain(lam), scc_alg,
+                                              abstol=1e-10))
+    lone1 = nls.solve(nls.NonlinearProblem(bratu_2d, z32, lam), NR(),
+                      abstol=1e-10)
+    x2, _ok = solve_dense(jac_of((lone1.u, lam)), neg_exp((lone1.u,)))
+    lone3 = nls.solve(nls.HomotopyProblem(Hp, z32, lam + lone1.u.mean()),
+                      block_poly, abstol=1e-10)
+    lone_stats = [lone1.stats.nf + lone3.stats.nf,
+                  lone1.stats.njacs + lone3.stats.njacs,
+                  lone1.stats.nsteps + lone3.stats.nsteps]
+    blocks = sol.original
+    equal = [bool(torch.equal(blocks[0].u, lone1.u)),
+             bool(torch.equal(blocks[1].u, x2)),
+             bool(torch.equal(blocks[2].u, lone3.u))]
+
+    def scc_reverse():
+        p = lam.clone().requires_grad_(True)
+        s = nls.solve(chain(p), scc_alg, abstol=1e-10)
+        pbar, = torch.autograd.grad((wc * s.u).sum(), p)
+        return float(pbar)
+
+    def scc_forward():
+        with fwAD.dual_level():
+            s = nls.solve(chain(fwAD.make_dual(lam, torch.ones_like(lam))),
+                          scc_alg, abstol=1e-10)
+            return float((wc * fwAD.unpack_dual(s.u).tangent).sum())
+
+    pbar, rev_s, _ = run(scc_reverse)
+    wdot, fwd_s, _ = run(scc_forward)
+    fd = _fd5(lambda q: float((wc * nls.solve(
+        chain(torch.tensor(q, dtype=f64, device=dev)), scc_alg,
+        abstol=1e-10).u).sum()), 3.5, 3.5e-3)
+    emit({"phase": "scc_chain", "N": N, "retcode": sol.retcode.name,
+          "stats": stats_of(sol), "lone_stats_sum": lone_stats,
+          "blocks_equal_lone": equal, "pbar": pbar, "forward": wdot,
+          "central_difference": fd, "reverse_forward_rel": _rel(pbar, wdot),
+          "reverse_fd_rel": _rel(pbar, fd), "wall_s": wall, **counts,
+          "reverse_s": rev_s, "forward_s": fwd_s, "card": card})
+    check("SCC: Success", sol.retcode == nls.ReturnCode.Success)
+    check("SCC: each block's u equal to its lone solve", all(equal))
+    check("SCC: NLStats the sum of the blocks'", stats_of(sol) == lone_stats)
+    check("SCC: reverse within 1e-12 of forward", _rel(pbar, wdot) <= 1e-12)
+    check("SCC: reverse within 1e-6 of central differences",
+          _rel(pbar, fd) <= 1e-6)
+
+    # --- (e) a user algorithm and the SciPy bridge ----------------------
+    class Richardson:
+        """tests/test_interfaces.py's run_flat fixed-point algorithm."""
+        name = "Richardson"
+
+        def run_flat(self, ctx, term_cfg, u0_flat, abstol, reltol,
+                     maxiters):
+            return run_fixed_point_loop(
+                lambda u, fu, state: (u - 0.3 * fu, state), ctx, term_cfg,
+                u0_flat, abstol, reltol, maxiters)
+
+    sol, wall, counts = run(lambda: nls.solve(nls.NonlinearProblem(
+        lambda u, p: u + 0.3 * torch.tanh(u) - p,
+        torch.zeros(5, dtype=f64, device=dev),
+        0.7 * torch.ones(5, dtype=f64, device=dev)), Richardson(),
+        maxiters=500))
+    resid = float(sol.resid.abs().max())
+    emit({"phase": "user_algorithm", "retcode": sol.retcode.name,
+          "stats": stats_of(sol), "resid_inf": resid, "on_card": sol.u.is_cuda,
+          "wall_s": wall, **counts, "card": card})
+    check("run_flat: Success on the card",
+          sol.retcode == nls.ReturnCode.Success and sol.u.is_cuda)
+    check("run_flat: |F|_inf < 1e-10", resid < 1e-10)
+    z16 = torch.zeros((16, 16), dtype=f64, device=dev)
+    bprob = nls.NonlinearProblem(bratu_2d, z16, lam)
+    nr16 = nls.solve(bprob, NR(), abstol=1e-10).u
+    sol, wall, counts = run(lambda: nls.solve(bprob, nls.SciPyRoot("hybr")))
+    gap = float((sol.u - nr16).abs().max())
+    emit({"phase": "scipy_bridge", "method": "hybr", "N": 16,
+          "retcode": sol.retcode.name, "nf": sol.stats.nf,
+          "root_gap_to_newton": gap, "on_card": sol.u.is_cuda,
+          "wall_s": wall, **counts, "card": card})
+    check("SciPyRoot hybr: Success", sol.retcode == nls.ReturnCode.Success)
+    check("SciPyRoot hybr: within 1e-8 of NewtonRaphson", gap <= 1e-8)
+    check("SciPyRoot hybr: sol.u on the card", sol.u.is_cuda)
+
+    emit({"phase": "continuation_timing",
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"phase 24 failed: {failed}")
+
+
 def flagship_setup(torch, nls, brusselator, fft_poisson_preconditioner,
                    N):
     """Phase 4's flagship: the N² Brusselator in f32 with K1 as its JVP,
@@ -3135,10 +3532,11 @@ def polish_setup(torch, nls, brusselator, fft_poisson_preconditioner, N,
 
 def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
                 fft_poisson_preconditioner, card, phases):
-    """``--only``: phases 19–23 alone, in the order given, each on the
+    """``--only``: phases 19–24 alone, in the order given, each on the
     set-up it takes from the earlier phases rebuilt here: phase 18's
     NewtonRaphson root at N=32 for 20; the flagship and its polish, solved
-    as phases 4 and 5 solve them, for 23."""
+    as phases 4 and 5 solve them, for 23; the flagship's problem and
+    algorithm for 24."""
     f64 = torch.float64
     for ph in phases:
         t0 = time.perf_counter()
@@ -3162,8 +3560,12 @@ def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
                                          sol.u)
             sensitivity_phase(torch, nls, _backend, brusselator, stencil,
                               spmv, card, prob, alg, prob64, alg64)
+        elif ph == "24":
+            prob, alg, _pm = flagship_setup(torch, nls, brusselator,
+                                            fft_poisson_preconditioner, 512)
+            continuation_phase(torch, nls, _backend, card, prob, alg)
         else:
-            raise ValueError(f"--only takes phases 19 to 23, not {ph!r}")
+            raise ValueError(f"--only takes phases 19 to 24, not {ph!r}")
         emit({"phase": "only_phase", "only": ph,
               "seconds": time.perf_counter() - t0, "card": card})
 
@@ -4240,7 +4642,10 @@ def main(argv):
     sens_rec = sensitivity_phase(torch, nls, _backend, brusselator, stencil,
                                  spmv, card, prob, alg, prob64, alg64)
 
-    # --- 24. summary -------------------------------------------------------
+    # --- 24. continuation, steady states, SCC, user algorithms, SciPy ------
+    continuation_phase(torch, nls, _backend, card, prob, alg)
+
+    # --- 25. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):

@@ -29,8 +29,12 @@ differentiation through ``solve`` by the implicit-function rule (reverse
 and forward mode, second order), with the reverse rules of the SpMV
 kernels; bounds, pre- and postconditioning, the initialization hook,
 traces, messages, phase timers, ``maxtime`` and the iterator ``init`` /
-``step`` / ``solve`` / ``reinit``.  See ROADMAP.md for what is still to
-come.
+``step`` / ``solve`` / ``reinit``; continuation (``HomotopyProblem`` with
+``HomotopySweep``, ``KantorovichHomotopy``, ``ArcLengthContinuation`` and
+``HomotopyPolyAlgorithm``), ``SteadyStateProblem`` with ``SSRootfind`` and
+``DynamicSS``, ``SCCNonlinearProblem``, user algorithms with a
+``run_flat`` method and the SciPy bridge with the delegating
+constructors.  See ROADMAP.md for what is still to come.
 """
 
 from .core.autodiff import JacobianPolicy, pickchunksize
@@ -43,8 +47,10 @@ from .core.linesearch import (BackTracking, LiFukushimaLineSearch,
                               RobustNonMonotoneLineSearch)
 from .core.ensemble import EnsembleProblem, solve_ensemble
 from .core.initialization import InitializationData
-from .core.problems import (IntervalNonlinearProblem, NonlinearFunction,
-                            NonlinearLeastSquaresProblem, NonlinearProblem)
+from .core.problems import (HomotopyProblem, IntervalNonlinearProblem,
+                            NonlinearFunction, NonlinearLeastSquaresProblem,
+                            NonlinearProblem, SCCNonlinearProblem,
+                            SteadyStateProblem)
 from .core.returncode import ReturnCode
 from .core.solution import NLStats, NonlinearSolution
 from .core.solve import solve
@@ -81,33 +87,56 @@ from .solvers import (ITP, Alefeld, AndersonAcceleration, Bisection, Brent,
                       SimpleTrustRegion, TrustRegion)
 from .solvers.first_order import (EisenstatWalkerForcing,
                                   EisenstatWalkerForcing2)
+from .solvers.homotopy import (ArcLengthContinuation,
+                               FastShortcutHomotopyPolyalg,
+                               HomotopyPolyAlgorithm, HomotopySweep,
+                               KantorovichHomotopy, SimpleHomotopySweep)
+from .solvers.scc import LinearSCCBlock, SCCAlg, scc_solve_up
+from .solvers.steady_state import DynamicSS, SSRootfind
+from .solvers.wrappers import (CMINPACK, KINSOL, FastLevenbergMarquardtJL,
+                               FixedPointAccelerationJL, LeastSquaresOptimJL,
+                               NLsolveJL, NLSolversJL, PETScSNES,
+                               SciPyLeastSquares, SciPyLeastSquaresDogbox,
+                               SciPyLeastSquaresTRF, SciPyRoot,
+                               SciPyRootScalar, SIAMFANLEquationsJL,
+                               SpeedMappingJL)
 
 __all__ = [
     "AbsNormSafeBestTerminationMode", "AbsNormSafeTerminationMode",
     "AbsNormTerminationMode", "AbsTerminationMode", "Alefeld",
-    "AndersonAcceleration", "BackTracking", "Bisection", "Brent", "Broyden",
-    "DFSane", "DampedNewtonDescent", "DescentResult", "Dogleg",
+    "AndersonAcceleration", "ArcLengthContinuation", "BackTracking",
+    "Bisection", "Brent", "Broyden", "CMINPACK", "DFSane",
+    "DampedNewtonDescent", "DescentResult", "Dogleg", "DynamicSS",
     "EisenstatWalkerForcing", "EisenstatWalkerForcing2", "EnsembleProblem",
-    "Falsi", "FastShortcutNLLSPolyalg", "FastShortcutNonlinearPolyalg",
-    "GaussNewton", "GeneralizedDFSane", "GeneralizedFirstOrderAlgorithm",
-    "GenericTrustRegionScheme", "GeodesicAcceleration", "HagerZhang", "ITP",
-    "InitializationData", "IntervalNonlinearProblem", "JacVecOperator",
-    "JacobianOperator", "JacobianPolicy", "Klement", "LevenbergMarquardt",
+    "Falsi", "FastLevenbergMarquardtJL", "FastShortcutHomotopyPolyalg",
+    "FastShortcutNLLSPolyalg", "FastShortcutNonlinearPolyalg",
+    "FixedPointAccelerationJL", "GaussNewton", "GeneralizedDFSane",
+    "GeneralizedFirstOrderAlgorithm", "GenericTrustRegionScheme",
+    "GeodesicAcceleration", "HagerZhang", "HomotopyPolyAlgorithm",
+    "HomotopyProblem", "HomotopySweep", "ITP", "InitializationData",
+    "IntervalNonlinearProblem", "JacVecOperator", "JacobianOperator",
+    "JacobianPolicy", "KINSOL", "KantorovichHomotopy", "Klement",
+    "LeastSquaresOptimJL", "LevenbergMarquardt",
     "LevenbergMarquardtTrustRegion", "LiFukushimaLineSearch",
-    "LimitedMemoryBroyden", "LineSearchesJL", "LinearSolver", "ModAB",
-    "MoreThuente", "Muller", "NLStats", "NewtonDescent", "NewtonRaphson",
-    "NonlinearFunction", "NonlinearLeastSquaresProblem", "NonlinearProblem",
-    "NonlinearSolution", "NonlinearSolveCache", "NonlinearSolvePolyAlgorithm",
-    "NonlinearVerbosity", "NormTerminationMode", "PostconditionSpace",
+    "LimitedMemoryBroyden", "LineSearchesJL", "LinearSCCBlock", "LinearSolver",
+    "ModAB", "MoreThuente", "Muller", "NLSolversJL", "NLStats", "NLsolveJL",
+    "NewtonDescent", "NewtonRaphson", "NonlinearFunction",
+    "NonlinearLeastSquaresProblem", "NonlinearProblem", "NonlinearSolution",
+    "NonlinearSolveCache", "NonlinearSolvePolyAlgorithm", "NonlinearVerbosity",
+    "NormTerminationMode", "PETScSNES", "PostconditionSpace",
     "PostconditionSpecifier", "PseudoTransient", "QuasiNewtonAlgorithm",
     "RadiusUpdateSchemes", "RelNormSafeBestTerminationMode",
     "RelNormSafeTerminationMode", "RelNormTerminationMode",
     "RelTerminationMode", "ReturnCode", "Ridder", "RobustMultiNewton",
-    "RobustNonMonotoneLineSearch", "SimpleBroyden", "SimpleDFSane",
-    "SimpleGaussNewton", "SimpleHalley", "SimpleKlement",
+    "RobustNonMonotoneLineSearch", "SCCAlg", "SCCNonlinearProblem",
+    "SIAMFANLEquationsJL", "SSRootfind", "SciPyLeastSquares",
+    "SciPyLeastSquaresDogbox", "SciPyLeastSquaresTRF", "SciPyRoot",
+    "SciPyRootScalar", "SimpleBroyden", "SimpleDFSane", "SimpleGaussNewton",
+    "SimpleHalley", "SimpleHomotopySweep", "SimpleKlement",
     "SimpleLimitedMemoryBroyden", "SimpleNewtonRaphson", "SimpleTrustRegion",
-    "StatefulJacobianOperator", "StaticLineSearch", "SteepestDescent",
-    "StrongWolfe", "TerminationCondition", "TraceAll", "TraceConfig",
-    "TraceMinimal", "TraceWithJacobianConditionNumber", "TrustRegion",
-    "VecJacOperator", "init", "pickchunksize", "solve", "solve_ensemble",
+    "SpeedMappingJL", "StatefulJacobianOperator", "StaticLineSearch",
+    "SteadyStateProblem", "SteepestDescent", "StrongWolfe",
+    "TerminationCondition", "TraceAll", "TraceConfig", "TraceMinimal",
+    "TraceWithJacobianConditionNumber", "TrustRegion", "VecJacOperator",
+    "init", "pickchunksize", "scc_solve_up", "solve", "solve_ensemble",
 ]

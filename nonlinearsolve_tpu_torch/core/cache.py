@@ -15,7 +15,8 @@ chunks of ``_STEP_CHUNK`` steps and stops with ``ReturnCode.MaxTime``
 once the host clock passes the budget (a chunk boundary maps no code and
 keeps no best iterate).  A polyalgorithm cache solves whole and keeps the
 rung that won as the next solve's start (``best_subalgorithm``), probing
-the whole ladder again every 8th solve.
+the whole ladder again every 8th solve.  ``init`` of a ``HomotopyProblem``
+returns a ``HomotopySolveCache`` (whole solves only).
 """
 
 from __future__ import annotations
@@ -294,17 +295,56 @@ class NonlinearSolveCache:
 
 
 class HomotopySolveCache:
-    """The iterator of the continuation drivers: the homotopy problems and
-    solvers are ROADMAP A.30."""
+    """``init`` / ``reinit`` / ``solve`` of a continuation method: ``init``
+    keeps the problem, the algorithm and the options; ``reinit`` swaps
+    u0, p, lambdaspan and the tolerances; ``solve`` runs the whole
+    continuation.  A method's step is a λ-advance with its own corrector,
+    so the cache has no per-step iteration."""
 
-    def __init__(self, *_args, **_kwargs):
+    def __init__(self, prob, alg=None, **kwargs):
+        self.prob = prob
+        self.alg = alg
+        self.kwargs = dict(kwargs)
+
+    def reinit(self, u0=None, *, p=None, abstol=None, reltol=None,
+               maxiters=None, lambdaspan=None):
+        remake_kw = {}
+        if u0 is not None:
+            remake_kw["u0"] = u0
+        if p is not None:
+            remake_kw["p"] = p
+        if lambdaspan is not None:
+            remake_kw["lambdaspan"] = lambdaspan
+        if remake_kw:
+            self.prob = self.prob.remake(**remake_kw)
+        for k, v in (("abstol", abstol), ("reltol", reltol),
+                     ("maxiters", maxiters)):
+            if v is not None:
+                self.kwargs[k] = v
+        return self
+
+    def solve(self) -> NonlinearSolution:
+        from .solve import solve
+        return solve(self.prob, self.alg, **self.kwargs)
+
+    def step(self, *_args, **_kwargs):
         raise NotImplementedError(
-            "HomotopySolveCache serves the homotopy problems and "
-            "continuation drivers, which are ROADMAP A.30")
+            "HomotopySolveCache has no per-step iteration: continuation "
+            "methods expose whole-solve granularity (call .solve())")
+
+    def __iter__(self):
+        raise NotImplementedError(
+            "HomotopySolveCache is not iterable: continuation methods "
+            "expose whole-solve granularity — call .solve()")
 
 
-def init(prob, alg=None, **kwargs) -> NonlinearSolveCache:
-    """A solver cache for ``prob`` (``NewtonRaphson`` by default)."""
+def init(prob, alg=None, **kwargs):
+    """A solver cache for ``prob``: a ``HomotopySolveCache`` for a
+    ``HomotopyProblem``, else a ``NonlinearSolveCache`` (``NewtonRaphson``
+    by default)."""
+    from .problems import HomotopyProblem
+    if isinstance(prob, HomotopyProblem):
+        return HomotopySolveCache(prob, alg, **kwargs)
     if alg is None:
         from ..solvers.first_order import NewtonRaphson
         alg = NewtonRaphson()

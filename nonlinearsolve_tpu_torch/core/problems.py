@@ -1,6 +1,7 @@
 """Problem types (the port of ``core/problems.py``): ``NonlinearFunction``,
-``NonlinearProblem``, ``NonlinearLeastSquaresProblem`` and
-``IntervalNonlinearProblem``.
+``NonlinearProblem``, ``NonlinearLeastSquaresProblem``,
+``IntervalNonlinearProblem``, ``SteadyStateProblem``, ``HomotopyProblem``
+and ``SCCNonlinearProblem``.
 
 Functions are out-of-place: ``f(u, p) -> resid`` on tensors.  ``u`` is one
 tensor of any shape (≥ 1-d; 0-d on the simple tier); pytrees of tensors
@@ -10,7 +11,7 @@ are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -124,3 +125,66 @@ class IntervalNonlinearProblem:
                           tspan if tspan is not None else self.tspan,
                           p if p is not None else self.p,
                           **{**self.kwargs, **kwargs})
+
+
+class SteadyStateProblem(NonlinearProblem):
+    """The steady state of ``du/dt = f(u, p)``, solved as ``f(u, p) = 0``
+    (``SSRootfind``) or by integrating the flow (``DynamicSS``).
+    ``to_nonlinear`` keeps the problem's ``NonlinearFunction``, its
+    analytic derivatives (a kernel ``jvp``) included."""
+
+    def to_nonlinear(self) -> NonlinearProblem:
+        return NonlinearProblem(self.f, self.u0, self.p, lb=self.lb,
+                                ub=self.ub, **self.kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class HomotopyProblem:
+    """Continuation problem ``f(u, p, λ) = 0`` over ``λ ∈ lambdaspan``,
+    solved by the methods of ``solvers/homotopy.py``.  ``f(u, p, lam) ->
+    resid``; ``lam`` reaches it as a 0-d tensor of ``u0``'s dtype on
+    ``u0``'s device."""
+
+    f: NonlinearFunction
+    u0: Any
+    p: Any = None
+    lambdaspan: tuple = (0.0, 1.0)
+    kwargs: dict = dataclasses.field(default_factory=dict)
+
+    def __init__(self, f, u0, p=None, lambdaspan=(0.0, 1.0), **kwargs):
+        object.__setattr__(self, "f", _wrap_function(f))
+        object.__setattr__(self, "u0", u0)
+        object.__setattr__(self, "p", p)
+        object.__setattr__(self, "lambdaspan", tuple(lambdaspan))
+        object.__setattr__(self, "kwargs", kwargs)
+
+    def remake(self, *, u0=None, p=None, f=None, lambdaspan=None, **kwargs):
+        return type(self)(
+            f if f is not None else self.f,
+            u0 if u0 is not None else self.u0,
+            p if p is not None else self.p,
+            lambdaspan if lambdaspan is not None else self.lambdaspan,
+            **{**self.kwargs, **kwargs})
+
+
+@dataclasses.dataclass(frozen=True)
+class SCCNonlinearProblem:
+    """A sequence of strongly connected blocks solved in order
+    (``solvers/scc.py``).  ``probs``: ``NonlinearProblem``,
+    ``HomotopyProblem`` or ``LinearSCCBlock`` blocks; ``explicitfuns``:
+    one ``fn(p, sols_so_far) -> p_block`` (or None) a block, run before
+    its solve, which threads earlier blocks' solutions into later
+    blocks' parameters."""
+
+    probs: Sequence[Any]
+    explicitfuns: Optional[Sequence[Callable]] = None
+    p: Any = None
+    kwargs: dict = dataclasses.field(default_factory=dict)
+
+    def __init__(self, probs, explicitfuns=None, p=None, **kwargs):
+        object.__setattr__(self, "probs", tuple(probs))
+        object.__setattr__(self, "explicitfuns",
+                           tuple(explicitfuns) if explicitfuns is not None
+                           else None)
+        object.__setattr__(self, "p", p)
+        object.__setattr__(self, "kwargs", kwargs)

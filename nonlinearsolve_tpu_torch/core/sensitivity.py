@@ -20,7 +20,8 @@ the bounds are zero, as in the JAX package.
 Forward-mode products go through ``core/autodiff.py``'s ``jvp`` and
 ``jacfwd`` (reverse mode inside a forward-AD level, which PyTorch does
 not nest).  The linear solve with J = ∂g/∂u (``implicit_solve``) takes the JAX
-package's branches: up to ``_DENSE_IFT_LIMIT`` unknowns a dense
+package's branches: up to ``_DENSE_IFT_LIMIT`` unknowns (at every size for
+a root made with ``dense=True``, the continuation methods') a dense
 ``torch.func.jacfwd`` and an LU solve; above it GMRES (restart
 min(50, n), 500 iterations, rtol 1e-8) on g's ``torch.func.jvp``, its
 transpose on g's ``torch.func.vjp``; for least squares MINRES (10·n
@@ -81,12 +82,15 @@ class ImplicitRoot:
     """What the rule needs besides the root: ``residual(u, p)`` in the
     iterate's space (bounds and preconditioning composed), ``p`` with its
     differentiable leaves at ``index`` (they are replaced by the Function's
-    inputs), and whether the residual is square."""
+    inputs), whether the residual is square, and whether the linear solve
+    takes the dense branch at every size (``dense``: the continuation
+    methods' rule)."""
 
     residual: Callable
     p: Any
     index: tuple
     square: bool
+    dense: bool = False
 
     def p_of(self, leaves):
         flat, spec = _pytree.tree_flatten(self.p)
@@ -174,7 +178,7 @@ def implicit_solve(root: ImplicitRoot, u, leaves, rhs, transpose: bool):
     """x with M x = rhs (``transpose``: Mᵀ x = rhs), M = ∂g/∂u at (u, p):
     the JAX package's branches (module docstring)."""
     n = u.numel()
-    if n <= _DENSE_IFT_LIMIT:
+    if n <= _DENSE_IFT_LIMIT or root.dense:
         J = jacfwd(lambda v: root.g(v, leaves))(u).reshape(n, n)
         STATS.clear()
         STATS.update(branch="dense", iterations=0, rel_residual=0.0,
@@ -234,10 +238,11 @@ class RootFunction(torch.autograd.Function):
         return -implicit_solve(root, u_val, leaves, b, False)
 
 
-def differentiable_root(u_val, residual, p, index, square):
+def differentiable_root(u_val, residual, p, index, square, dense=False):
     """``u_val`` joined to the graph of ``p``'s leaves at ``index`` by the
-    implicit-function rule (``RootFunction``)."""
+    implicit-function rule (``RootFunction``); ``dense`` forces the dense
+    branch of the linear solve."""
     leaves, _ = _pytree.tree_flatten(p)
     root = ImplicitRoot(residual=residual, p=p, index=tuple(index),
-                        square=square)
+                        square=square, dense=dense)
     return RootFunction.apply(u_val, root, *[leaves[i] for i in index])

@@ -4,9 +4,13 @@
 kwargs, runs a problem's initialization hook and then
 ``solve_nonlinear`` on a ``NonlinearProblem`` or a
 ``NonlinearLeastSquaresProblem`` (through the iterator, ``core/cache.py``,
-when given ``maxtime``), ``solvers.bracketing.solve_bracketing`` on an
-``IntervalNonlinearProblem`` and ``core.ensemble`` on an
-``EnsembleProblem``.  The port runs the shaped path: the iterate is ``u0``
+when given ``maxtime``; a ``SteadyStateProblem`` is converted to one
+first, ``SSRootfind(alg)`` unwraps to ``alg``),
+``solvers.bracketing.solve_bracketing`` on an ``IntervalNonlinearProblem``,
+``solvers.homotopy.solve_homotopy`` on a ``HomotopyProblem``,
+``solvers.scc.solve_scc`` on an ``SCCNonlinearProblem``,
+``solvers.wrappers.solve_wrapper`` with a SciPy bridge and
+``core.ensemble`` on an ``EnsembleProblem``.  The port runs the shaped path: the iterate is ``u0``
 itself, one tensor of any shape (≥ 1-d), never flattened — except on the
 simple tier, which runs on the flattened state as the JAX package does (so
 a 0-d ``u0`` is accepted there); an empty ``u0`` returns ``Success`` at
@@ -40,8 +44,9 @@ from ..utils.norms import get_tolerance
 from .descent import DescentCtx
 from ..ops.sparse_jac import plan_sparse_jacobian
 from .jacobian import JacobianSpec, wants_sparse
-from .problems import (IntervalNonlinearProblem,
-                       NonlinearLeastSquaresProblem, NonlinearProblem)
+from .problems import (HomotopyProblem, IntervalNonlinearProblem,
+                       NonlinearLeastSquaresProblem, NonlinearProblem,
+                       SCCNonlinearProblem, SteadyStateProblem)
 from .returncode import ReturnCode
 from .solution import NLStats, NonlinearSolution
 from .termination import default_termination_mode
@@ -92,13 +97,8 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
     from .ensemble import EnsembleProblem, solve_ensemble_problem
     if isinstance(prob, EnsembleProblem):
         return solve_ensemble_problem(prob, alg, **kwargs)
-    if type(prob) not in (NonlinearProblem, NonlinearLeastSquaresProblem,
-                          IntervalNonlinearProblem):
-        raise NotImplementedError(
-            f"{type(prob).__name__} is not ported: the port solves "
-            f"NonlinearProblem, NonlinearLeastSquaresProblem and "
-            f"IntervalNonlinearProblem (the other problem types are "
-            f"ROADMAP A.30)")
+    if isinstance(prob, SteadyStateProblem):
+        prob = prob.to_nonlinear()
     merged = {**prob.kwargs, **kwargs}
     check_kwargs(merged)
     ens_only = sorted(k for k in ("trajectories", "mesh", "batch_axis")
@@ -107,17 +107,47 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
         raise TypeError(
             f"keyword argument(s) {ens_only} apply to ensemble solves only; "
             f"wrap the problem in an EnsembleProblem to use them")
+    from ..solvers.steady_state import DynamicSS, SSRootfind
+    if isinstance(alg, SSRootfind):
+        alg = alg.alg            # rootfind on the converted problem
+    elif isinstance(alg, DynamicSS):
+        # the derivative test's defaults, not the rootfinder's eps^(4/5)
+        if merged.get("abstol") is None:
+            merged["abstol"] = 1e-8
+        if merged.get("reltol") is None:
+            merged["reltol"] = 1e-6
     # the initialization hook: its sub-problem first; abort on failure
-    init_data = getattr(prob.f, "initialization_data", None)
+    init_data = getattr(getattr(prob, "f", None), "initialization_data",
+                        None)
     if init_data is not None:
         from .initialization import (initial_failure_solution,
                                      run_initialization)
         prob, init_sol, ok = run_initialization(prob, init_data)
         if not ok:
             return initial_failure_solution(prob, init_sol)
+    # the empty state solves at once, before any plan is built
+    if isinstance(prob, NonlinearProblem) and (
+            prob.u0 is None or (isinstance(prob.u0, torch.Tensor)
+                                and prob.u0.numel() == 0)):
+        return _null_solution(prob, merged.get("abstol"))
     if isinstance(prob, IntervalNonlinearProblem):
+        from ..solvers.wrappers import SciPyRootScalar, solve_wrapper
+        if isinstance(alg, SciPyRootScalar):
+            return solve_wrapper(prob, alg, **merged)
         from ..solvers.bracketing import solve_bracketing
         return solve_bracketing(prob, alg, **merged)
+    if isinstance(prob, HomotopyProblem):
+        from ..solvers.homotopy import solve_homotopy
+        return solve_homotopy(prob, alg, **merged)
+    if isinstance(prob, SCCNonlinearProblem):
+        # maxtime is a per-block budget there
+        from ..solvers.scc import solve_scc
+        return solve_scc(prob, alg, **merged)
+    if not isinstance(prob, NonlinearProblem):
+        raise TypeError(f"cannot solve a {type(prob).__name__}")
+    from ..solvers.wrappers import is_wrapper_alg, solve_wrapper
+    if is_wrapper_alg(alg):
+        return solve_wrapper(prob, alg, **merged)
     if alg is None:
         alg = _default_algorithm(prob)
     # a time budget runs through the iterator, checked between chunks of
@@ -158,8 +188,15 @@ def _null_solution(prob, abstol) -> NonlinearSolution:
     """The empty-state solution (the JAX package's _build_null_solution),
     returned before a sparse plan is built: rootfinding succeeds at once;
     least squares evaluates the residual at the empty point and succeeds
-    when it is empty or ‖resid‖ < abstol (1e-6 by default)."""
+    when it is empty or ‖resid‖ < abstol (1e-6 by default).  A ``u0`` of
+    None is an empty float64 state on the device of ``p`` (the card when
+    ``p`` is not a tensor)."""
     u0 = prob.u0
+    if u0 is None:
+        p = prob.p
+        dev = (p.device if isinstance(p, torch.Tensor)
+               else _backend.resolve_device(None))
+        u0 = torch.zeros((0,), dtype=torch.float64, device=dev)
     retcode = ReturnCode.Success
     resid = u0
     syncs = 0
@@ -376,7 +413,9 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
         carry = run_algorithm(alg, prep.ctx, prep.term_cfg, prep.spec,
                               prep.x0, prep.abstol, prep.reltol,
                               int(maxiters))
-        counters = {"jvp": carry.njvp, "krylov_iters": carry.krylov_iters,
+        # DynamicSS and run_flat carries count no JVPs or Krylov steps
+        counters = {"jvp": getattr(carry, "njvp", 0),
+                    "krylov_iters": getattr(carry, "krylov_iters", 0),
                     "host_syncs": _backend.HOST_SYNCS["n"] - syncs0}
         if hasattr(carry, "winner"):
             counters["rungs"] = list(carry.rungs)

@@ -1,8 +1,8 @@
 """Run one algorithm (the port of ``solvers/dispatch.py``), shared by the
 top-level solve and the polyalgorithm: the first-order, quasi-Newton,
-spectral and Anderson engines, the polyalgorithms and the simple tier (a
-batch of one).  ``DynamicSS`` and user algorithms with a ``run_flat`` hook
-are ROADMAP A.30."""
+spectral and Anderson engines, the polyalgorithms, ``DynamicSS``, the
+simple tier (a batch of one) and user algorithms: any object with a
+``run_flat`` method (``solvers/custom.py``)."""
 
 from __future__ import annotations
 
@@ -34,12 +34,14 @@ def run_algorithm(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
     if isinstance(alg, NonlinearSolvePolyAlgorithm):
         return run_polyalg(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
                            maxiters)
+    from .steady_state import DynamicSS, run_dynamic_ss
+    if isinstance(alg, DynamicSS):
+        return run_dynamic_ss(alg, ctx, term_cfg, u0, abstol, reltol,
+                              maxiters)
     if is_simple_alg(alg):
         return run_simple(alg, ctx, term_cfg, analytic_jac, u0, abstol,
                           reltol, maxiters)
-    name = type(alg).__name__
-    if name == "DynamicSS" or hasattr(alg, "run_flat"):
-        raise NotImplementedError(
-            f"cannot dispatch {name}: DynamicSS and algorithms with a "
-            f"run_flat hook are ROADMAP A.30")
+    if hasattr(alg, "run_flat"):
+        from .custom import run_custom
+        return run_custom(alg, ctx, term_cfg, u0, abstol, reltol, maxiters)
     raise ValueError(f"cannot dispatch algorithm {alg!r}")

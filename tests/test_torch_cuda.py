@@ -1933,3 +1933,100 @@ def test_iterator_equals_solve_on_card(cuda):
                         time_phases=True)
     assert torch.equal(traced.u, ref.u)
     assert traced.trace.n == ref.stats.nsteps and traced.timer["total"] > 0
+
+
+def _bratu_h(u, p, lam):
+    from nonlinearsolve_tpu_torch.models.bratu import bratu_2d
+    return bratu_2d(u, lam * p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["HomotopySweep", "ArcLengthContinuation"])
+def test_continuation_on_card_matches_cpu(cuda, method):
+    """The Bratu λ-continuation (N=8, λ from 0 to 6.5, abstol 1e-8, f64,
+    NewtonRaphson inner) on the card and on the CPU: the retcode and the
+    NLStats equal, the last λ within 1e-10, the roots within 1e-9 (the
+    solves stop at |H|_inf ≤ 1e-8, and cuSOLVER and LAPACK round apart);
+    p̄ of ⟨w, u*⟩ by the implicit-function rule within rel 1e-9."""
+    import nonlinearsolve_tpu_torch as tnls
+    out = {}
+    for d in (cuda, "cpu"):
+        p = torch.tensor(1.0, dtype=torch.float64,
+                         device=d).requires_grad_(True)
+        prob = tnls.HomotopyProblem(
+            _bratu_h, torch.zeros((8, 8), dtype=torch.float64, device=d), p,
+            lambdaspan=(0.0, 6.5))
+        sol = tnls.solve(prob, getattr(tnls, method)(
+            inner=tnls.NewtonRaphson()), abstol=1e-8)
+        assert sol.u.device.type == torch.device(d).type
+        w = torch.linspace(0.5, 1.5, 64, dtype=torch.float64,
+                           device=d).reshape(8, 8)
+        pbar, = torch.autograd.grad((w * sol.u).sum(), p)
+        out[str(d)] = sol, float(pbar)
+    (g, g_pbar), (c, c_pbar) = out[str(cuda)], out["cpu"]
+    assert g.retcode == c.retcode == tnls.ReturnCode.Success
+    assert g.stats == c.stats
+    assert abs(float(g.original) - float(c.original)) <= 1e-10
+    torch.testing.assert_close(g.u.detach().cpu(), c.u.detach(), rtol=0,
+                               atol=1e-9)
+    assert abs(g_pbar - c_pbar) <= 1e-9 * abs(c_pbar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["rosenbrock23", "tsit5"])
+def test_dynamic_ss_on_card_matches_cpu(cuda, method):
+    """DynamicSS on the logistic flow and on Bratu 8² (λ = 3.5), f64, on
+    the card and on the CPU: the retcode and NLStats equal, the steady
+    states within 1e-8 (each stops when |du/dt|_inf ≤ 1e-8)."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.models.bratu import bratu_2d
+    for f, u0, p in ((lambda u, q: u * (q - u), [0.1, 0.5], 1.0),
+                     (bratu_2d, np.zeros((8, 8)), 3.5)):
+        sols = [tnls.solve(tnls.SteadyStateProblem(
+            f, torch.tensor(u0, dtype=torch.float64, device=d),
+            torch.tensor(p, dtype=torch.float64, device=d)),
+            tnls.DynamicSS(method=method)) for d in (cuda, "cpu")]
+        g, c = sols
+        assert g.u.is_cuda and g.retcode == c.retcode
+        assert g.stats == c.stats, (g.stats, c.stats)
+        torch.testing.assert_close(g.u.cpu(), c.u, rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_scc_chain_on_card_matches_cpu(cuda):
+    """An SCC chain on the card and on the CPU (f64): Bratu 8² at λ = p,
+    a linear block J(u₁*) x = −e^{u₁*} (du/dλ), and a homotopy block at
+    λ·(p + mean u₁*), abstol 1e-10: the retcode and NLStats equal, u within
+    1e-10, and ∂⟨w, u⟩/∂p within rel 1e-10."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.core.autodiff import jacfwd
+    from nonlinearsolve_tpu_torch.models.bratu import bratu_2d
+    out = {}
+    for d in (cuda, "cpu"):
+        p = torch.tensor(3.5, dtype=torch.float64,
+                         device=d).requires_grad_(True)
+        z = torch.zeros((8, 8), dtype=torch.float64, device=d)
+
+        def jac(q):
+            u1, lam = q
+            return jacfwd(lambda v: bratu_2d(v.reshape(8, 8), lam)
+                          .reshape(-1))(u1.reshape(-1))
+        prob = tnls.SCCNonlinearProblem(
+            [tnls.NonlinearProblem(bratu_2d, z, p),
+             tnls.LinearSCCBlock(A=jac, b=lambda q: -torch.exp(q[0])
+                                 .reshape(-1)),
+             tnls.HomotopyProblem(_bratu_h, z, None)],
+            explicitfuns=[None, lambda q, sols: (sols[0].u, q),
+                          lambda q, sols: q + sols[0].u.mean()], p=p)
+        sol = tnls.solve(prob, tnls.SCCAlg(nlalg=tnls.NewtonRaphson()),
+                         abstol=1e-10)
+        w = torch.linspace(0.5, 1.5, sol.u.numel(), dtype=torch.float64,
+                           device=d)
+        pbar, = torch.autograd.grad((w * sol.u).sum(), p)
+        out[str(d)] = sol, float(pbar)
+    (g, g_pbar), (c, c_pbar) = out[str(cuda)], out["cpu"]
+    assert g.retcode == c.retcode == tnls.ReturnCode.Success
+    assert g.stats == c.stats
+    torch.testing.assert_close(g.u.detach().cpu(), c.u.detach(), rtol=0,
+                               atol=1e-10)
+    assert abs(g_pbar - c_pbar) <= 1e-10 * abs(c_pbar)

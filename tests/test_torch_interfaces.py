@@ -1,7 +1,8 @@
 """The iterator, traces, messages, phase timers, ``maxtime`` and the
 initialization hook against the JAX package: the cases of
 ``tests/test_interfaces.py`` that these cover (its SciPy, SCC, homotopy
-and extension-wrapper rows wait for ROADMAP A.30), f64 on the CPU.
+and extension-wrapper rows: ``test_torch_wrappers.py`` and
+``test_torch_scc.py``), f64 on the CPU.
 
 Solves through the iterator must give the JAX package's roots and step
 counts; messages are compared by their class tag and text (the JAX
@@ -243,9 +244,28 @@ def test_checkpoint_resume_iterator(tmp_path):
 
 
 def test_homotopy_cache_waits_for_a30():
+    """``init`` of a ``HomotopyProblem`` (ROADMAP A.30, ported): a
+    ``HomotopySolveCache`` whose ``solve`` is the front door's, with the
+    JAX package's root and NLStats; ``reinit`` of the tolerances."""
     from nonlinearsolve_tpu_torch.core.cache import HomotopySolveCache
-    with pytest.raises(NotImplementedError, match="A.30"):
-        HomotopySolveCache(None)
+
+    def H(u, p, lam):
+        return u ** 3 - u - lam * p
+
+    jcache = jnls.init(jnls.HomotopyProblem(H, jnp.array([1.2]), 1.5),
+                       jnls.HomotopySweep(inner=jnls.NewtonRaphson()))
+    tcache = tnls.init(tnls.HomotopyProblem(H, _t([1.2]), 1.5),
+                       tnls.HomotopySweep(inner=tnls.NewtonRaphson()))
+    assert isinstance(tcache, HomotopySolveCache)
+    for tol in (None, 1e-12):
+        if tol is not None:
+            jcache.reinit(abstol=tol)
+            assert tcache.reinit(abstol=tol) is tcache
+        jsol, tsol = jcache.solve(), tcache.solve()
+        assert tsol.success and int(tsol.retcode) == int(jsol.retcode)
+        assert tsol.stats.nf == int(jsol.stats.nf)
+        assert tsol.stats.nsteps == int(jsol.stats.nsteps)
+        _same_root(jsol, tsol)
 
 
 # ---------------------------------------------------------------------------

@@ -209,8 +209,6 @@ def test_unported_routes_raise():
 # names the JAX package exports from a module the port has, whose
 # machinery comes with a later ROADMAP item
 NOT_YET_EXPORTED = {
-    "HomotopyProblem": "A.30", "SCCNonlinearProblem": "A.30",
-    "SteadyStateProblem": "A.30",
     "StatefulJacobianNormalFormOperator": "A.33",
 }
 

@@ -2,8 +2,8 @@
 the rung that wins, the best-residual fallback when every rung fails,
 ``FastShortcutNLLSPolyalg`` (the default for least squares) on the 8 NLLS
 classics, the default algorithm on the dense Brusselator at N=8 and 16,
-the ladders' shapes, the warm-restart start hint, and the refusals of
-what is not ported (ROADMAP A.30) or not supported (complex states)."""
+the ladders' shapes, the warm-restart start hint, the dispatch of user
+classes, and the refusal of what is not supported (complex states)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -246,16 +246,22 @@ def test_refusals():
         pass
 
     class Custom:
-        def run_flat(self, *a):
-            return None
+        def run_flat(self, ctx, term_cfg, u0, abstol, reltol, maxiters):
+            from nonlinearsolve_tpu_torch.solvers.custom import \
+                make_custom_carry
+            return make_custom_carry(u0, ctx.f_flat(u0), retcode=1)
 
     class SimpleBroyden:
         pass
 
-    with pytest.raises(NotImplementedError, match="A.30"):
+    # DynamicSS and run_flat algorithms dispatch since ROADMAP A.30: a
+    # user class named like one is not DynamicSS, and one with run_flat
+    # runs as an algorithm
+    with pytest.raises(ValueError, match="cannot dispatch"):
         tnls.solve(prob, DynamicSS())
-    with pytest.raises(NotImplementedError, match="A.30"):
-        tnls.solve(prob, Custom())
+    sol = tnls.solve(prob, Custom())
+    assert sol.retcode == tnls.ReturnCode.Success
+    assert torch.equal(sol.u, prob.u0)
     # a user class named like a simple solver is not one of them
     with pytest.raises(ValueError, match="cannot dispatch"):
         tnls.solve(prob, SimpleBroyden())

@@ -15,8 +15,8 @@ against the exact values hold too.
 
 ``test_vmap_of_grad`` becomes three lone gradients: ``torch.func.vmap``
 cannot map the engines' host reads (ROADMAP C).  The SCC case of
-``test_gradients_through_dfsane_anderson_scc`` waits for the SCC driver
-(ROADMAP A.30).
+``test_gradients_through_dfsane_anderson_scc`` is in
+``test_torch_homotopy_sensitivity.py``.
 """
 
 import jax
