@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``nonlinearsolve_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24]
+    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24,25]
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a); exits
 non-zero without one, and without the package beside it.  Each phase
 prints one JSON line (``--log`` also appends every line to PATH); a failed
 check raises, so the script exits non-zero.  ``--only`` runs phases 1
-and 2, then the listed phases of 19–24 alone, each timed, on the set-up
+and 2, then the listed phases of 19–25 alone, each timed, on the set-up
 they take from earlier phases rebuilt (``only_phases``), and prints no
 result line.
 
@@ -325,7 +325,47 @@ result line.
    ``run_flat`` Richardson iteration of tests/test_interfaces.py on the
    card, and ``SciPyRoot("hybr")`` on Bratu 16² from a card u0: the root
    within 1e-8 of NewtonRaphson's, ``sol.u`` on the card;
-25. the kernels line (each SpMV kernel's row with its reverse rule's
+25. pytree, 0-d and complex states, normal-form Krylov least squares,
+   the polynomial drivers and the C.3 / C.4 repairs (counters at 0 just
+   before each run, read just after), f64 / complex128: (a) the N = 32
+   dense Brusselator (2048 unknowns) as a dict state {"u", "v"} of two
+   32×32 tensors under NewtonRaphson and Broyden: Success, the retcode,
+   NLStats and root (within 1e-12) of the solve on the flat vector in the
+   same order, and for NewtonRaphson the shaped (N, N, 2) solve's NLStats
+   and root within 1e-12; u² = 2 from a 0-d u0 under NewtonRaphson.  (b)
+   u³ − 8 from −0.8 + 1.5i under NewtonRaphson, Broyden, Klement and the
+   default ladder, and the N = 32 Brusselator on a complex128 state
+   (init_u0 + 1e-3·i·z, z seeded) under NewtonRaphson (the complex
+   Jacobian's LU is cuSOLVER's getrf): the JAX package's retcode and
+   NLStats (JAX_COMPLEX), Re u within 1e-10 of the real root and |Im u|
+   under 1e-10, its walls, idle share and device time by class.  (c) The
+   complex least-squares fit of tests/test_core_solvers.py under
+   GaussNewton (the JAX package's NLStats); complex GMRES and BiCGStab on
+   a seeded 4096² system within 1e-10 of LU.  (d) Normal-form Krylov
+   least squares: the N = 128 Brusselator residual (32,768 unknowns)
+   less its value at a seeded state u_t, stacked with 1e5·(u − u_t)
+   (65,536 rows), from init_u0 under GaussNewton with CG on JᵀJ
+   (matrix-free, vjp∘jvp), abstol 1e-6: Success at u_t within 1e-10, the
+   Krylov iterations, ‖Jᵀr‖∞ down 1e-8 or more from u0's.  (e) The polynomial drivers: the JAX tests'
+   systems (the cubic, the 2×2 system, the parametrised polynomial,
+   Wilkinson-6) with the root sets of the port's CPU run within 1e-10; a
+   seeded dense quadratic system with n = 10 (1024 total-degree paths in
+   one lockstep batch, one γ): paths, steps, host reads, distinct roots
+   (equal to the port's CPU run, which a second process of this script
+   computes meanwhile: ``--poly-reference``), the largest root residual,
+   first and warm wall and idle share (the warm walls and profiles of
+   (b), (d) and this system are taken after that process has ended, the
+   first walls beside it), and two lone tracks within 1e-12
+   of their batch rows (the residual's einsum contracts otherwise at
+   batch size 1; every path of the cubic, 2×2 and parametrised systems,
+   elementwise, alone is its batch row bit for bit);
+   ``solve_multistart`` and ``HomotopyContinuationJL``
+   on one JAX test problem each.  (f) C.3 (the eight bracketing methods
+   on log(u) − ½ over (−1, 3) and u − p over a NaN row, lone and batched,
+   maxiters 100: the CPU run's codes, nf and u, Success on the NaN row
+   for Bisection, Falsi, Brent and ModAB as in the JAX package) and C.4
+   (a singular Jacobian: a NaN gradient, no exception);
+26. the kernels line (each SpMV kernel's row with its reverse rule's
    numbers from 23 (c)), then ``{"ok": true, "device": {...}}`` as the
    last line.
 """
@@ -474,6 +514,23 @@ CONTINUATION_GROUPS = {
                                           "unrolled", "pad", "exp"),
     "reductions": ("reduce", "norm", "dot"),
 }
+# tools/complex_reference.py (the JAX package on the CPU, x64; the script
+# prints these): retcode and NLStats [nf, njacs, nfactors, nsolve, nsteps]
+# of u³ − 8 from −0.8 + 1.5i under each algorithm (None: the default
+# ladder), of the complex least-squares fit under GaussNewton, and of the
+# N = 32 Brusselator on a complex128 state (init_u0 + 1e-3·i·z, z seeded
+# standard normal, numpy seed 0) under NewtonRaphson at abstol 1e-10.
+JAX_COMPLEX = {
+    "cubic": {"NewtonRaphson": (1, [7, 5, 5, 5, 5]),
+              "Broyden": (1, [10, 0, 0, 8, 8]),
+              "Klement": (1, [10, 0, 0, 8, 8]),
+              None: (1, [10, 0, 0, 8, 8])},
+    "complex_nlls": (1, [3, 1, 1, 1, 1]),
+    "complex_brusselator32": (1, [6, 4, 4, 4, 4]),
+}
+# phase 25 (e): the seeded quadratic system's size (2^n total-degree
+# paths) and the seed of its coefficients
+POLY_N, POLY_SEED = 10, 0
 LOG = {"path": None}
 
 
@@ -3498,6 +3555,490 @@ def continuation_phase(torch, nls, _backend, card, flag_prob, flag_alg):
         raise AssertionError(f"phase 24 failed: {failed}")
 
 
+def sorted_roots(u):
+    """The rows of a root set in an order that does not depend on the
+    run: by each column's real and imaginary parts rounded to 1e-6."""
+    import numpy as np
+    u = np.atleast_2d(u)
+    keys = []
+    for j in reversed(range(u.shape[1])):
+        keys += [np.round(u[:, j].imag, 6), np.round(u[:, j].real, 6)]
+    return u[np.lexsort(keys)]
+
+
+def quadratic_system(torch, n, seed, device):
+    """Phase 25 (e)'s seeded dense quadratic system on one path's complex
+    state: f_i(x) = Σ A_ijk x_j x_k + Σ B_ij x_j + c_i (numpy seed
+    ``seed``), total degree 2 in each equation."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    A = torch.tensor(rng.standard_normal((n, n, n)) / n, device=device)
+    B = torch.tensor(rng.standard_normal((n, n)) / np.sqrt(n), device=device)
+    c = torch.tensor(rng.standard_normal(n), device=device)
+
+    def f(x, p=None):
+        return (torch.einsum("ijk,j,k->i", A.to(x.dtype), x, x)
+                + B.to(x.dtype) @ x + c.to(x.dtype))
+    return f
+
+
+def poly_cpu_reference(argv):
+    """``--poly-reference N SEED``: the port's all-roots solve of the
+    seeded quadratic system on the CPU, one γ (the run that phase 25 (e)
+    holds the card's to), printed as one JSON line."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import nonlinearsolve_tpu_torch as nls
+    from nonlinearsolve_tpu_torch.solvers.poly_homotopy import (
+        PolynomialHomotopy, solve_polynomial)
+    i = argv.index("--poly-reference")
+    n, seed = int(argv[i + 1]), int(argv[i + 2])
+    torch.set_num_threads(4)
+    f = quadratic_system(torch, n, seed, "cpu")
+    t0 = time.perf_counter()
+    sol = solve_polynomial(nls.NonlinearProblem(
+        f, torch.zeros(n, dtype=torch.float64)), PolynomialHomotopy(
+            degrees=(2,) * n), gamma_retries=1)
+    ends, ok = sol.original
+    print(json.dumps({"distinct_roots": len(sol.u),
+                      "paths_ok": int(ok.sum()), "nsteps": sol.stats.nsteps,
+                      "loop_steps": sol.counters["loop_steps"],
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def a33_phase(torch, nls, _backend, brusselator, fft_poisson_preconditioner,
+              card):
+    """Phase 25: pytree, 0-d and complex states, normal-form Krylov least
+    squares, the polynomial drivers and the C.3 / C.4 repairs on the card
+    (see the module docstring).  Each run with the launch counters at 0
+    just before and read just after."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.ops import krylov
+    from nonlinearsolve_tpu_torch.solvers import poly_homotopy as ph
+    t_phase = time.perf_counter()
+    f64, c128 = torch.float64, torch.complex128
+    dev = torch.device("cuda")
+    failed = []
+
+    def check(name, ok):
+        if not ok:
+            failed.append(name)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        syncs0 = _backend.HOST_SYNCS["n"]
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, {
+            "launches": {k: v for k, v in _backend.LAUNCHES.items() if v},
+            "host_reads": _backend.HOST_SYNCS["n"] - syncs0}
+
+    def stats_of(sol):
+        s = sol.stats
+        return [int(s.nf), int(s.njacs), int(s.nfactors), int(s.nsolve),
+                int(s.nsteps)]
+
+    # the CPU reference of (e)'s quadratic system runs beside the card's
+    # checks, in a process of its own that prints its JSON (stopped on any
+    # failure below); the walls and idle shares are taken after it ends
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--poly-reference",
+         str(POLY_N), str(POLY_SEED)], stdout=subprocess.PIPE, text=True)
+    try:
+        _a33_cases(torch, nls, _backend, brusselator,
+                   fft_poisson_preconditioner, card, np, krylov, ph, f64,
+                   c128, dev, check, run, stats_of, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+    emit({"phase": "a33_timing", "phase_seconds":
+          time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"phase 25 failed: {failed}")
+
+
+def _a33_cases(torch, nls, _backend, brusselator, fft_poisson_preconditioner,
+               card, np, krylov, ph, f64, c128, dev, check, run, stats_of,
+               child):
+    """The cases of phase 25, in order (a)–(f); each line carries the
+    seconds since they began (``phase_t_s``).  The warm walls and device
+    profiles of (b), (d) and (e)'s n = 10 system are taken after the CPU
+    reference has ended (``timed``), so that no other process loads the
+    host while they run; the first walls run beside it."""
+    t_start = time.perf_counter()
+    timed = []
+
+    def stamped(obj):
+        emit({**obj, "phase_t_s": time.perf_counter() - t_start})
+
+    # --- (a) pytree and 0-d states ------------------------------------
+    N = 32
+    shaped = brusselator.make_problem(N, f64)
+    p = shaped.p
+    U0 = shaped.u0
+
+    def f_dict(S, q):
+        F = brusselator.brusselator_2d(torch.stack([S["u"], S["v"]], -1), q)
+        return {"u": F[..., 0], "v": F[..., 1]}
+
+    def f_flat(w, q):
+        S = {"u": w[:N * N].reshape(N, N), "v": w[N * N:].reshape(N, N)}
+        F = f_dict(S, q)
+        return torch.cat([F["u"].reshape(-1), F["v"].reshape(-1)])
+    d0 = {"u": U0[..., 0].clone(), "v": U0[..., 1].clone()}
+    w0 = torch.cat([d0["u"].reshape(-1), d0["v"].reshape(-1)])
+    real_root = None
+    for name in ("NewtonRaphson", "Broyden"):
+        alg = getattr(nls, name)
+        dsol, wall, counts = run(lambda: nls.solve(
+            nls.NonlinearProblem(f_dict, d0, p), alg(), abstol=1e-10))
+        fsol = nls.solve(nls.NonlinearProblem(f_flat, w0, p), alg(),
+                         abstol=1e-10)
+        droot = torch.cat([dsol.u["u"].reshape(-1), dsol.u["v"].reshape(-1)])
+        gap_flat = float((droot - fsol.u).abs().max())
+        rec = {"phase": "a33_pytree", "case": f"brusselator{N}_dict",
+               "alg": name, "retcode": dsol.retcode.name,
+               "stats": stats_of(dsol), "flat_stats": stats_of(fsol),
+               "root_gap_to_flat": gap_flat, "wall_s": wall, **counts}
+        if name == "NewtonRaphson":
+            # Broyden leaves this start Unstable (its flat solve too)
+            check(f"(a) {name} dict: Success", dsol.success)
+        check(f"(a) {name} dict: the flat solve's retcode and NLStats",
+              dsol.retcode == fsol.retcode
+              and stats_of(dsol) == stats_of(fsol))
+        check(f"(a) {name} dict: root within 1e-12 of the flat solve's",
+              gap_flat <= 1e-12)
+        check(f"(a) {name} dict: leaves on the card, (32, 32) each",
+              dsol.u["u"].is_cuda and tuple(dsol.u["v"].shape) == (N, N))
+        if name == "NewtonRaphson":
+            ssol = nls.solve(shaped, alg(), abstol=1e-10)
+            real_root = ssol.u
+            gap = float((torch.stack([dsol.u["u"], dsol.u["v"]], -1)
+                         - ssol.u).abs().max())
+            rec.update(shaped_stats=stats_of(ssol),
+                       root_gap_to_shaped=gap)
+            check("(a) NewtonRaphson dict: the shaped (N, N, 2) solve's "
+                  "NLStats, root within 1e-12",
+                  stats_of(ssol) == stats_of(dsol) and gap <= 1e-12)
+        stamped({**rec, "card": card})
+    zsol, wall, counts = run(lambda: nls.solve(nls.NonlinearProblem(
+        lambda u, q: u * u - q, torch.tensor(1.0, dtype=f64, device=dev),
+        2.0), nls.NewtonRaphson()))
+    stamped({"phase": "a33_pytree", "case": "zero_dim", "retcode":
+          zsol.retcode.name, "stats": stats_of(zsol), "u": float(zsol.u),
+          "shape": list(zsol.u.shape), "wall_s": wall, **counts,
+          "card": card})
+    check("(a) 0-d: Success, shape (), √2 within 1e-15",
+          zsol.success and zsol.u.shape == ()
+          and abs(float(zsol.u) - 2 ** 0.5) <= 1e-15 and zsol.u.is_cuda)
+
+    # --- (b) complex dense ------------------------------------------------
+    cubic = nls.NonlinearProblem(
+        lambda u, q: u ** 3 - q,
+        torch.tensor([-0.8 + 1.5j], dtype=c128, device=dev), 8.0 + 0j)
+    for name in ("NewtonRaphson", "Broyden", "Klement", None):
+        sol, wall, counts = run(lambda: nls.solve(
+            cubic, None if name is None else getattr(nls, name)()))
+        jret, jstats = JAX_COMPLEX["cubic"][name]
+        err = abs(complex(sol.u[0]) - 2 * np.exp(2j * np.pi / 3))
+        stamped({"phase": "a33_complex", "case": "cubic", "alg": name or
+              "default", "retcode": sol.retcode.name,
+              "stats": stats_of(sol), "jax_stats": jstats,
+              "root_err": err, "wall_s": wall, **counts, "card": card})
+        check(f"(b) cubic {name}: the JAX package's retcode and NLStats",
+              int(sol.retcode) == jret and stats_of(sol) == jstats)
+        check(f"(b) cubic {name}: root within 1e-12", err <= 1e-12)
+    gen = np.random.default_rng(0)
+    pert = torch.tensor(gen.standard_normal(tuple(U0.shape)), device=dev)
+    cprob = nls.NonlinearProblem(brusselator.brusselator_2d,
+                                 U0 + 1e-3j * pert, p)
+    sol, wall, counts = run(lambda: nls.solve(cprob, nls.NewtonRaphson(),
+                                              abstol=1e-10))
+    jret, jstats = JAX_COMPLEX["complex_brusselator32"]
+    gap = float((sol.u.real - real_root).abs().max())
+    imag = float(sol.u.imag.abs().max())
+    timed.append(({"phase": "a33_complex", "case": "complex_brusselator32",
+                   "unknowns": sol.u.numel(), "dtype": "complex128",
+                   "retcode": sol.retcode.name, "stats": stats_of(sol),
+                   "jax_stats": jstats, "max_real_gap": gap,
+                   "max_imag": imag, "first_wall_s": wall, **counts,
+                   "card": card},
+                  lambda: nls.solve(cprob, nls.NewtonRaphson(),
+                                    abstol=1e-10), CONTINUATION_GROUPS))
+    check("(b) complex Brusselator: the JAX package's retcode and NLStats",
+          int(sol.retcode) == jret and stats_of(sol) == jstats)
+    check("(b) complex Brusselator: Re u within 1e-10 of the real root, "
+          "|Im u| under 1e-10", gap <= 1e-10 and imag <= 1e-10)
+
+    # --- (c) complex least squares and Krylov ---------------------------
+    ts = torch.linspace(0.0, 1.0, 8, dtype=f64, device=dev)
+    e = torch.exp(1j * 2 * np.pi * ts)
+    sol, wall, counts = run(lambda: nls.solve(
+        nls.NonlinearLeastSquaresProblem(
+            lambda u, q: u[0] * e - q,
+            torch.tensor([0.5 + 0.1j], dtype=c128, device=dev),
+            (2.0 + 1.0j) * e), nls.GaussNewton()))
+    jret, jstats = JAX_COMPLEX["complex_nlls"]
+    err = abs(complex(sol.u[0]) - (2.0 + 1.0j))
+    stamped({"phase": "a33_complex", "case": "complex_nlls",
+          "retcode": sol.retcode.name, "stats": stats_of(sol),
+          "jax_stats": jstats, "root_err": err, "wall_s": wall, **counts,
+          "card": card})
+    check("(c) complex NLLS: the JAX package's retcode and NLStats, root "
+          "within 1e-12", int(sol.retcode) == jret
+          and stats_of(sol) == jstats and err <= 1e-12)
+    n = 4096
+    g = torch.Generator(device="cpu").manual_seed(1)
+    A = ((torch.randn((n, n), dtype=c128, generator=g) / np.sqrt(n))
+         + 3 * torch.eye(n, dtype=c128)).to(dev)
+    b = torch.randn(n, dtype=c128, generator=g).to(dev)
+    x_lu, lu_s, _ = run(lambda: torch.linalg.solve(A, b))
+    for method in ("gmres", "bicgstab"):
+        res, wall, counts = run(lambda: krylov.solve_krylov(
+            method, lambda v: A @ v, b, rtol=1e-12, maxiter=2000))
+        gap = float((res.x - x_lu).abs().max())
+        stamped({"phase": "a33_complex", "case": f"krylov_{method}", "n": n,
+              "success": res.success, "iterations": res.iterations,
+              "residual_norm": float(res.residual_norm),
+              "max_gap_to_lu": gap, "wall_s": wall, "lu_wall_s": lu_s,
+              **counts, "card": card})
+        check(f"(c) complex {method}: converged, within 1e-10 of LU",
+              res.success and gap <= 1e-10)
+
+    # --- (d) normal-form Krylov least squares ---------------------------
+    # fit the state whose residual is a seeded target's, with a Tikhonov
+    # block: r(u) = [F(u) − F(u_t); λ(u − u_t)], 2n × n, zero at u_t
+    Nd, lam = 128, 1e5
+    prob_d = brusselator.make_problem(Nd, f64)
+    gd = torch.Generator(device="cpu").manual_seed(0)
+    u_t = prob_d.u0 * (1 + 0.1 * torch.rand(tuple(prob_d.u0.shape),
+                                            generator=gd, dtype=f64).to(dev))
+    F_t = brusselator.brusselator_2d(u_t, prob_d.p)
+
+    def stacked(u, q):
+        return torch.cat([(brusselator.brusselator_2d(u, q) - F_t).reshape(-1),
+                          lam * (u - u_t).reshape(-1)])
+    lsq = nls.NonlinearLeastSquaresProblem(stacked, prob_d.u0.clone(),
+                                           prob_d.p)
+    gn = nls.GaussNewton(linsolve=nls.LinearSolver(
+        method="cg", krylov_maxiter=20000))
+    # abstol 1e-6: the F block's rounding floor at 128² (α/h² ≈ 1.6e5)
+    sol, wall, counts = run(lambda: nls.solve(lsq, gn, abstol=1e-6,
+                                              maxiters=20))
+    r = stacked(sol.u, prob_d.p)
+    _, vjp = torch.func.vjp(lambda v: stacked(v, prob_d.p), sol.u)
+    jtr = float(vjp(r)[0].abs().max())
+    _, vjp0 = torch.func.vjp(lambda v: stacked(v, prob_d.p), prob_d.u0)
+    jtr0 = float(vjp0(stacked(prob_d.u0, prob_d.p))[0].abs().max())
+    gap = float((sol.u - u_t).abs().max())
+    stamped({"phase": "a33_normal_form", "N": Nd, "rows": r.numel(),
+          "unknowns": sol.u.numel(), "lambda": lam, "linsolve": "cg",
+          "retcode": sol.retcode.name, "stats": stats_of(sol),
+          "krylov_iters": sol.counters["krylov_iters"],
+          "jvp_products": sol.counters["jvp"], "jtr_inf": jtr,
+          "jtr_inf_at_u0": jtr0, "resid_norm": float(r.norm()),
+          "gap_to_target": gap, "first_wall_s": wall, **counts,
+          "card": card})
+    timed.append(({"phase": "a33_normal_form", "case": "warm", "N": Nd,
+                   "krylov_iters": sol.counters["krylov_iters"],
+                   "card": card},
+                  lambda: nls.solve(lsq, gn, abstol=1e-6, maxiters=20),
+                  None))
+    check("(d) normal-form GaussNewton: Success at u_t within 1e-10",
+          sol.success and gap <= 1e-10)
+    check("(d) normal-form GaussNewton: ‖Jᵀr‖∞ down by 1e-8 or more",
+          sol.counters["krylov_iters"] > 0 and jtr <= 1e-8 * jtr0)
+
+    # --- (e) polynomial continuation ------------------------------------
+    jax_systems = {
+        "cubic": (lambda x, q: torch.stack([x[0] ** 3 - 1.0]), [1.0], None,
+                  (3,), {}),
+        "system2x2": (lambda x, q: torch.stack([x[0] ** 2 + x[1] ** 2 - 5.0,
+                                                x[0] * x[1] - 2.0]),
+                      [1.0, 1.0], None, (2, 2), {"real_only": True}),
+        "parametrized": (lambda x, q: torch.stack([x[0] ** 2 - q]), [1.0],
+                         9.0, (2,), {"real_only": True}),
+        "wilkinson6": (lambda x, q: torch.stack([
+            (x[0] - 1) * (x[0] - 2) * (x[0] - 3) * (x[0] - 4) * (x[0] - 5)
+            * (x[0] - 6)]), [0.0], None, (6,), {"real_only": True}),
+    }
+    for name, (f, u0, q, degrees, kw) in jax_systems.items():
+        alg = ph.PolynomialHomotopy(
+            degrees=degrees, **({"dt_initial": 0.01}
+                                if name == "wilkinson6" else {}))
+        out = {}
+        for d in (dev, "cpu"):
+            sol = ph.solve_polynomial(nls.NonlinearProblem(
+                f, torch.tensor(u0, dtype=f64, device=d), q), alg, **kw)
+            out[str(d)] = sol
+        g, c = out[str(dev)], out["cpu"]
+        gs, cs = sorted_roots(g.u.cpu().numpy()), sorted_roots(c.u.numpy())
+        gap = (float(np.abs(gs - cs).max()) if gs.shape == cs.shape
+               else float("inf"))
+        # each path tracked alone equals its row of the last γ's batch
+        # (Wilkinson-6's six 99-step tracks are left to the CPU tests)
+        ends, ok = g.original
+        gam = alg.replace(gamma_seed=alg.gamma_seed + 7919 * (
+            g.counters["gamma_runs"] - 1))
+        starts = ph._start_roots(degrees, c128, dev)
+        fq = (lambda x: f(x, q))
+        lone = name == "wilkinson6" or all(
+            torch.equal(xi[0], ends[i]) and bool(oki[0]) == bool(ok[i])
+            for i in range(starts.shape[0])
+            for xi, oki, _ in [ph._track_paths(fq, degrees, gam, c128,
+                                               starts=starts[i:i + 1])])
+        stamped({"phase": "a33_poly", "case": name, "paths": int(np.prod(
+            degrees)), "roots": len(g.u), "cpu_roots": len(c.u),
+            "nsteps": g.stats.nsteps, "cpu_nsteps": c.stats.nsteps,
+            "root_set_gap_to_cpu": gap, "counters": g.counters,
+            "lone_tracks_bit_equal": (None if name == "wilkinson6"
+                                      else lone), "card": card})
+        check(f"(e) {name}: the CPU run's root set within 1e-10",
+              len(g.u) == len(c.u) and gap <= 1e-10
+              and int(g.retcode) == int(c.retcode) == 1)
+        check(f"(e) {name}: every path alone bit-equal to its batch row",
+              lone)
+    f10 = quadratic_system(torch, POLY_N, POLY_SEED, dev)
+    prob10 = nls.NonlinearProblem(f10, torch.zeros(POLY_N, dtype=f64,
+                                                   device=dev))
+    alg10 = ph.PolynomialHomotopy(degrees=(2,) * POLY_N)
+
+    def poly10():
+        return ph.solve_polynomial(prob10, alg10, gamma_retries=1)
+    sol, wall, counts = run(poly10)
+    ends, ok = sol.original
+    resid = max(float(f10(r).abs().max()) for r in sol.u)
+    # two paths alone: the same flags, the endpoints within 1e-12 (the
+    # residual's einsum contracts otherwise at batch size 1)
+    starts = ph._start_roots(alg10.degrees, c128, dev)
+    lone = []
+    for i in (0, 2 ** POLY_N - 1):
+        xi, oki, _ = ph._track_paths(f10, alg10.degrees, alg10, c128,
+                                     starts=starts[i:i + 1])
+        lone.append({"flags_equal": bool(oki[0]) == bool(ok[i]),
+                     "bit_equal": bool(torch.equal(xi[0], ends[i])),
+                     "rel_gap": float((xi[0] - ends[i]).abs().max()
+                                      / ends[i].abs().max())})
+    # one warm run beside the reference while it still runs, to set
+    # against the warm run after it (the host's load, in one call)
+    beside = None
+    if child.poll() is None:
+        beside, = warm_walls(torch, poly10, count=1)
+        beside = {"warm_wall_s": beside,
+                  "reference_still_running": child.poll() is None}
+    t_wait = time.perf_counter()
+    out, _ = child.communicate(timeout=600)
+    if child.returncode != 0:
+        raise RuntimeError(f"--poly-reference exited {child.returncode}")
+    ref = json.loads(out.strip().splitlines()[-1])
+    timed.append(({"phase": "a33_poly", "case": f"quadratic{POLY_N}",
+                   "paths": 2 ** POLY_N, "paths_ok": int(ok.sum()),
+                   "distinct_roots": len(sol.u),
+                   "path_steps": sol.stats.nsteps,
+                   "loop_steps": sol.counters["loop_steps"],
+                   "host_reads": counts["host_reads"],
+                   "max_root_resid_inf": resid, "first_wall_s": wall,
+                   "launches": counts["launches"], "lone_rows": lone,
+                   "cpu_reference": ref,
+                   "beside_reference": beside,
+                   "waited_for_reference_s": time.perf_counter() - t_wait,
+                   "card": card}, poly10, None))
+    # the CPU reference has ended: the warm walls and profiles
+    for line, fn, groups in timed:
+        warm, = warm_walls(torch, fn, count=1)
+        prof = profile_device(torch, fn, groups=groups, host_events=False)
+        stamped({**line, "warm_wall_s": warm,
+                 "device_idle_share": prof["device_idle_share"],
+                 "device_busy_ms": prof["device_busy_ms"],
+                 **({"device_ms_by_group": prof["device_ms_by_group"]}
+                    if groups else {}),
+                 "top_device_ms": prof["top_device_ms"][:6]})
+    check("(e) quadratic system: the CPU run's count of distinct roots",
+          len(sol.u) == ref["distinct_roots"])
+    check("(e) quadratic system: roots' residuals under 1e-8",
+          resid <= 1e-8)
+    check("(e) quadratic system: lone tracks' flags, endpoints within "
+          "1e-12", all(r["flags_equal"] and r["rel_gap"] <= 1e-12
+                       for r in lone))
+    f2 = lambda u, q: torch.stack([u[0] ** 2 + u[1] ** 2 - 4.0,  # noqa
+                                   u[0] * u[1] - 1.0])
+    roots, wall, counts = run(lambda: nls.solve_multistart(
+        nls.NonlinearProblem(f2, torch.tensor([1.0, 1.0], dtype=f64,
+                                              device=dev)), order=2))
+    worst = max(float(f2(r, None).abs().max()) for r in roots)
+    stamped({"phase": "a33_poly", "case": "multistart_system", "roots":
+          len(roots), "max_resid_inf": worst, "wall_s": wall, **counts,
+          "card": card})
+    check("(e) solve_multistart: 4 roots, residuals under 1e-8",
+          len(roots) == 4 and worst < 1e-8 and roots.is_cuda)
+    hc = nls.NonlinearProblem(lambda u, q: torch.stack([
+        u[0] ** 2 + u[1] ** 2 - 5.0, u[0] * u[1] - 2.0]),
+        torch.tensor([1.0, 1.0], dtype=f64, device=dev))
+    sol, wall, counts = run(lambda: nls.solve(hc, nls.HomotopyContinuationJL(
+        all_roots=True, degrees=(2, 2))))
+    found = {tuple(np.round(r).astype(int)) for r in sol.u.cpu().numpy()}
+    stamped({"phase": "a33_poly", "case": "homotopy_continuation_jl",
+          "retcode": sol.retcode.name,
+          "roots": sorted([int(a), int(b)] for a, b in found),
+          "max_resid": float(sol.resid.abs().max()), "wall_s": wall,
+          **counts, "card": card})
+    check("(e) HomotopyContinuationJL: the four roots (±1, ±2), (±2, ±1)",
+          found == {(1, 2), (2, 1), (-1, -2), (-2, -1)}
+          and float(sol.resid.abs().max()) <= 1e-7)
+
+    # --- (f) C.3 and C.4 on the card ------------------------------------
+    # at maxiters 100: the NaN row's Success codes come within 86 nf; the
+    # MaxIters rows stop at 100 steps on both devices (the CPU tests hold
+    # the default 1000 to the JAX package)
+    names = ("Bisection", "Falsi", "Ridder", "Brent", "ITP", "Alefeld",
+             "Muller", "ModAB")
+    pvals = [0.3, float("nan"), 0.0, 1.0, 2.0]
+    same = []
+    for name in names:
+        algc = getattr(nls, name)
+        outs = {}
+        for d in (dev, "cpu"):
+            t = lambda x: torch.tensor(x, dtype=f64, device=d)  # noqa
+            lone = nls.solve(nls.IntervalNonlinearProblem(
+                lambda u, q: torch.log(u) - 0.5, (t(-1.0), t(3.0))), algc(),
+                maxiters=100)
+            batch = nls.solve(nls.IntervalNonlinearProblem(
+                lambda u, q: u - q, (t([0.0] * 5), t([1.0] * 5)),
+                t(pvals)), algc(), maxiters=100)
+            outs[str(d)] = ([int(lone.retcode), lone.stats.nf,
+                             float(lone.u)], batch.retcode.tolist(),
+                            batch.stats.nf.tolist(), batch.u.tolist())
+        g, c = outs[str(dev)], outs["cpu"]
+        eq = (g[0][:2] == c[0][:2] and g[1:3] == c[1:3]
+              and np.allclose(g[3], c[3], rtol=0, atol=1e-15,
+                              equal_nan=True)
+              and np.allclose(g[0][2], c[0][2], rtol=0, atol=1e-15,
+                              equal_nan=True))
+        same.append(eq)
+        stamped({"phase": "a33_repairs", "case": "C.3", "method": name,
+              "log_case": g[0], "nan_row_code": g[1][1], "codes": g[1],
+              "nf": g[2], "equal_to_cpu": eq, "card": card})
+        check(f"(f) C.3 {name}: the CPU run's codes, nf and u", eq)
+        if name in ("Bisection", "Falsi", "Brent", "ModAB"):
+            check(f"(f) C.3 {name}: Success on the NaN row", g[1][1] == 1)
+    q = torch.tensor([-1.0, 2.0], dtype=f64, device=dev).requires_grad_(True)
+    sol = nls.solve(nls.NonlinearProblem(
+        lambda u, r: u * u - r, torch.tensor([1.0, 1.5], dtype=f64,
+                                             device=dev), q),
+        nls.NewtonRaphson(), maxiters=30)
+    grad, = torch.autograd.grad(sol.u.sum(), q)
+    stamped({"phase": "a33_repairs", "case": "C.4", "retcode":
+          sol.retcode.name, "grad": grad.tolist(), "card": card})
+    check("(f) C.4: MaxIters, a NaN gradient and no exception",
+          sol.retcode == nls.ReturnCode.MaxIters
+          and bool(torch.isnan(grad).all()))
+
+
 def flagship_setup(torch, nls, brusselator, fft_poisson_preconditioner,
                    N):
     """Phase 4's flagship: the N² Brusselator in f32 with K1 as its JVP,
@@ -3532,7 +4073,7 @@ def polish_setup(torch, nls, brusselator, fft_poisson_preconditioner, N,
 
 def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
                 fft_poisson_preconditioner, card, phases):
-    """``--only``: phases 19–24 alone, in the order given, each on the
+    """``--only``: phases 19–25 alone, in the order given, each on the
     set-up it takes from the earlier phases rebuilt here: phase 18's
     NewtonRaphson root at N=32 for 20; the flagship and its polish, solved
     as phases 4 and 5 solve them, for 23; the flagship's problem and
@@ -3564,8 +4105,11 @@ def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
             prob, alg, _pm = flagship_setup(torch, nls, brusselator,
                                             fft_poisson_preconditioner, 512)
             continuation_phase(torch, nls, _backend, card, prob, alg)
+        elif ph == "25":
+            a33_phase(torch, nls, _backend, brusselator,
+                      fft_poisson_preconditioner, card)
         else:
-            raise ValueError(f"--only takes phases 19 to 24, not {ph!r}")
+            raise ValueError(f"--only takes phases 19 to 25, not {ph!r}")
         emit({"phase": "only_phase", "only": ph,
               "seconds": time.perf_counter() - t0, "card": card})
 
@@ -3573,6 +4117,8 @@ def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
 def main(argv):
     import torch
 
+    if "--poly-reference" in argv:
+        return poly_cpu_reference(argv)
     if "--log" in argv:
         LOG["path"] = argv[argv.index("--log") + 1]
         os.makedirs(os.path.dirname(os.path.abspath(LOG["path"])),
@@ -4645,7 +5191,11 @@ def main(argv):
     # --- 24. continuation, steady states, SCC, user algorithms, SciPy ------
     continuation_phase(torch, nls, _backend, card, prob, alg)
 
-    # --- 25. summary -------------------------------------------------------
+    # --- 25. pytree, 0-d and complex states, the polynomial drivers -------
+    a33_phase(torch, nls, _backend, brusselator, fft_poisson_preconditioner,
+              card)
+
+    # --- 26. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):

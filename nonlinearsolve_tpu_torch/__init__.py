@@ -34,7 +34,12 @@ traces, messages, phase timers, ``maxtime`` and the iterator ``init`` /
 ``HomotopyPolyAlgorithm``), ``SteadyStateProblem`` with ``SSRootfind`` and
 ``DynamicSS``, ``SCCNonlinearProblem``, user algorithms with a
 ``run_flat`` method and the SciPy bridge with the delegating
-constructors.  See ROADMAP.md for what is still to come.
+constructors; pytree, 0-d and complex states (``utils/pytree.py``'s flat
+path; holomorphic Jacobians, complex dense and Krylov solves),
+normal-form Krylov least squares, and the polynomial drivers
+(``solve_polynomial``, ``solve_multistart``, ``HomotopyContinuationJL``),
+which track every path in one lockstep batch.  See ROADMAP.md for what is
+still to come.
 """
 
 from .core.autodiff import JacobianPolicy, pickchunksize
@@ -72,6 +77,7 @@ from .core.wolfe_linesearch import (HagerZhang, LineSearchesJL, MoreThuente,
                                     StaticLineSearch, StrongWolfe)
 from .ops.linear_solve import LinearSolver
 from .ops.operators import (JacobianOperator, JacVecOperator,
+                            StatefulJacobianNormalFormOperator,
                             StatefulJacobianOperator, VecJacOperator)
 from .solvers import (ITP, Alefeld, AndersonAcceleration, Bisection, Brent,
                       Broyden, DFSane, Falsi, FastShortcutNLLSPolyalg,
@@ -87,6 +93,11 @@ from .solvers import (ITP, Alefeld, AndersonAcceleration, Bisection, Brent,
                       SimpleTrustRegion, TrustRegion)
 from .solvers.first_order import (EisenstatWalkerForcing,
                                   EisenstatWalkerForcing2)
+from .solvers.homotopy_continuation import (HomotopyContinuationJL,
+                                            HomotopyNonlinearFunction,
+                                            TaylorHomotopyContinuationJL)
+from .solvers.multistart import polynomialize, solve_multistart
+from .solvers.poly_homotopy import PolynomialHomotopy, solve_polynomial
 from .solvers.homotopy import (ArcLengthContinuation,
                                FastShortcutHomotopyPolyalg,
                                HomotopyPolyAlgorithm, HomotopySweep,
@@ -113,6 +124,7 @@ __all__ = [
     "FixedPointAccelerationJL", "GaussNewton", "GeneralizedDFSane",
     "GeneralizedFirstOrderAlgorithm", "GenericTrustRegionScheme",
     "GeodesicAcceleration", "HagerZhang", "HomotopyPolyAlgorithm",
+    "HomotopyContinuationJL", "HomotopyNonlinearFunction",
     "HomotopyProblem", "HomotopySweep", "ITP", "InitializationData",
     "IntervalNonlinearProblem", "JacVecOperator", "JacobianOperator",
     "JacobianPolicy", "KINSOL", "KantorovichHomotopy", "Klement",
@@ -123,7 +135,8 @@ __all__ = [
     "NewtonDescent", "NewtonRaphson", "NonlinearFunction",
     "NonlinearLeastSquaresProblem", "NonlinearProblem", "NonlinearSolution",
     "NonlinearSolveCache", "NonlinearSolvePolyAlgorithm", "NonlinearVerbosity",
-    "NormTerminationMode", "PETScSNES", "PostconditionSpace",
+    "NormTerminationMode", "PETScSNES", "PolynomialHomotopy",
+    "PostconditionSpace",
     "PostconditionSpecifier", "PseudoTransient", "QuasiNewtonAlgorithm",
     "RadiusUpdateSchemes", "RelNormSafeBestTerminationMode",
     "RelNormSafeTerminationMode", "RelNormTerminationMode",
@@ -134,9 +147,12 @@ __all__ = [
     "SciPyRootScalar", "SimpleBroyden", "SimpleDFSane", "SimpleGaussNewton",
     "SimpleHalley", "SimpleHomotopySweep", "SimpleKlement",
     "SimpleLimitedMemoryBroyden", "SimpleNewtonRaphson", "SimpleTrustRegion",
-    "SpeedMappingJL", "StatefulJacobianOperator", "StaticLineSearch",
+    "SpeedMappingJL", "StatefulJacobianNormalFormOperator",
+    "StatefulJacobianOperator", "StaticLineSearch",
     "SteadyStateProblem", "SteepestDescent", "StrongWolfe",
-    "TerminationCondition", "TraceAll", "TraceConfig", "TraceMinimal",
+    "TaylorHomotopyContinuationJL", "TerminationCondition", "TraceAll",
+    "TraceConfig", "TraceMinimal",
     "TraceWithJacobianConditionNumber", "TrustRegion", "VecJacOperator",
-    "init", "pickchunksize", "scc_solve_up", "solve", "solve_ensemble",
+    "init", "pickchunksize", "polynomialize", "scc_solve_up", "solve",
+    "solve_ensemble", "solve_multistart", "solve_polynomial",
 ]

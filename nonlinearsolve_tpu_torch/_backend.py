@@ -125,51 +125,75 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "complex64": torch.complex64, "complex128": torch.complex128}
 
 
 def resolve_dtype(dtype) -> torch.dtype:
-    """Accept a torch dtype, a numpy dtype or a name; f32 and f64 only."""
+    """Accept a torch dtype, a numpy dtype or a name: f32, f64 and their
+    complex counterparts (complex states, as the JAX package takes
+    them)."""
     if isinstance(dtype, torch.dtype):
         out = dtype
     else:
         out = _DTYPES.get(np.dtype(dtype).name)
-    if out not in (torch.float32, torch.float64):
-        raise TypeError(f"unsupported dtype {dtype!r}: float32 or float64")
+    if out not in _DTYPES.values():
+        raise TypeError(f"unsupported dtype {dtype!r}: float32, float64, "
+                        f"complex64 or complex128")
     return out
 
 
 _NP_OF = {torch.float32: np.float32, torch.float64: np.float64,
+          torch.complex64: np.complex64, torch.complex128: np.complex128,
           torch.bool: np.bool_}
 
 
 def np_dtype(dtype):
-    """The numpy scalar type of a torch dtype (f32, f64 or bool): host
-    arithmetic in it rounds as the device's does."""
+    """The numpy scalar type of a torch dtype (f32, f64, complex64,
+    complex128 or bool): host arithmetic in it rounds as the device's
+    does."""
     dtype = resolve_dtype(dtype) if not isinstance(dtype, torch.dtype) \
         else dtype
     if dtype not in _NP_OF:
-        raise TypeError(f"unsupported dtype {dtype}: float32 or float64")
+        raise TypeError(f"unsupported dtype {dtype}: float32, float64, "
+                        f"complex64 or complex128")
     return _NP_OF[dtype]
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The real dtype of a complex one (norms and tolerances are real)."""
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(dtype, dtype)
+
+
+def real_np_dtype(dtype: torch.dtype):
+    """``np_dtype`` of the real dtype: host norms, objectives and
+    tolerances of a complex state are real."""
+    return np_dtype(real_dtype(dtype))
 
 
 _HOST_OF = {**_NP_OF, torch.int32: np.int32}
 
 
 def fetch(*tensors: torch.Tensor) -> list:
-    """Read small tensors (f32, f64, bool or int32) to the host in ONE
-    transfer — one host sync.  Each comes back in its own dtype, so that
-    host arithmetic on it rounds as the device's would: a 0-d tensor as a
-    numpy scalar, any other as a 1-d numpy array.  (Mixed dtypes travel as
-    f64, which holds every f32, int32 and bool value exactly.)"""
+    """Read small tensors (f32, f64, complex64, complex128, bool or int32)
+    to the host in ONE transfer — one host sync.  Each comes back in its
+    own dtype, so that host arithmetic on it rounds as the device's would:
+    a 0-d tensor as a numpy scalar, any other as a 1-d numpy array.
+    (Mixed dtypes travel as f64, which holds every f32, int32 and bool
+    value exactly, or as complex128 when one of them is complex.)"""
     HOST_SYNCS["n"] += 1
     wire = tensors[0].dtype
     if any(t.dtype != wire for t in tensors):
-        wire = torch.float64
+        wire = (torch.complex128 if any(t.is_complex() for t in tensors)
+                else torch.float64)
     host = torch.cat([t.reshape(-1).to(wire) for t in tensors]).cpu().numpy()
     out, at = [], 0
     for t in tensors:
-        part = host[at:at + t.numel()].astype(_HOST_OF[t.dtype])
+        part = host[at:at + t.numel()]
+        if part.dtype.kind == "c" and not t.is_complex():
+            part = part.real
+        part = part.astype(_HOST_OF[t.dtype])
         out.append(part[0] if t.dim() == 0 else part)
         at += t.numel()
     return out

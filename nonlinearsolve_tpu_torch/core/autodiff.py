@@ -44,10 +44,51 @@ def jvp(f: Callable, u, v):
 
 def jacfwd(f: Callable) -> Callable:
     """``torch.func.jacfwd(f)``, or ``jacrev`` inside a forward-AD
-    level."""
-    if forward_level_active():
-        return torch.func.jacrev(f)
-    return torch.func.jacfwd(f)
+    level; for a complex state the holomorphic Jacobian (JAX's
+    ``holomorphic=True``), which ``torch.func`` refuses."""
+    def jac(u, *rest):
+        if u.is_complex():
+            g = (lambda v: f(v, *rest)) if rest else f
+            return (_holomorphic_jacrev(g, u) if forward_level_active()
+                    else _holomorphic_jacfwd(g, u))
+        if forward_level_active():
+            return torch.func.jacrev(f)(u, *rest)
+        return torch.func.jacfwd(f)(u, *rest)
+    return jac
+
+
+def jacrev(f: Callable) -> Callable:
+    """``torch.func.jacrev(f)``; the holomorphic Jacobian for a complex
+    state."""
+    def jac(u, *rest):
+        if u.is_complex():
+            return _holomorphic_jacrev(
+                (lambda v: f(v, *rest)) if rest else f, u)
+        return torch.func.jacrev(f)(u, *rest)
+    return jac
+
+
+def _holomorphic_jacfwd(f: Callable, u: torch.Tensor) -> torch.Tensor:
+    """∂f/∂u of a holomorphic ``f``: the JVPs on the unit tangents, as
+    ``out_shape + in_shape``."""
+    n = u.numel()
+    eye = torch.eye(n, dtype=u.dtype, device=u.device).reshape(
+        (n,) + tuple(u.shape))
+    cols = torch.func.vmap(lambda t: jvp(f, u, t)[1])(eye)
+    out_shape = tuple(cols.shape[1:])
+    return cols.reshape(n, -1).T.reshape(out_shape + tuple(u.shape))
+
+
+def _holomorphic_jacrev(f: Callable, u: torch.Tensor) -> torch.Tensor:
+    """The holomorphic ∂f/∂u by reverse mode: a VJP of ``torch.func``
+    gives Jᴴ·g, so the rows on the unit cotangents are conjugated (JAX's
+    VJP gives Jᵀ·g)."""
+    fu, vjp_fn = torch.func.vjp(f, u)
+    m = fu.numel()
+    eye = torch.eye(m, dtype=fu.dtype, device=fu.device).reshape(
+        (m,) + tuple(fu.shape))
+    rows = torch.func.vmap(lambda g: vjp_fn(g)[0])(eye)
+    return rows.conj_physical().reshape(tuple(fu.shape) + tuple(u.shape))
 
 
 def pickchunksize(n: int, threshold: int = 12) -> int:
@@ -105,7 +146,7 @@ def _chunked_jacfwd(f_flat: Callable, u: torch.Tensor, chunk: int,
 def _finite_diff_jacobian(f_flat: Callable, u: torch.Tensor, rel_step):
     """Forward differences, vmapped over the columns of a flat ``u``."""
     fu = f_flat(u)
-    eps = torch.finfo(u.dtype).eps
+    eps = torch.finfo(u.real.dtype).eps
     h = (torch.sqrt(torch.tensor(eps, dtype=u.dtype, device=u.device))
          if rel_step is None else rel_step)
     step = h * torch.clamp(u.abs(), min=1.0)
@@ -134,7 +175,7 @@ def construct_dense_jacobian_fn(
             return lambda u: _chunked_jacfwd(f_flat, u, chunk, n_out)
         return lambda u: jacfwd(f_flat)(u)
     if mode == "reverse":
-        return lambda u: torch.func.jacrev(f_flat)(u)
+        return lambda u: jacrev(f_flat)(u)
     if mode == "finite":
         return lambda u: _finite_diff_jacobian(f_flat, u, policy.fd_rel_step)
     raise ValueError(f"unknown jacobian mode {mode!r}")

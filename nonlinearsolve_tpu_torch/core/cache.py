@@ -135,10 +135,6 @@ class NonlinearSolveCache:
                     "initialization problem failed to converge "
                     f"(retcode={int(init_sol.retcode)}); cannot build a "
                     "solver cache from an inconsistent state")
-        if not isinstance(prob.u0, torch.Tensor) or prob.u0.dim() == 0:
-            raise NotImplementedError(
-                "the iterator needs u0 as one tensor of ≥ 1 dimension "
-                "(pytree and scalar states are ROADMAP A.33)")
         self.prob, self.alg = prob, alg
         self._tol = {"abstol": abstol, "reltol": reltol,
                      "termination_condition": termination_condition}
@@ -164,14 +160,16 @@ class NonlinearSolveCache:
     def u(self):
         if self.carry is None:
             return self.prob.u0
-        return self._engine.shaped(self.carry.u)
+        return self._prep.to_tree(self._engine.shaped(self.carry.u))
 
     @property
     def fu(self):
         if self.carry is None:
             with torch.no_grad():
-                return self._prep.ctx.f_flat(self._prep.x0)
-        return self.carry.fu
+                fu = self._prep.ctx.f_flat(self._prep.x0)
+        else:
+            fu = self.carry.fu
+        return self._prep.resid_tree(fu)
 
     @property
     def nsteps(self) -> int:

@@ -1,7 +1,8 @@
 """Descent directions (the port of ``core/descent.py``):
 
 * ``NewtonDescent`` — ``J δu = -fu``: the Krylov route on the matrix-free
-  operator or a sparse Jacobian (CSR, DIA), the sparse direct route
+  operator or a sparse Jacobian (CSR, DIA; a non-square system solves the
+  normal equations JᵀJ δu = -Jᵀfu, Jᴴ when complex), the sparse direct route
   (``ops/direct_sparse.py``; ``sparse_lu_device``: ``ops/device_lu.py``),
   the dense route (``solve_dense`` for square systems, least squares
   otherwise);
@@ -29,9 +30,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .._backend import np_dtype
+from .._backend import real_np_dtype
 from ..ops.linear_solve import LinearSolver, _lstsq, solve_dense, solve_spd
-from ..ops.operators import StatefulJacobianOperator, as_matvec, mv, rmv
+from ..ops.operators import (StatefulJacobianNormalFormOperator,
+                             StatefulJacobianOperator, as_matvec, mv, rmv)
 from ..utils.norms import l2_norm, tree_dot
 from . import damping as dmp
 
@@ -224,10 +226,6 @@ def _krylov_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
     from ..ops.sparse import CSR, DIA
 
     is_operator = isinstance(J, StatefulJacobianOperator)
-    if not ctx.square:
-        raise NotImplementedError(
-            "non-square systems with a Krylov solver (normal-form Krylov "
-            "least squares) are ROADMAP A.33")
     if isinstance(J, (CSR, DIA)) and u is not None and u.dim() > 1:
         raise NotImplementedError(
             "a sparse Jacobian with a Krylov solver needs a flat state "
@@ -235,7 +233,12 @@ def _krylov_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
             f"shape {tuple(u.shape)} the JAX package fails as well (ROADMAP "
             "C)")
     method = cfg.linsolve.method if cfg.linsolve.is_krylov else "gmres"
-    if is_operator:
+    rhs = fu
+    if not ctx.square:
+        # normal-form Krylov least squares, as the JAX package's:
+        # JᵀJ δu = Jᵀfu (complex: Jᴴ) by lazy vjp∘jvp products
+        base, rhs = _normal_form(J, fu, u)
+    elif is_operator:
         base = J
     elif isinstance(J, CSR):
         base = J.matvec_fn()        # staged: any repack runs once per step
@@ -247,7 +250,7 @@ def _krylov_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
         products[0] += 1
         return base(v)
 
-    npdt = np_dtype(fu.dtype)
+    npdt = real_np_dtype(fu.dtype)
     rtol = (krylov_rtol if krylov_rtol is not None
             else float(np.sqrt(np.finfo(npdt).eps)))
     if cfg.linsolve.precond_fn is not None:
@@ -268,7 +271,7 @@ def _krylov_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
     kw = {}
     if method == "gmres" and cfg.linsolve.krylov_basis_dtype:
         kw["basis_dtype"] = _BASIS_DTYPES[cfg.linsolve.krylov_basis_dtype]
-    res = solve_krylov(method, matvec, fu, restart=cfg.linsolve.restart,
+    res = solve_krylov(method, matvec, rhs, restart=cfg.linsolve.restart,
                        maxiter=cfg.linsolve.krylov_maxiter, rtol=rtol, M=M,
                        **kw)
     finite = torch.isfinite(res.x).all()
@@ -282,6 +285,20 @@ def _krylov_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
         "Krylov breakdown: non-finite iterate (|r| = {rn})",
         rn=res.residual_norm)
     return -res.x, finite, res.iterations, products[0]
+
+
+def _normal_form(J, fu, u):
+    """The normal-form operator v ↦ Jᵀ(J v) and right-hand side Jᵀfu
+    (complex: Jᴴ) of a non-square J, on ``u``'s shape."""
+    if isinstance(J, StatefulJacobianOperator):
+        return StatefulJacobianNormalFormOperator(J.op, J.u), rmv(J, fu)
+    from ..ops.sparse import CSR, DIA, ELL
+    if isinstance(J, (CSR, DIA, ELL)):
+        return (lambda v: J.rmatvec(J.matvec(v))), J.rmatvec(fu)
+    Jh = J.mH if J.is_complex() else J.T
+    shape = u.shape
+    return ((lambda v: (Jh @ (J @ v.reshape(-1))).reshape(shape)),
+            (Jh @ fu.reshape(-1)).reshape(shape))
 
 
 def _newton_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,

@@ -28,6 +28,8 @@ import torch
 from .. import _backend
 from ..utils.norms import get_tolerance
 from .problems import IntervalNonlinearProblem
+from ..utils.pytree import (ravel_pytree, tree_flatten, tree_leaves,
+                            tree_map)
 from .solution import NLStats, NonlinearSolution
 from .termination import default_termination_mode
 
@@ -44,41 +46,32 @@ class EnsembleProblem:
 
 
 def _shape(x):
-    if x is None:
-        return None
-    if isinstance(x, (tuple, list)):
-        return tuple(_shape(v) for v in x)
-    if isinstance(x, torch.Tensor):
-        return tuple(x.shape)
-    return ()
+    leaves, spec = tree_flatten(x)
+    return spec, tuple(tuple(v.shape) if isinstance(v, torch.Tensor)
+                       else () for v in leaves)
 
 
 def _stack(values, like):
-    """Stack per-trajectory leaves on a new first axis; Python numbers go
-    on ``like``'s device in float64 (as a Python float is under x64)."""
-    first = values[0]
-    if isinstance(first, (tuple, list)):
-        return type(first)(_stack([v[i] for v in values], like)
-                           for i in range(len(first)))
-    if isinstance(first, torch.Tensor):
-        return torch.stack(values)
-    return torch.tensor(values, dtype=torch.float64, device=like.device)
+    """Stack per-trajectory trees leaf by leaf on a new first axis; Python
+    numbers go on ``like``'s device in float64 (as a Python float is under
+    x64)."""
+    def stack(*leaves):
+        if isinstance(leaves[0], torch.Tensor):
+            return torch.stack(leaves)
+        return torch.tensor(leaves, dtype=torch.float64, device=like.device)
+    return tree_map(stack, *values)
 
 
 def _row(x, i):
-    if isinstance(x, (tuple, list)):
-        return type(x)(_row(v, i) for v in x)
-    return x[i]
+    """Row ``i`` of every leaf of a batched tree."""
+    return tree_map(lambda v: v[i], x)
 
 
 def _first_device(*trees):
     for t in trees:
-        if isinstance(t, torch.Tensor):
-            return t.device
-        if isinstance(t, (tuple, list)):
-            d = _first_device(*t)
-            if d is not None:
-                return d
+        for leaf in tree_leaves(t):
+            if isinstance(leaf, torch.Tensor):
+                return leaf.device
     return None
 
 
@@ -149,16 +142,17 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
     if is_simple_alg(alg) and not _lone_options(prob, merged):
         return _solve_simple_batch(prob, alg, u0s, ps, **merged)
 
-    B = (u0s if u0s is not None else _first_leaf(ps)).shape[0]
+    B = _first_leaf(u0s if u0s is not None else ps).shape[0]
     sols = [solve_nonlinear(
-        prob.remake(u0=None if u0s is None else u0s[i],
+        prob.remake(u0=None if u0s is None else _row(u0s, i),
                     p=None if ps is None else _row(ps, i)), alg, **merged)
         for i in range(B)]
-    dev = sols[0].u.device
+    dev = _first_leaf(sols[0].u).device
     ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)
     return NonlinearSolution(
-        u=torch.stack([s.u for s in sols]),
-        resid=torch.stack([s.resid for s in sols]),
+        u=tree_map(lambda *r: torch.stack(r), *[s.u for s in sols]),
+        resid=tree_map(lambda *r: torch.stack(r),
+                       *[s.resid for s in sols]),
         retcode=ints([int(s.retcode) for s in sols]),
         stats=NLStats(*[ints([getattr(s.stats, k) for s in sols])
                         for k in ("nf", "njacs", "nfactors", "nsolve",
@@ -179,7 +173,7 @@ def _lone_options(prob, merged) -> bool:
 
 
 def _first_leaf(tree):
-    return tree[0] if isinstance(tree, (tuple, list)) else tree
+    return tree_leaves(tree)[0]
 
 
 def _solve_simple_batch(prob, alg, u0s, ps, *, abstol=None, reltol=None,
@@ -189,33 +183,32 @@ def _solve_simple_batch(prob, alg, u0s, ps, *, abstol=None, reltol=None,
     that are unset, see ``_lone_options``)."""
     from ..solvers.simple import BatchedResidual, run_simple_batched
 
-    u0 = prob.u0
-    if not isinstance(u0, torch.Tensor):
-        raise NotImplementedError(
-            "u0 must be one tensor: pytree states are ROADMAP A.33")
-    shape = tuple(u0.shape)
+    from .solve import state_device
+    dev = state_device(prob.u0, prob.p)
+    u0_flat, unravel = ravel_pytree(prob.u0, device=dev)
     if u0s is not None:
-        B = u0s.shape[0]
-        X0 = u0s.reshape(B, -1)
+        # each trajectory's state raveled as u0 is (JAX's leaf order)
+        X0 = torch.func.vmap(lambda t: ravel_pytree(t, device=dev)[0])(u0s)
+        B = X0.shape[0]
     else:
         B = _first_leaf(ps).shape[0]
-        X0 = u0.reshape(1, -1).expand(B, -1).clone()
+        X0 = u0_flat.reshape(1, -1).expand(B, -1).clone()
     P, pdim = (prob.p, None) if ps is None else (ps, 0)
     f = prob.f
+    out = {}
 
     def f1(v, p):
-        return f.f(v.reshape(shape), p).reshape(-1)
+        flat, out["unravel"] = ravel_pytree(f.f(unravel(v), p), device=dev)
+        return flat
 
     jac1 = None
     if f.jac is not None:
         def jac1(v, p):
-            return f.jac(v.reshape(shape), p).reshape(-1, v.shape[0])
+            return f.jac(unravel(v), p).reshape(-1, v.shape[0])
 
     with torch.no_grad():
         first = P if pdim is None else _row(P, slice(0, 1))
-        fu_first = torch.func.vmap(lambda v, p: f.f(v.reshape(shape), p),
-                                   in_dims=(0, pdim))(X0[:1], first)
-        out_shape = tuple(fu_first.shape[1:])
+        fu_first = torch.func.vmap(f1, in_dims=(0, pdim))(X0[:1], first)
         npdt = _backend.np_dtype(X0.dtype)
         is_lsq = prob.is_least_squares
         if termination_condition is None:
@@ -230,7 +223,8 @@ def _solve_simple_batch(prob, alg, u0s, ps, *, abstol=None, reltol=None,
             npdt(get_tolerance(abstol, npdt)),
             npdt(get_tolerance(reltol, npdt)), int(maxiters))
     return NonlinearSolution(
-        u=final.u.reshape((B,) + shape),
-        resid=final.fu.reshape((B,) + out_shape), retcode=final.retcode,
+        u=torch.func.vmap(unravel)(final.u),
+        resid=torch.func.vmap(out["unravel"])(final.fu),
+        retcode=final.retcode,
         stats=final.stats,
         counters={"host_syncs": _backend.HOST_SYNCS["n"] - syncs0})

@@ -123,7 +123,7 @@ def ls_init(cfg, fu, host):
 
 def ls_solve(cfg, state, ctx: DescentCtx, u, du, fu, J, nsteps,
              read=_backend.fetch) -> LSResult:
-    npdt = _backend.np_dtype(u.dtype)
+    npdt = _backend.real_np_dtype(u.dtype)
     with np.errstate(all="ignore"):
         if isinstance(cfg, BackTracking):
             return _backtracking(cfg, ctx, u, du, fu, J, read, npdt)

@@ -3,9 +3,10 @@
 ``IntervalNonlinearProblem``, ``SteadyStateProblem``, ``HomotopyProblem``
 and ``SCCNonlinearProblem``.
 
-Functions are out-of-place: ``f(u, p) -> resid`` on tensors.  ``u`` is one
-tensor of any shape (≥ 1-d; 0-d on the simple tier); pytrees of tensors
-are not ported.
+Functions are out-of-place: ``f(u, p) -> resid`` on tensors.  ``u`` is a
+tensor of any shape, or a pytree of them (tuples, lists, dicts,
+dataclasses; ``utils/pytree.py``), real or complex; the residual may be a
+pytree too.
 """
 
 from __future__ import annotations

@@ -183,7 +183,10 @@ def implicit_solve(root: ImplicitRoot, u, leaves, rhs, transpose: bool):
         STATS.clear()
         STATS.update(branch="dense", iterations=0, rel_residual=0.0,
                      success=True, transpose=bool(transpose))
-        x = torch.linalg.solve(J.mT if transpose else J, rhs.reshape(-1))
+        # jnp.linalg.solve: NaN for a singular M, no raise, no host read
+        x, info = torch.linalg.solve_ex(J.mT if transpose else J,
+                                        rhs.reshape(-1), check_errors=False)
+        x = torch.where(info == 0, x, torch.full_like(x, float("nan")))
         return x.reshape(u.shape)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (rhs, u, *leaves)):

@@ -9,13 +9,19 @@ first, ``SSRootfind(alg)`` unwraps to ``alg``),
 ``solvers.bracketing.solve_bracketing`` on an ``IntervalNonlinearProblem``,
 ``solvers.homotopy.solve_homotopy`` on a ``HomotopyProblem``,
 ``solvers.scc.solve_scc`` on an ``SCCNonlinearProblem``,
-``solvers.wrappers.solve_wrapper`` with a SciPy bridge and
-``core.ensemble`` on an ``EnsembleProblem``.  The port runs the shaped path: the iterate is ``u0``
-itself, one tensor of any shape (≥ 1-d), never flattened — except on the
-simple tier, which runs on the flattened state as the JAX package does (so
-a 0-d ``u0`` is accepted there); an empty ``u0`` returns ``Success`` at
-once, as in the JAX package.  Bounds (``lb``/``ub``) solve in the
-unbounded variable of ``core/bounds.py``, elementwise on that shape.
+``solvers.wrappers.solve_wrapper`` with a SciPy bridge,
+``solvers.homotopy_continuation`` with ``HomotopyContinuationJL`` /
+``TaylorHomotopyContinuationJL`` and
+``core.ensemble`` on an ``EnsembleProblem``.  As in the JAX package, one
+tensor ``u0`` of ≥ 1 dimension with a one-tensor residual, no bounds and
+a first-order or spectral engine runs shaped: the iterate is ``u0``
+itself, never flattened (``shaped_supported``).  Everything else runs on
+the flat state of ``utils/pytree.py``'s ``ravel_pytree`` (JAX's leaf
+order and dtype promotion): pytree states and residuals, 0-d states,
+bounded states and the matrix-building engines; the solution gives ``u``
+and ``resid`` back in their trees.  An empty ``u0`` returns ``Success``
+at once, as in the JAX package.  Bounds (``lb``/``ub``) solve in the
+unbounded variable of ``core/bounds.py``.
 
 The engine runs under ``torch.no_grad()`` on the device that ``u0`` is
 on.  When ``p`` carries a gradient (a leaf that requires grad, or a
@@ -36,17 +42,21 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import weakref
+from typing import Any
 
+import numpy as np
 import torch
 
 from .. import _backend
 from ..utils.norms import get_tolerance
+from ..utils.pytree import ravel_pytree, tree_leaves
 from .descent import DescentCtx
 from ..ops.sparse_jac import plan_sparse_jacobian
 from .jacobian import JacobianSpec, wants_sparse
 from .problems import (HomotopyProblem, IntervalNonlinearProblem,
-                       NonlinearLeastSquaresProblem, NonlinearProblem,
-                       SCCNonlinearProblem, SteadyStateProblem)
+                       NonlinearFunction, NonlinearLeastSquaresProblem,
+                       NonlinearProblem, SCCNonlinearProblem,
+                       SteadyStateProblem)
 from .returncode import ReturnCode
 from .solution import NLStats, NonlinearSolution
 from .termination import default_termination_mode
@@ -148,6 +158,11 @@ def solve(prob, alg=None, **kwargs) -> NonlinearSolution:
     from ..solvers.wrappers import is_wrapper_alg, solve_wrapper
     if is_wrapper_alg(alg):
         return solve_wrapper(prob, alg, **merged)
+    from ..solvers.homotopy_continuation import (
+        HomotopyContinuationJL, TaylorHomotopyContinuationJL,
+        solve_homotopy_continuation)
+    if isinstance(alg, (HomotopyContinuationJL, TaylorHomotopyContinuationJL)):
+        return solve_homotopy_continuation(prob, alg, **merged)
     if alg is None:
         alg = _default_algorithm(prob)
     # a time budget runs through the iterator, checked between chunks of
@@ -172,10 +187,11 @@ def _maybe_sparse_plan(f, alg, spec, f_flat, n_in, n_out, u0):
     """The host-side sparse Jacobian plan (pattern, coloring) of the
     residual ``f_flat``, built once before the loop when ``alg`` takes the
     colored sparse-AD path, and cached per (function, shape, dtype) so
-    repeated solves reuse it."""
+    repeated solves reuse it (a flat path's function by the user's
+    function and the flat shape)."""
     if not wants_sparse(alg, spec):
         return None
-    plans = _SPARSE_PLANS.setdefault(f, {})
+    plans = _SPARSE_PLANS.setdefault(getattr(f, "owner", None) or f, {})
     key = (tuple(u0.shape), u0.dtype)
     if key not in plans:
         plans[key] = plan_sparse_jacobian(
@@ -257,6 +273,129 @@ def _emit_solve_messages(verbosity, alias_u0, postcondition, has_bounds):
             "coordinates (conditioning.jl:46-66)")
 
 
+def shaped_supported(alg) -> bool:
+    """Engines that run on the shaped state (no flattening): the
+    first-order and spectral engines, and polyalgorithms of them only."""
+    from ..solvers.first_order import GeneralizedFirstOrderAlgorithm
+    from ..solvers.polyalg import NonlinearSolvePolyAlgorithm
+    from ..solvers.spectral import GeneralizedDFSane
+    if isinstance(alg, NonlinearSolvePolyAlgorithm):
+        return all(shaped_supported(a) for a in alg.algs)
+    return isinstance(alg, (GeneralizedFirstOrderAlgorithm,
+                            GeneralizedDFSane))
+
+
+def state_device(u0, p=None) -> torch.device:
+    """The device of the first tensor leaf of ``u0``, else of ``p``, else
+    the card."""
+    for tree in (u0, p):
+        for leaf in tree_leaves(tree):
+            if isinstance(leaf, torch.Tensor):
+                return leaf.device
+    return _backend.resolve_device(None)
+
+
+def state_tensor(u0, p=None, device=None) -> torch.Tensor:
+    """A single-leaf ``u0`` as one tensor on ``device`` (by default
+    ``state_device(u0, p)``): a Python number or list in the dtype JAX
+    gives it under x64 (a float is f64, a complex complex128), a numpy
+    value in its own dtype."""
+    t = u0 if isinstance(u0, torch.Tensor) else torch.as_tensor(
+        np.asarray(u0))
+    return t.to(state_device(u0, p) if device is None else device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FlatFunction(NonlinearFunction):
+    """A ``NonlinearFunction`` on the flat state; ``owner`` is the user's
+    function (the key of its sparse plan)."""
+
+    owner: Any = None
+
+
+class FlatMap:
+    """The flat path's maps: ``unravel_u`` to ``u0``'s tree, and
+    ``unravel_fu`` to the residual's (known once ``f`` has run)."""
+
+    def __init__(self, u0, device):
+        self.u0_flat, self.unravel_u = ravel_pytree(u0, device=device)
+        self.device = device
+        self.unravel_fu = None
+
+    def ravel(self, tree):
+        return ravel_pytree(tree, device=self.device)
+
+    def ravel_out(self, tree):
+        """The residual's tree raveled; below double precision a copy in
+        its own dtype, since under ``torch.func.jvp`` a 0-d f32 tensor
+        combined with a Python float carries an f64 tangent (ROADMAP C)."""
+        flat, self.unravel_fu = self.ravel(tree)
+        if flat.dtype not in (torch.float64, torch.complex128):
+            flat = flat.to(flat.dtype, copy=True)
+        return flat
+
+    def function(self, f: NonlinearFunction) -> FlatFunction:
+        """``f`` and its analytic derivatives on flat vectors."""
+        un, n_in = self.unravel_u, self.u0_flat.numel()
+        rav = lambda t: self.ravel(t)[0]
+        return FlatFunction(
+            f=lambda u, p: self.ravel_out(f.f(un(u), p)),
+            jac=(None if f.jac is None else
+                 (lambda u, p: f.jac(un(u), p).reshape(-1, n_in))),
+            jvp=(None if f.jvp is None else
+                 (lambda v, u, p: rav(f.jvp(un(v), un(u), p)))),
+            vjp=(None if f.vjp is None else
+                 (lambda v, u, p: rav(f.vjp(self.unravel_fu(v), un(u), p)))),
+            jac_prototype=f.jac_prototype, sparsity=f.sparsity,
+            colorvec=f.colorvec, owner=getattr(f, "owner", None) or f)
+
+    def bound(self, b):
+        """A bound given as a tree like ``u0``'s, flattened; None,
+        numbers and sequences as they are."""
+        if isinstance(b, (dict, tuple)) or (
+                isinstance(b, list) and any(isinstance(x, torch.Tensor)
+                                            for x in b)):
+            return self.ravel(b)[0]
+        if isinstance(b, torch.Tensor):
+            return b.reshape(-1)
+        return b
+
+    def precondition(self, precondition):
+        if precondition is None:
+            return None
+        un = self.unravel_u
+        return lambda fu, u, p: self.ravel(precondition(
+            self.unravel_fu(fu), un(u), p))[0]
+
+    def postcondition(self, postcondition):
+        if postcondition is None:
+            return None
+        un = self.unravel_u
+        corrector = getattr(postcondition, "corrector", postcondition)
+        flat = lambda u, u_prev, p: self.ravel(corrector(un(u), un(u_prev),
+                                                         p))[0]
+        if hasattr(postcondition, "corrector"):
+            return dataclasses.replace(postcondition, corrector=flat)
+        return flat
+
+
+def flat_problem(prob, fmap: FlatMap):
+    """``prob`` on the flat state (its function, ``u0`` and bounds)."""
+    return type(prob)(fmap.function(prob.f), fmap.u0_flat, prob.p,
+                      lb=fmap.bound(prob.lb), ub=fmap.bound(prob.ub),
+                      **prob.kwargs)
+
+
+def takes_flat_path(prob, alg) -> bool:
+    """True unless the shaped rule holds for the state, the bounds and the
+    engine (the residual's tree is checked once it has run)."""
+    if isinstance(prob.f, FlatFunction):
+        return False
+    return not (isinstance(prob.u0, torch.Tensor) and prob.u0.dim() >= 1
+                and prob.lb is None and prob.ub is None
+                and shaped_supported(alg))
+
+
 @dataclasses.dataclass
 class Prepared:
     """A problem set up for an engine: the context and Jacobian spec on
@@ -275,6 +414,14 @@ class Prepared:
     residual: object
     bounds: object
     grad_index: list
+    flat: FlatMap = None         # the flat path's maps (None: shaped)
+
+    def to_tree(self, u):
+        """An iterate in ``u0``'s tree."""
+        return u if self.flat is None else self.flat.unravel_u(u)
+
+    def resid_tree(self, fu):
+        return fu if self.flat is None else self.flat.unravel_fu(fu)
 
 
 def prepare(prob, alg, *, abstol=None, reltol=None,
@@ -286,11 +433,16 @@ def prepare(prob, alg, *, abstol=None, reltol=None,
     then the bounds' change of variable, the corrector on the iterate, the
     analytic derivatives and the sparse plan of the raw residual."""
     from .sensitivity import differentiable_leaves, strip_tangents
+    kw = dict(abstol=abstol, reltol=reltol,
+              termination_condition=termination_condition, trace=trace,
+              verbosity=verbosity, timer=timer)
+    if takes_flat_path(prob, alg):
+        return _prepare_flat(prob, alg, precondition, postcondition, kw)
     u0, p = prob.u0, prob.p
     grad_index = differentiable_leaves(p)
     u0 = strip_tangents(u0).detach()
     p_run = strip_tangents(p)
-    npdt = _backend.np_dtype(u0.dtype)
+    npdt = _backend.real_np_dtype(u0.dtype)
     is_lsq = prob.is_least_squares
     if termination_condition is None:
         termination_condition = default_termination_mode(
@@ -322,9 +474,7 @@ def prepare(prob, alg, *, abstol=None, reltol=None,
     with torch.no_grad():
         fu0 = f_flat(x0)
     if not isinstance(fu0, torch.Tensor):
-        raise NotImplementedError(
-            "the residual must return one tensor; pytree residuals are "
-            "ROADMAP A.33")
+        return _prepare_flat(prob, alg, precondition, postcondition, kw)
     ctx = DescentCtx(
         f_flat=f_flat, n_in=x0.numel(), n_out=fu0.numel(),
         is_least_squares=is_lsq, out_shape=tuple(fu0.shape),
@@ -349,6 +499,20 @@ def prepare(prob, alg, *, abstol=None, reltol=None,
         grad_index=grad_index)
 
 
+def _prepare_flat(prob, alg, precondition, postcondition, kw) -> Prepared:
+    """``prepare`` on the flat state: the problem, the conditioning and the
+    bounds through ``FlatMap``; the engines then run on a 1-d tensor."""
+    from .sensitivity import strip_tangents
+    u0 = strip_tangents(prob.u0)
+    fmap = FlatMap(u0, state_device(u0, prob.p))
+    fmap.u0_flat = fmap.u0_flat.detach()
+    prep = prepare(flat_problem(prob, fmap), alg,
+                   precondition=fmap.precondition(precondition),
+                   postcondition=fmap.postcondition(postcondition), **kw)
+    prep.flat = fmap
+    return prep
+
+
 def solution_of(prob, prep: Prepared, carry, counters, trace=None,
                 timer=None) -> NonlinearSolution:
     """The solution from an engine's final carry: the root joined to
@@ -363,7 +527,8 @@ def solution_of(prob, prep: Prepared, carry, counters, trace=None,
         from .bounds import from_unbounded
         u = from_unbounded(u, *prep.bounds)
     return NonlinearSolution(
-        u=u, resid=carry.fu, retcode=ReturnCode(carry.retcode),
+        u=prep.to_tree(u), resid=prep.resid_tree(carry.fu),
+        retcode=ReturnCode(carry.retcode),
         stats=carry.stats, counters=counters, trace=trace,
         timer=None if timer is None else timer.summarize())
 
@@ -380,14 +545,7 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
             f"solve() front door (maxtime/ensemble routing), not "
             f"solve_nonlinear(); call solve() instead")
     u0 = prob.u0
-    from ..solvers.simple import is_simple_alg
-    simple = is_simple_alg(alg)
-    if not isinstance(u0, torch.Tensor) or (u0.dim() == 0 and not simple):
-        raise NotImplementedError(
-            "u0 must be one tensor of ≥ 1 dimension (a 0-d tensor on the "
-            "simple tier): pytree and scalar states (the flat path) are "
-            "ROADMAP A.33")
-    if u0.numel() == 0:
+    if isinstance(u0, torch.Tensor) and u0.numel() == 0:
         return _null_solution(prob, abstol)
     # alias_u0 has no effect: the engine never writes into u0.  The root
     # depends on p alone: u0's and the bounds' tangents are zero.
@@ -401,7 +559,7 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
     timer = None
     if time_phases:
         # the set-up counts as "other", up to the engine's first mark
-        timer = PhaseTimer(u0.device)
+        timer = PhaseTimer(state_device(u0, prob.p))
         timer.mark("other")
     prep = prepare(prob, alg, abstol=abstol, reltol=reltol,
                    termination_condition=termination_condition,

@@ -25,7 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .._backend import fetch, np_dtype
+from .._backend import fetch, real_np_dtype
 from ..utils.norms import apply_norm, l2_norm
 from .returncode import ReturnCode
 
@@ -177,7 +177,7 @@ def init_termination(cfg: TerminationCondition, fu, u, reltol, *,
                      norms=None) -> TermState:
     """``norms``: host values of ``init_norms(cfg, fu, u)`` when the caller
     has already read them; otherwise they are read here."""
-    npdt = np_dtype(u.dtype)
+    npdt = real_np_dtype(u.dtype)
     reltol = npdt(reltol)
     u0_norm = objectives_trace = step_norm_trace = initial = None
     if cfg.is_safe:
@@ -335,7 +335,7 @@ class BatchTermState:
 def _rows_objective(cfg: TerminationCondition, fu, u, reltol):
     nrm = _rows_norm(cfg.norm, fu)
     if cfg.is_relative:
-        npdt = np_dtype(u.dtype)
+        npdt = real_np_dtype(u.dtype)
         eps_at = float(npdt(np.finfo(npdt).eps) * npdt(reltol))
         return nrm / (_rows_norm(cfg.norm, fu + u) + eps_at)
     return nrm
@@ -406,7 +406,7 @@ def check_termination_batched(cfg: TerminationCondition,
                                        code(int(ReturnCode.Success)),
                                        state.retcode))
 
-    npdt = np_dtype(u.dtype)
+    npdt = real_np_dtype(u.dtype)
     abstol, reltol = npdt(abstol), npdt(reltol)
     objective = _rows_objective(cfg, fu, u, reltol)
     criteria = float(reltol if cfg.is_relative else abstol)

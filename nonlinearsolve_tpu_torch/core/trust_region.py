@@ -25,7 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .._backend import np_dtype
+from .._backend import real_np_dtype
 from .autodiff import jvp
 from ..ops.operators import mv, rmv
 from ..utils.norms import l2_norm, tree_dot
@@ -145,7 +145,7 @@ def tr_init_reads(cfg, ctx: DescentCtx, fu, u) -> list:
 
 def tr_init(cfg, u, host) -> Any:
     """The initial state from the host values of ``tr_init_reads``."""
-    npdt = np_dtype(u.dtype)
+    npdt = real_np_dtype(u.dtype)
     if isinstance(cfg, LevenbergMarquardtTrustRegion):
         return LMTRState(loss_old=npdt(np.inf), v_cache=u,
                          norm_v_old=npdt(np.inf), last_step_accepted=False)

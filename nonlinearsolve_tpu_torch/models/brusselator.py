@@ -45,9 +45,11 @@ def forcing_mask(N: int, dtype=torch.float64) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _force(N: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    # never written to: shared by every residual call at this size
-    force = 5.0 * forcing_mask(N, dtype).astype(_backend.np_dtype(dtype))
-    return torch.as_tensor(force, device=device)
+    # never written to: shared by every residual call at this size; a
+    # complex state takes the mask of its real dtype
+    real = _backend.real_dtype(dtype)
+    force = 5.0 * forcing_mask(N, real).astype(_backend.np_dtype(real))
+    return torch.as_tensor(force, device=device).to(dtype)
 
 
 def init_u0(N: int, dtype=torch.float64, *, device=None) -> torch.Tensor:

@@ -25,6 +25,14 @@ as 0-d tensors (the JAX package's ``while_loop`` carry, op for op) and read
 the device once an iteration: the loop test (the residual norm and, where
 the JAX loop has one, its breakdown flag) in one ``fetch``.  Iteration
 counts, the stopping rule and ``success`` are the JAX package's.
+
+Complex systems: GMRES orthogonalises with the conjugated inner product
+Σ conj(vᵢ)wᵢ and eliminates with complex Givens rotations [c̄ s̄; −s c]
+(the JAX package's loop takes the unconjugated Σ vᵢwᵢ and real rotation
+formulas there, and stalls: ROADMAP C); BiCGStab's ρ, α and ω are
+complex; CG and MINRES keep the JAX package's real inner product
+Re Σ conj(aᵢ)bᵢ, which is exact for the Hermitian systems they solve.
+Norms and tolerances are real.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .._backend import fetch, np_dtype
+from .._backend import fetch, np_dtype, real_np_dtype
 from ..utils.norms import l2_norm, tree_dot
 
 
@@ -77,12 +85,12 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     if basis_dtype is not None and b.is_complex():
         raise ValueError("basis_dtype narrowing stores a REAL basis; "
                          "complex systems must keep the working dtype")
-    if b.is_complex():
-        raise NotImplementedError("complex GMRES is ROADMAP A.33")
     n = b.numel()
     shape = b.shape
     dtype = b.dtype
-    npdt = np_dtype(dtype)
+    cplx = b.is_complex()
+    npdt = np_dtype(dtype)              # H, the rotations and g
+    rdt = real_np_dtype(dtype)          # norms and tolerances
     m = min(restart, n)
     if maxiter is None:
         maxiter = min(10 * max(1, n // m), 1000) * m
@@ -100,14 +108,14 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         rnorm = b_norm
     else:
         b_norm, rnorm = fetch(l2(mb), l2(r))
-    tol = np.maximum(npdt(rtol) * b_norm, npdt(atol))
+    tol = np.maximum(rdt(rtol) * b_norm, rdt(atol))
     V = torch.empty((m + 1, n), dtype=basis_dtype or dtype, device=b.device)
     beta = rnorm           # the norm of r, known for the first cycle
     it = 0
     while rnorm > tol and it < maxiter:
         # --- one Arnoldi cycle (r is the preconditioned residual) ---
-        safe_beta = npdt(1) if beta == 0 else beta
-        V[0] = (r * (npdt(1) / safe_beta)).reshape(-1)
+        safe_beta = rdt(1) if beta == 0 else beta
+        V[0] = (r * (rdt(1) / safe_beta)).reshape(-1)
         H = np.zeros((m + 1, m), npdt)
         cs = np.zeros(m, npdt)
         sn = np.zeros(m, npdt)
@@ -118,37 +126,43 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         while k < m and not done:
             w = M(matvec(V[k].view(shape).to(dtype))).reshape(-1)
             Vk = V[: k + 1].to(dtype)
-            hd = Vk @ w
+            VkH = Vk.conj() if cplx else Vk
+            hd = VkH @ w
             w_norm0 = l2(w)
             w = w - hd @ Vk
             wn = l2(w)
             h_host, w_norm0, h_next = fetch(hd, w_norm0, wn)
             h = np.zeros(m + 1, npdt)
             h[: k + 1] = h_host
-            if h_next < npdt(0.7071) * w_norm0:
-                hd2 = Vk @ w
+            if h_next < rdt(0.7071) * w_norm0:
+                hd2 = VkH @ w
                 w = w - hd2 @ Vk
                 h2_host, h_next = fetch(hd2, l2(w))
                 h[: k + 1] += h2_host
-            happy = h_next <= npdt(1e-14) * np.abs(g[0])
-            scale = (npdt(0) if happy
-                     else npdt(1) / (npdt(1) if h_next == 0 else h_next))
+            happy = h_next <= rdt(1e-14) * np.abs(g[0])
+            scale = (rdt(0) if happy
+                     else rdt(1) / (rdt(1) if h_next == 0 else h_next))
             V[k + 1] = w * scale
             h[k + 1] = npdt(0) if happy else h_next
-            for i in range(k):      # previous Givens rotations
-                hi = cs[i] * h[i] + sn[i] * h[i + 1]
+            # previous Givens rotations (complex: [c̄ s̄; -s c], the
+            # conjugates being the identity on real scalars)
+            for i in range(k):
+                hi = np.conj(cs[i]) * h[i] + np.conj(sn[i]) * h[i + 1]
                 hi1 = -sn[i] * h[i] + cs[i] * h[i + 1]
                 h[i], h[i + 1] = hi, hi1
-            denom = np.sqrt(h[k] ** 2 + h[k + 1] ** 2)
+            if cplx:
+                denom = np.sqrt(np.abs(h[k]) ** 2 + np.abs(h[k + 1]) ** 2)
+            else:
+                denom = np.sqrt(h[k] ** 2 + h[k + 1] ** 2)
             safe = npdt(1) if denom == 0 else denom
             ck = npdt(1) if denom == 0 else h[k] / safe
             sk = npdt(0) if denom == 0 else h[k + 1] / safe
             cs[k], sn[k] = ck, sk
-            h[k] = ck * h[k] + sk * h[k + 1]
+            h[k] = np.conj(ck) * h[k] + np.conj(sk) * h[k + 1]
             h[k + 1] = 0
             gk1 = -sk * g[k]
             g[k + 1] = gk1
-            g[k] = ck * g[k]
+            g[k] = np.conj(ck) * g[k]
             H[:, k] = h
             done = bool(np.abs(gk1) <= tol) or bool(happy)
             k += 1
@@ -174,14 +188,18 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
 def _short_setup(b, x0, maxiter, rtol, atol, M):
     """What BiCGStab, CG and MINRES share: ``(maxiter, M, x0, the numpy
-    scalar type of b's dtype)``, with maxiter 2n and x0 zero by default."""
-    if b.is_complex():
-        raise NotImplementedError("complex Krylov states are ROADMAP A.33")
-    npdt = np_dtype(b.dtype)
+    scalar type of b's real dtype)``, with maxiter 2n and x0 zero by
+    default."""
+    npdt = real_np_dtype(b.dtype)
     if maxiter is None:
         maxiter = 2 * b.numel()
     return (maxiter, M or _identity_precond,
             torch.zeros_like(b) if x0 is None else x0, npdt)
+
+
+def _cdot(a, b):
+    """Σ conj(aᵢ)bᵢ, a complex 0-d tensor."""
+    return torch.sum(a.conj() * b)
 
 
 def _safe(t):
@@ -201,8 +219,11 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
              M: Optional[Callable] = None) -> KrylovResult:
     """Preconditioned BiCGStab (van der Vorst), the JAX package's loop:
     it stops when ‖r‖ ≤ tol, after ``maxiter`` iterations, or on a
-    breakdown (a non-finite residual, ρ = 0 or r̂·v = 0)."""
+    breakdown (a non-finite residual, ρ = 0 or r̂·v = 0).  On a complex
+    system ρ, α and ω are complex, from the inner products Σ conj(aᵢ)bᵢ
+    (the JAX package's loop keeps them real there, and fails to trace)."""
     maxiter, M, x, npdt = _short_setup(b, x0, maxiter, rtol, atol, M)
+    dot = _cdot if b.is_complex() else tree_dot
     r = b - matvec(x)
     rhat = r
     one = torch.ones((), dtype=b.dtype, device=b.device)
@@ -212,17 +233,17 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     tol = np.maximum(npdt(rtol) * b_norm, npdt(atol))
     it, ok = 0, True
     while rnorm > tol and it < maxiter and ok:
-        rho_new = tree_dot(rhat, r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / _safe(rho)) * (alpha / _safe(omega))
         p = r + beta * (p + (-omega) * v)
         phat = M(p)
         v = matvec(phat)
-        denom = tree_dot(rhat, v)
+        denom = dot(rhat, v)
         alpha = rho_new / _safe(denom)
         s = r + (-alpha) * v
         shat = M(s)
         t = matvec(shat)
-        omega = tree_dot(t, s) / _safe(tree_dot(t, t))
+        omega = dot(t, s) / _safe(dot(t, t))
         x = (x + omega * shat) + alpha * phat
         r = s + (-omega) * t
         rho = rho_new
@@ -276,7 +297,7 @@ def minres(matvec: Callable, b: torch.Tensor,
     safe_b0 = _safe(beta0)
     v, y = (1.0 / safe_b0) * r0, (1.0 / safe_b0) * y0
     v_old, w, w_old = (torch.zeros_like(b) for _ in range(3))
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros((), dtype=beta0.dtype, device=b.device)
     beta, eta = zero, beta0
     c0, c1, s0, s1 = zero + 1.0, zero + 1.0, zero, zero
     b_norm, r_norm = fetch(l2_norm(b), beta0)

@@ -149,7 +149,7 @@ def _lstsq(A: torch.Tensor, b: torch.Tensor, factors=None):
         factors = (_nan_unless(U, finite), _nan_unless(S, finite[..., 0]),
                    _nan_unless(Vh, finite))
     U, S, Vh = factors
-    rcond = float(torch.finfo(A.dtype).eps) * max(n, m)
+    rcond = float(torch.finfo(A.real.dtype).eps) * max(n, m)
     mask = (S > 0) & (S >= torch.tensor(rcond, dtype=S.dtype,
                                         device=S.device) * S[..., :1])
     safe_s = torch.where(mask, S, torch.ones_like(S)).to(A.dtype)
@@ -226,12 +226,14 @@ def _gauss_jordan_ops(M: torch.Tensor, n: int, vec: bool) -> torch.Tensor:
     host read, so it can be captured in a CUDA graph).  ``M`` may carry
     leading batch dimensions; each matrix is eliminated on its own, with
     the same one-hot row algebra, so a row of a batch rounds as it does
-    alone."""
+    alone.  A complex ``M`` pivots on the modulus, as ``jnp.abs`` does.
+    It is the CPU's route for complex systems too."""
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
     off = 1.0 - eye                                       # rows: 1 - ek
     idx = torch.arange(n, device=M.device)
     below = torch.ones(n, n, dtype=torch.bool, device=M.device).tril()
-    neg_inf = torch.full((n,), float("-inf"), dtype=M.dtype, device=M.device)
+    neg_inf = torch.full((n,), float("-inf"), dtype=M.real.dtype,
+                         device=M.device)
     for k in range(n):
         ek = eye[k][:, None]
         cand = torch.where(below[:, k], M[..., :, k].abs(), neg_inf)

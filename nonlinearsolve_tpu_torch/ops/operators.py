@@ -5,7 +5,8 @@ the problem's analytic ``jvp`` / ``vjp`` when it has them (on the main
 path, kernel K1 for J·v), else ``torch.func.jvp`` / ``torch.func.vjp`` of
 the residual.  ``.T`` swaps the two (``VecJacOperator`` is the transposed
 operator).  A ``StatefulJacobianOperator`` is one bound at a
-linearisation point.  ``mv`` / ``rmv`` apply J / Jᵀ whatever J is: a dense
+linearisation point, a ``StatefulJacobianNormalFormOperator`` its JᵀJ.
+On a complex state the VJP is ``torch.func.vjp``'s, Jᴴ·v.  ``mv`` / ``rmv`` apply J / Jᵀ whatever J is: a dense
 matrix (with a shaped vector), a sparse container or an operator.
 """
 
@@ -88,6 +89,21 @@ class StatefulJacobianOperator:
         return StatefulJacobianOperator(self.op.T, self.u)
 
 
+class StatefulJacobianNormalFormOperator:
+    """Lazy ``JᵀJ`` (complex: ``JᴴJ``) at a linearization point, the VJP
+    of the JVP: the operator of normal-form Krylov least squares."""
+
+    def __init__(self, op, u):
+        self.op = op
+        self.u = u
+
+    def __call__(self, v):
+        return self.op.vjp(self.u, self.op.jvp(self.u, v))
+
+    def __matmul__(self, v):
+        return self(v)
+
+
 def JacVecOperator(f_flat: Callable, u=None, *, analytic_jvp=None):
     """``v ↦ J(u)·v``: a JacobianOperator, bound at ``u`` when given."""
     op = JacobianOperator(f_flat, analytic_jvp=analytic_jvp)
@@ -126,12 +142,15 @@ def mv(A, v):
 def rmv(A, v):
     """``Aᵀ @ v`` for a dense matrix (with a shaped ``v``; the result has
     ``v``'s shape, as the JAX package's), a sparse container (flat ``v``)
-    or an operator."""
+    or an operator.  For a complex ``A`` it is ``Aᴴ @ v``, as the
+    operator's VJP (``torch.func.vjp``) gives it: the gradient of ½‖F‖²
+    (the JAX package's dense product and VJP give ``Aᵀ @ v``)."""
     from .sparse import CSR, DIA, ELL
     if isinstance(A, StatefulJacobianOperator):
         return A.rmatvec(v)
     if isinstance(A, (CSR, DIA, ELL)):
         return A.rmatvec(v)
+    At = A.mH if A.is_complex() else A.T
     if v.dim() != 1:
-        return (A.T @ v.reshape(-1)).reshape(v.shape)
-    return A.T @ v
+        return (At @ v.reshape(-1)).reshape(v.shape)
+    return At @ v

@@ -36,6 +36,12 @@ from ..core.solution import NLStats, NonlinearSolution
 from ..utils.norms import get_tolerance
 
 
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN (``torch.sign`` maps it to 0), so a NaN
+    residual never compares equal to a sign."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
 @dataclasses.dataclass(frozen=True)
 class Bisection:
     exact_left: bool = False
@@ -140,7 +146,7 @@ def _run_bracketing(f, alg, left, right, abstol, maxiters):
     if isinstance(alg, Muller):
         non_enclosing = torch.zeros_like(exact_l)      # Muller needs none
     else:
-        non_enclosing = (torch.sign(fl) == torch.sign(fr)) & ~exact_l & ~exact_r
+        non_enclosing = (_sign(fl) == _sign(fr)) & ~exact_l & ~exact_r
     code = lambda c: torch.full(left.shape, int(c), dtype=torch.int32,
                                 device=left.device)
     pre_retcode = torch.where(
@@ -188,7 +194,7 @@ def _make_step(f, alg, left0, right0, fl0, fr0, abstol):
             fm = f(mid)
             exact = fm == 0
             converged = ((c.right - c.left) / 2).abs() < abstol
-            move_left = torch.sign(c.fl) == torch.sign(fm)
+            move_left = _sign(c.fl) == _sign(fm)
             new = c.replace(
                 left=torch.where(move_left, mid, c.left),
                 fl=torch.where(move_left, fm, c.fl),
@@ -209,7 +215,7 @@ def _make_step(f, alg, left0, right0, fl0, fr0, abstol):
             fm = f(mid)
             s = torch.sqrt(torch.clamp(fm * fm - c.fl * c.fr, min=0.0))
             bad = s == 0
-            x = mid + (mid - c.left) * torch.sign(c.fl - c.fr) * fm / \
+            x = mid + (mid - c.left) * _sign(c.fl - c.fr) * fm / \
                 torch.where(bad, torch.ones_like(s), s)
             x = torch.minimum(torch.maximum(x, torch.minimum(c.left,
                                                              c.right)),
@@ -218,12 +224,12 @@ def _make_step(f, alg, left0, right0, fl0, fr0, abstol):
             exact = fx == 0
             converged = ((c.right - c.left) / 2).abs() < abstol
             # rebracket with the (mid, x) pair, else keep the sign change
-            use_mx = torch.sign(fm) != torch.sign(fx)
+            use_mx = _sign(fm) != _sign(fx)
             l1 = torch.where(use_mx, torch.minimum(mid, x), c.left)
             f1 = torch.where(use_mx, torch.where(mid < x, fm, fx), c.fl)
             r1 = torch.where(use_mx, torch.maximum(mid, x), c.right)
             f2 = torch.where(use_mx, torch.where(mid < x, fx, fm), c.fr)
-            keep_left = torch.sign(c.fl) != torch.sign(fx)
+            keep_left = _sign(c.fl) != _sign(fx)
             l2 = torch.where(keep_left, c.left, x)
             fl2 = torch.where(keep_left, c.fl, fx)
             r2 = torch.where(keep_left, x, c.right)
@@ -311,12 +317,12 @@ def _make_step(f, alg, left0, right0, fl0, fr0, abstol):
                                   x_f.abs() * eps + eps)
             diff = mid - x_f
             xt = torch.where(delta <= diff.abs(),
-                             x_f + torch.sign(diff) * delta, mid)
+                             x_f + _sign(diff) * delta, mid)
             xp = torch.where((xt - mid).abs() <= r, xt,
-                             mid - torch.sign(diff) * r)
+                             mid - _sign(diff) * r)
             small = span < 2 * abstol
             yp = f(xp)
-            yps = yp * torch.sign(c.fr)
+            yps = yp * _sign(c.fr)
             go_right, go_left = yps > 0, yps < 0
             new = c.replace(
                 left=torch.where(go_left, xp, c.left),
@@ -362,7 +368,7 @@ def _make_step(f, alg, left0, right0, fl0, fr0, abstol):
 
         def bracket(a, b, fa, fb, x, fx):
             """Keep the sign-changing half: a, b, d, fa, fb, fd."""
-            keep = torch.sign(fa) != torch.sign(fx)
+            keep = _sign(fa) != _sign(fx)
             return (torch.where(keep, a, x), torch.where(keep, x, b),
                     torch.where(keep, b, a), torch.where(keep, fa, fx),
                     torch.where(keep, fx, fb), torch.where(keep, fb, fa))
@@ -467,7 +473,7 @@ def _make_step(f, alg, left0, right0, fl0, fr0, abstol):
             bisecting_new = bisecting & ~switch_to_ab
             exact = y3 == 0
             converged = (c.right - c.left) < 2 * abstol
-            same_side_left = torch.sign(c.fl) == torch.sign(y3)
+            same_side_left = _sign(c.fl) == _sign(y3)
             # the Anderson–Björck corrections
             m_r = 1 - y3 / c.fl
             corr_r = torch.where(m_r <= 0, 0.5, m_r)

@@ -19,6 +19,7 @@ def run_algorithm(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
     from .simple import is_simple_alg, run_simple
     from .spectral import GeneralizedDFSane, run_dfsane
 
+    _refuse_complex(alg, u0)
     analytic_jac = jac_spec.analytic if jac_spec is not None else None
     if isinstance(alg, GeneralizedFirstOrderAlgorithm):
         return run_first_order(alg, ctx, term_cfg, jac_spec, u0, abstol,
@@ -45,3 +46,30 @@ def run_algorithm(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
         from .custom import run_custom
         return run_custom(alg, ctx, term_cfg, u0, abstol, reltol, maxiters)
     raise ValueError(f"cannot dispatch algorithm {alg!r}")
+
+
+def _refuse_complex(alg, u0) -> None:
+    """The engines that order or compare values (a trust region, LM or
+    SER damping, Anderson's safeguard, the simple trust region and
+    DFSane's line search) run on real states only: on a complex one the
+    JAX package orders complex numbers, which torch refuses."""
+    if not u0.is_complex():
+        return
+    from ..core.descent import DampedNewtonDescent, GeodesicAcceleration
+    from .anderson import AndersonAcceleration
+    from .first_order import GeneralizedFirstOrderAlgorithm
+    from .quasi_newton import QuasiNewtonAlgorithm
+    from .simple import SimpleDFSane, SimpleTrustRegion
+    descent = getattr(alg, "descent", None)
+    while isinstance(descent, GeodesicAcceleration):
+        descent = descent.descent
+    ordered = (isinstance(alg, (AndersonAcceleration, SimpleTrustRegion,
+                                SimpleDFSane))
+               or (isinstance(alg, (GeneralizedFirstOrderAlgorithm,
+                                    QuasiNewtonAlgorithm))
+                   and (alg.trustregion is not None
+                        or isinstance(descent, DampedNewtonDescent))))
+    if ordered:
+        raise NotImplementedError(
+            f"{getattr(alg, 'name', type(alg).__name__)} on a complex state "
+            f"is ROADMAP A.33 (it orders complex values)")

@@ -231,7 +231,7 @@ def init_first_order(alg: GeneralizedFirstOrderAlgorithm, ctx: dsc.DescentCtx,
                                 norms=host["term"])
     forcing_state = None
     if alg.forcing is not None:
-        eta_0 = _backend.np_dtype(u0.dtype)(alg.forcing.eta_0)
+        eta_0 = _backend.real_np_dtype(u0.dtype)(alg.forcing.eta_0)
         forcing_state = ForcingState(eta=eta_0, rnorm=host["rnorm"][0],
                                      rnorm_prev=host["rnorm"][0])
     return FOCarry(
@@ -340,7 +340,7 @@ def step_first_order(alg: GeneralizedFirstOrderAlgorithm,
                      jac_fn, carry: FOCarry, abstol, reltol) -> FOCarry:
     """One iteration (solve.jl:298-426)."""
     u, fu = carry.u, carry.fu
-    npdt = _backend.np_dtype(u.dtype)
+    npdt = _backend.real_np_dtype(u.dtype)
     ctx.mark("jacobian")
     J = jac_fn(u)
     stats = carry.stats.incr(njacs=1, nsteps=1)

@@ -56,6 +56,7 @@ from ..core.returncode import ReturnCode
 from ..core.solution import NLStats, NonlinearSolution
 from ..core.termination import default_termination_mode
 from ..utils.norms import get_tolerance, l2_norm
+from ..utils.pytree import ravel_pytree
 
 
 def _default_inner():
@@ -250,7 +251,7 @@ class _Flat:
 
     f_raw: Any
     p: Any
-    shape: tuple
+    unravel: Any                 # the flat state -> u0's tree
     n: int
     dtype: torch.dtype
     device: torch.device
@@ -267,8 +268,8 @@ class _Flat:
         lam_t = lam if isinstance(lam, torch.Tensor) else self.lam(lam)
 
         def f_flat(u):
-            return self.keep_dtype(self.f_raw(u.reshape(self.shape), self.p,
-                                              lam_t).reshape(-1))
+            return self.keep_dtype(ravel_pytree(
+                self.f_raw(self.unravel(u), self.p, lam_t))[0])
         return f_flat
 
     def keep_dtype(self, out):
@@ -730,11 +731,11 @@ def _solve_homotopy_single(prob, alg, *, abstol=None, reltol=None,
                            maxiters=None, **_ignored) -> NonlinearSolution:
     from ..core.sensitivity import (differentiable_leaves,
                                     differentiable_root, strip_tangents)
-    u0 = prob.u0
-    if not isinstance(u0, torch.Tensor):
-        raise NotImplementedError(
-            "u0 must be one tensor: pytree states are ROADMAP A.33")
-    u0 = strip_tangents(u0).detach()
+    from ..core.solve import state_device
+    u0_tree = strip_tangents(prob.u0)
+    u0, unravel = ravel_pytree(u0_tree,
+                               device=state_device(u0_tree, prob.p))
+    u0 = u0.detach()
     npdt = _backend.np_dtype(u0.dtype)
     # explicit user tolerances and budgets shadow the loose tracking ones
     user_tol = abstol is not None or reltol is not None
@@ -745,8 +746,7 @@ def _solve_homotopy_single(prob, alg, *, abstol=None, reltol=None,
     lam0, lam1 = prob.lambdaspan
     p_run = strip_tangents(prob.p)
     inner = alg.inner if alg.inner is not None else _default_inner()
-    flat = _Flat(f_raw=prob.f.f, p=p_run, shape=tuple(u0.shape),
-                 n=u0.numel(), dtype=u0.dtype, device=u0.device,
+    flat = _Flat(f_raw=prob.f.f, p=p_run, unravel=unravel, n=u0.numel(), dtype=u0.dtype, device=u0.device,
                  inner=inner, reltol=reltol_v)
     syncs0 = _backend.HOST_SYNCS["n"]
     with torch.no_grad():
@@ -766,14 +766,14 @@ def _solve_homotopy_single(prob, alg, *, abstol=None, reltol=None,
         lam_ift = (npdt(lam1) if retcode == ReturnCode.Success
                    else np.clip(lam_last, lo, hi))
         lam_t = flat.lam(lam_ift)
-        shape, f_raw = flat.shape, prob.f.f
+        f_raw = prob.f.f
 
         def residual(v, q):
-            return f_raw(v.reshape(shape), q, lam_t).reshape(-1)
+            return ravel_pytree(f_raw(unravel(v), q, lam_t))[0]
         u = differentiable_root(u, residual, prob.p, index, square=True,
                                 dense=True)
     return NonlinearSolution(
-        u=u.reshape(flat.shape), resid=fu, retcode=ReturnCode(retcode),
+        u=unravel(u), resid=fu, retcode=ReturnCode(retcode),
         stats=stats, original=lam_last,
         counters={"host_syncs": _backend.HOST_SYNCS["n"] - syncs0})
 

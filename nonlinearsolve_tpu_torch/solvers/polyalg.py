@@ -140,7 +140,7 @@ def run_polyalg(alg: NonlinearSolvePolyAlgorithm, ctx, term_cfg, jac_spec,
         rungs = ([r for r in rungs if r[0] >= hint]
                  + [r for r in rungs if r[0] < hint])
     fu0 = ctx.f_flat(u0)
-    npdt = _backend.np_dtype(u0.dtype)
+    npdt = _backend.real_np_dtype(u0.dtype)
     carry = PolyCarry(
         u=u0, fu=fu0, retcode=int(ReturnCode.Default),
         stats=NLStats.zeros(), done=False, best_u=u0, best_fu=fu0,

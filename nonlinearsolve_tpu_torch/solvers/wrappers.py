@@ -295,32 +295,37 @@ def is_wrapper_alg(alg) -> bool:
 
 def construct_extension_function_wrapper(prob):
     """The ``f(x: ndarray) -> ndarray`` shape external solvers expect, and
-    a dense Jacobian callback: ``(x0, unravel, f_np, jac_np)``.  Both
-    callbacks evaluate on ``u0``'s device."""
+    a dense Jacobian callback: ``(x0, unravel, f_np, jac_np)``, on the flat
+    state of ``ravel_pytree(u0)``.  Both callbacks evaluate on ``u0``'s
+    device; ``unravel`` gives a host vector back as ``u0``'s tree."""
     from ..core.autodiff import jacfwd
-    u0 = prob.u0
-    if not isinstance(u0, torch.Tensor):
-        raise NotImplementedError(
-            "u0 must be one tensor: pytree states are ROADMAP A.33")
-    shape, dtype, dev = tuple(u0.shape), u0.dtype, u0.device
+    from ..core.solve import state_device
+    from ..utils.pytree import ravel_pytree
+    u0_flat, unravel_u = ravel_pytree(prob.u0,
+                                      device=state_device(prob.u0, prob.p))
+    dtype, dev = u0_flat.dtype, u0_flat.device
     p, f = prob.p, prob.f
 
     def unravel(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype,
-                               device=dev).reshape(shape)
+        return unravel_u(torch.as_tensor(np.asarray(x), dtype=dtype,
+                                         device=dev).reshape(-1))
 
     def f_flat(v):
-        return f(v.reshape(shape), p).reshape(-1)
+        return ravel_pytree(f(unravel_u(v), p), device=dev)[0]
+
+    def to_flat(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=dev).reshape(-1)
 
     def f_np(x):
         with torch.no_grad():
-            return _backend.to_host(f_flat(unravel(x)))
+            return _backend.to_host(f_flat(to_flat(x)))
 
     def jac_np(x):
         with torch.no_grad():
-            return _backend.to_host(jacfwd(f_flat)(unravel(x).reshape(-1)))
+            return _backend.to_host(jacfwd(f_flat)(to_flat(x)))
 
-    return _backend.to_host(u0.reshape(-1)), unravel, f_np, jac_np
+    return _backend.to_host(u0_flat), unravel, f_np, jac_np
 
 
 def _interval_device(prob):
@@ -364,6 +369,7 @@ def solve_wrapper(prob, alg, *, abstol=None, maxiters=1000, **_ignored
                      else ReturnCode.Failure),
             stats=NLStats(nf=int(getattr(res, "function_calls", 0))))
 
+    from ..core.solve import state_device
     u0, unravel, f_np, jac_np = construct_extension_function_wrapper(prob)
     if isinstance(alg, SciPyLeastSquares):
         res = optimize.least_squares(f_np, u0, jac=jac_np, method=alg.method,
@@ -377,6 +383,7 @@ def solve_wrapper(prob, alg, *, abstol=None, maxiters=1000, **_ignored
         nf = getattr(res, "nfev", 0)
     return NonlinearSolution(
         u=unravel(u), resid=torch.as_tensor(
-            resid, dtype=prob.u0.dtype, device=prob.u0.device),
+            np.asarray(resid, dtype=u0.dtype),
+            device=state_device(prob.u0, prob.p)),
         retcode=ReturnCode.Success if res.success else ReturnCode.Failure,
         stats=NLStats(nf=int(nf)), original=res)

@@ -1,7 +1,8 @@
 """Norms and tolerance defaults (the port of ``utils/norms.py``).
 
 States are single tensors of any shape; norms reduce over every element
-without flattening the caller's layout.  Each norm is one reduction kernel
+without flattening the caller's layout.  Norms and dots of complex states
+are real, as the JAX package's.  Each norm is one reduction kernel
 and returns a 0-d tensor on the input's device (no host sync).
 """
 
@@ -16,11 +17,18 @@ def tree_size(x: torch.Tensor) -> int:
 
 
 def tree_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Σ aᵢbᵢ over every element (real inner product), a 0-d tensor."""
+    """Σ aᵢbᵢ over every element (real inner product), a 0-d tensor; for
+    complex states Re Σ conj(aᵢ)bᵢ, as the JAX package's ``vdot(...).real``."""
+    if a.is_complex():
+        return torch.sum(a.conj() * b).real
     return torch.sum(a * b)
 
 
 def l2_norm(x: torch.Tensor) -> torch.Tensor:
+    """‖x‖₂, a real 0-d tensor (complex: √Σ Re(xᵢ conj(xᵢ)), as the JAX
+    package's)."""
+    if x.is_complex():
+        return torch.sqrt(torch.sum((x * x.conj()).real))
     return torch.linalg.vector_norm(x)
 
 

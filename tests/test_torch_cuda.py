@@ -2030,3 +2030,173 @@ def test_scc_chain_on_card_matches_cpu(cuda):
     torch.testing.assert_close(g.u.detach().cpu(), c.u.detach(), rtol=0,
                                atol=1e-10)
     assert abs(g_pbar - c_pbar) <= 1e-10 * abs(c_pbar)
+
+
+def _quadratic_system(n, seed):
+    """A seeded dense quadratic system f_i(x) = Σ A_ijk x_j x_k + Σ B_ij x_j
+    + c_i (one path's state), and its total degrees."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n, n)) / n
+    B = rng.standard_normal((n, n)) / np.sqrt(n)
+    c = rng.standard_normal(n)
+
+    def make(device, dtype):
+        tA, tB, tc = (torch.tensor(a, dtype=dtype, device=device)
+                      for a in (A, B, c))
+        return lambda x: torch.einsum("ijk,j,k->i", tA, x, x) + tB @ x + tc
+    return make, (2,) * n
+
+
+@pytest.mark.cuda
+def test_poly_tracker_on_card_batch_equals_lone(cuda):
+    """The lockstep path tracker on the card (complex128): on an
+    elementwise system every path of the batch is its lone track bit for
+    bit; on a seeded quadratic system (an einsum, which contracts
+    otherwise at other batch sizes) the flags and steps are the CPU run's
+    and the endpoints within 1e-10."""
+    from nonlinearsolve_tpu_torch.solvers import poly_homotopy as tph
+    c128 = torch.complex128
+    alg = tph.PolynomialHomotopy(degrees=(2, 3), dt_initial=0.5)
+
+    def f(x):
+        return torch.stack([x[0] ** 2 + 3 * x[0] * x[1] - 1.0,
+                            x[1] ** 3 - 4 * x[0] + 0.5])
+    x, ok, steps = tph._track_paths(f, alg.degrees, alg, c128, cuda)
+    starts = tph._start_roots(alg.degrees, c128, cuda)
+    for i in range(starts.shape[0]):
+        xi, oki, si = tph._track_paths(f, alg.degrees, alg, c128,
+                                       starts=starts[i:i + 1])
+        assert torch.equal(xi[0], x[i]) and bool(oki[0]) == bool(ok[i])
+        assert int(si[0]) == int(steps[i])
+    make, degrees = _quadratic_system(3, 0)
+    alg = tph.PolynomialHomotopy(degrees=degrees)
+    x, ok, steps = tph._track_paths(make(cuda, c128), degrees, alg, c128,
+                                    cuda)
+    xc, okc, stc = tph._track_paths(make("cpu", c128), degrees, alg, c128,
+                                    "cpu")
+    assert torch.equal(ok.cpu(), okc) and torch.equal(steps.cpu(), stc)
+    torch.testing.assert_close(x.cpu()[okc], xc[okc], rtol=0, atol=1e-10)
+
+
+def _poly_drivers_of_python_numbers(p):
+    """The three polynomial entry points on a Python-number / list u0."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.solvers import poly_homotopy as tph
+    poly = tph.solve_polynomial(
+        tnls.NonlinearProblem(lambda x, q: torch.stack([x[0] ** 2 - q]),
+                              [1.0], p),
+        tph.PolynomialHomotopy(degrees=(2,)), real_only=True)
+    hc = tnls.solve(tnls.NonlinearProblem(
+        lambda u, q: u ** 2 - 6 * u + q - 1.0, 0.0, p),
+        tnls.HomotopyContinuationJL(all_roots=True))
+    ms = tnls.solve_multistart(tnls.NonlinearProblem(
+        lambda u, q: torch.sin(u) - 0.0 * q, [1.0], p), order=3)
+    return poly, hc, ms
+
+
+def test_polynomial_drivers_of_python_numbers_need_cuda(monkeypatch):
+    """A Python-number or list u0 and p: the polynomial drivers run on the
+    card, and raise when there is no CUDA (no CPU fallback)."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.solvers import poly_homotopy as tph
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tph.solve_polynomial(tnls.NonlinearProblem(
+            lambda x, q: torch.stack([x[0] ** 2 - q]), [1.0], 9.0),
+            tph.PolynomialHomotopy(degrees=(2,)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tnls.solve(tnls.NonlinearProblem(lambda u, q: u ** 2 - q, 1.0, 4.0),
+                   tnls.HomotopyContinuationJL())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tnls.solve_multistart(tnls.NonlinearProblem(
+            lambda u, q: torch.sin(u), [1.0], None))
+
+
+@pytest.mark.cuda
+def test_polynomial_drivers_of_python_numbers_on_card(cuda):
+    """A Python-number or list u0 with no tensor anywhere: the polynomial
+    drivers track on the card in complex128 and return f64 roots there,
+    the CPU run's (``p`` a CPU tensor) within 1e-10."""
+    g = _poly_drivers_of_python_numbers(9.0)
+    c = _poly_drivers_of_python_numbers(torch.tensor(9.0,
+                                                     dtype=torch.float64))
+    assert g[0].original[0].is_cuda
+    assert g[0].original[0].dtype == torch.complex128
+    for gu, cu in ((g[0].u, c[0].u), (g[1].u, c[1].u), (g[2], c[2])):
+        assert gu.is_cuda and gu.dtype == torch.float64
+        assert gu.shape == cu.shape
+        torch.testing.assert_close(gu.cpu().sort(0).values,
+                                   cu.sort(0).values, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_complex_and_pytree_states_on_card(cuda):
+    """u³ − 8 from −0.8 + 1.5i (complex128) under NewtonRaphson, Broyden,
+    Klement and the default ladder, and the dict state of
+    tests/test_core_solvers.py::test_pytree_state under NewtonRaphson, on
+    the card: the CPU run's retcode and NLStats, the roots within 1e-14."""
+    import nonlinearsolve_tpu_torch as tnls
+    for name in ("NewtonRaphson", "Broyden", "Klement", None):
+        sols = [tnls.solve(tnls.NonlinearProblem(
+            lambda u, p: u ** 3 - p,
+            torch.tensor([-0.8 + 1.5j], dtype=torch.complex128, device=d),
+            8.0), None if name is None else getattr(tnls, name)())
+            for d in (cuda, "cpu")]
+        g, c = sols
+        assert g.u.is_cuda and g.retcode == c.retcode
+        assert g.stats == c.stats, (name, g.stats, c.stats)
+        torch.testing.assert_close(g.u.cpu(), c.u, rtol=0, atol=1e-14)
+
+    def f(u, p):
+        return {"a": u["a"] ** 2 - p, "b": u["b"] ** 3 - p}
+    sols = [tnls.solve(tnls.NonlinearProblem(f, {
+        "a": torch.tensor([1.0, 1.5], dtype=torch.float64, device=d),
+        "b": torch.tensor([1.0], dtype=torch.float64, device=d)}, 2.0),
+        tnls.NewtonRaphson()) for d in (cuda, "cpu")]
+    g, c = sols
+    assert g.u["a"].is_cuda and g.retcode == c.retcode
+    assert g.stats == c.stats
+    for k in "ab":
+        torch.testing.assert_close(g.u[k].cpu(), c.u[k], rtol=0, atol=1e-14)
+
+
+@pytest.mark.cuda
+def test_complex_krylov_and_repairs_on_card(cuda):
+    """Complex GMRES and BiCGStab on the card against LU (cuSOLVER) on a
+    seeded system; C.3 (u − p over a NaN row: the CPU run's codes) and C.4
+    (a singular Jacobian: a NaN gradient, no exception) on the card."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.ops import krylov as tkry
+    rng = np.random.default_rng(1)
+    n = 200
+    A = torch.tensor((rng.standard_normal((n, n))
+                      + 1j * rng.standard_normal((n, n))) / np.sqrt(n)
+                     + 3 * np.eye(n), device=cuda)
+    b = torch.tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n),
+                     device=cuda)
+    x_lu = torch.linalg.solve(A, b)
+    for method in ("gmres", "bicgstab"):
+        res = tkry.solve_krylov(method, lambda v: A @ v, b, rtol=1e-12,
+                                maxiter=2000)
+        assert res.success and res.x.is_cuda
+        torch.testing.assert_close(res.x, x_lu, rtol=0, atol=1e-10)
+    p = [0.3, float("nan"), 0.0, 1.0, 2.0]
+    codes = []
+    for d in (cuda, "cpu"):
+        sol = tnls.solve(tnls.IntervalNonlinearProblem(
+            lambda u, q: u - q, (torch.zeros(5, dtype=torch.float64,
+                                             device=d),
+                                 torch.ones(5, dtype=torch.float64,
+                                            device=d)),
+            torch.tensor(p, dtype=torch.float64, device=d)), tnls.Bisection())
+        codes.append((sol.retcode.tolist(), sol.stats.nf.tolist()))
+    assert codes[0] == codes[1]
+    assert codes[0][0][1] == int(tnls.ReturnCode.Success)
+    q = torch.tensor([-1.0, 2.0], dtype=torch.float64,
+                     device=cuda).requires_grad_(True)
+    sol = tnls.solve(tnls.NonlinearProblem(
+        lambda u, r: u * u - r, torch.tensor([1.0, 1.5], dtype=torch.float64,
+                                             device=cuda), q),
+        tnls.NewtonRaphson(), maxiters=30)
+    grad, = torch.autograd.grad(sol.u.sum(), q)
+    assert torch.isnan(grad).all()

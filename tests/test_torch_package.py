@@ -157,11 +157,20 @@ def test_unported_routes_raise():
         tnls.solve(prob, tnls.NewtonRaphson(
             linsolve=tnls.LinearSolver(method="gmres"),
             linesearch=object()))
+    # normal-form Krylov least squares runs since ROADMAP A.33, with the
+    # JAX package's retcode, NLStats and root
+    jlsq = jnls.NonlinearLeastSquaresProblem(
+        lambda u, p: jnp.concatenate([u, u[:1]]), jnp.ones(3))
+    jsol = jnls.solve(jlsq, jnls.GaussNewton(
+        linsolve=jnls.LinearSolver(method="bicgstab")))
     lsq = tnls.NonlinearLeastSquaresProblem(
         lambda u, p: torch.cat([u, u[:1]]), torch.ones(3, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="A.33"):
-        tnls.solve(lsq, tnls.GaussNewton(           # normal-form Krylov
-            linsolve=tnls.LinearSolver(method="bicgstab")))
+    tsol = tnls.solve(lsq, tnls.GaussNewton(           # normal-form Krylov
+        linsolve=tnls.LinearSolver(method="bicgstab")))
+    assert (int(tsol.retcode), tsol.stats.nsteps, tsol.stats.nf) == \
+        (int(jsol.retcode), int(jsol.stats.nsteps), int(jsol.stats.nf))
+    np.testing.assert_allclose(tsol.u.numpy(), np.asarray(jsol.u),
+                               atol=1e-12)
     # the simple solvers run since ROADMAP A.17: SimpleBroyden →
     # SimpleKlement head the ladder, as in the JAX package
     jladder = jnls.FastShortcutNonlinearPolyalg(
@@ -194,9 +203,18 @@ def test_unported_routes_raise():
                      tnls.NewtonRaphson(
                          autodiff=tnls.JacobianPolicy(mode="sparse")))
     assert sol.retcode == tnls.ReturnCode.Success
-    with pytest.raises(NotImplementedError, match="A.33"):
-        tnls.solve(tnls.NonlinearProblem(lambda u, p: u - 1.0,
-                                         torch.tensor(0.5)), _alg())
+    # a 0-d state runs on the flat path since ROADMAP A.33, as in the JAX
+    # package, and comes back 0-d
+    jsol = jnls.solve(jnls.NonlinearProblem(lambda u, p: u - 1.0,
+                                            jnp.float32(0.5)),
+                      jnls.NewtonRaphson(
+                          linsolve=jnls.LinearSolver(method="gmres")))
+    tsol = tnls.solve(tnls.NonlinearProblem(lambda u, p: u - 1.0,
+                                            torch.tensor(0.5)), _alg())
+    assert tsol.u.shape == () and tsol.u.dtype == torch.float32
+    assert (int(tsol.retcode), tsol.stats.nsteps, tsol.stats.nf) == \
+        (int(jsol.retcode), int(jsol.stats.nsteps), int(jsol.stats.nf))
+    assert float(tsol.u) == float(jsol.u)
     # differentiating through the solve runs since ROADMAP A.28: the root
     # depends on p alone, so a u0 that requires grad gets none
     grad_u0 = prob.u0.clone().requires_grad_(True)
@@ -207,10 +225,8 @@ def test_unported_routes_raise():
 
 
 # names the JAX package exports from a module the port has, whose
-# machinery comes with a later ROADMAP item
-NOT_YET_EXPORTED = {
-    "StatefulJacobianNormalFormOperator": "A.33",
-}
+# machinery comes with a later ROADMAP item (none since A.33)
+NOT_YET_EXPORTED = {}
 
 
 def test_port_exports_the_jax_names_of_its_modules():

@@ -3,7 +3,7 @@ the rung that wins, the best-residual fallback when every rung fails,
 ``FastShortcutNLLSPolyalg`` (the default for least squares) on the 8 NLLS
 classics, the default algorithm on the dense Brusselator at N=8 and 16,
 the ladders' shapes, the warm-restart start hint, the dispatch of user
-classes, and the refusal of what is not supported (complex states)."""
+classes, and the complex ladder on a complex state."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -270,16 +270,26 @@ def test_refusals():
 
 
 def test_complex_state_meets_the_dtype_refusal():
-    """A complex u0 picks the complex ladder, as in the JAX package; the
-    port's dense path refuses complex dtypes (ROADMAP A.33)."""
+    """A complex u0 picks the complex ladder, as in the JAX package; since
+    ROADMAP A.33 the port's dense path takes complex dtypes, and the
+    ladder gives the JAX package's rungs, NLStats and root."""
     from nonlinearsolve_tpu_torch.core.solve import _default_algorithm
     prob = tnls.NonlinearProblem(lambda u, p: u ** 3 - p,
-                                 torch.tensor([-0.8 + 1.5j]), 8.0)
+                                 torch.tensor([-0.8 + 1.5j],
+                                              dtype=torch.complex128), 8.0)
     alg = _default_algorithm(prob)
     assert [a.name for a in alg.algs] == ["Broyden", "Klement",
                                           "NewtonRaphson"]
-    with pytest.raises(TypeError, match="unsupported dtype"):
-        tnls.solve(prob)
+    jsol = jnls.solve(jnls.NonlinearProblem(
+        lambda u, p: u ** 3 - p, jnp.array([-0.8 + 1.5j], jnp.complex128),
+        8.0))
+    tsol = tnls.solve(prob)
+    assert tsol.counters["rungs"] == [(0, int(jsol.retcode),
+                                       int(jsol.stats.nsteps))]
+    assert (tsol.stats.nf, tsol.stats.nsteps) == (int(jsol.stats.nf),
+                                                  int(jsol.stats.nsteps))
+    np.testing.assert_allclose(tsol.u.numpy(), np.asarray(jsol.u),
+                               rtol=1e-14)
 
 
 def test_default_needs_the_card_unless_asked_for_the_cpu():

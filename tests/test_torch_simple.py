@@ -226,7 +226,7 @@ def test_non_square_gauss_newton():
                                   "SimpleHalley", "SimpleDFSane"])
 def test_zero_dim_u0(name):
     """A 0-d state on the simple tier: flattened, solved, given back 0-d
-    (the other engines refuse it: ROADMAP A.33)."""
+    (the other engines take it on the flat path since ROADMAP A.33)."""
     jsol = jnls.solve(jnls.NonlinearProblem(_jquad, jnp.asarray(1.0), 2.0),
                       getattr(jnls, name)())
     tsol = tnls.solve(tnls.NonlinearProblem(_tquad, _t(1.0), 2.0),
