@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``nonlinearsolve_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24,25]
+    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24,25,26]
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a); exits
 non-zero without one, and without the package beside it.  Each phase
 prints one JSON line (``--log`` also appends every line to PATH); a failed
 check raises, so the script exits non-zero.  ``--only`` runs phases 1
-and 2, then the listed phases of 19–25 alone, each timed, on the set-up
+and 2, then the listed phases of 19–26 alone, each timed, on the set-up
 they take from earlier phases rebuilt (``only_phases``), and prints no
 result line.
 
@@ -175,8 +175,8 @@ result line.
    kernel launched.  Then NewtonRaphson at N=64 (8192 unknowns, a 512 MiB
    Jacobian; abstol 1e-9, above the f64 floor of |F| there).  For each
    run: the warm wall (median of 3; LevenbergMarquardt, 15.8 s a solve,
-   takes one warm solve, its profiled one, so that the script keeps its
-   time with phase 23), NLStats,
+   takes no warm solve: its first solve is the profiled one, so that the
+   script keeps its time with phases 23–26), NLStats,
    host syncs, the device time by class
    (the Jacobian's batched residual, timed alone; the dense linear algebra
    by kernel name; the rest) and the idle share;
@@ -197,7 +197,7 @@ result line.
    1e-10: Success, the root within 1e-8 (inf-norm) of phase 18's
    NewtonRaphson root, and NLStats beside the JAX package's (1026 steps,
    1032 residuals, 4 Jacobians), each rung's retcode and steps, the warm
-   wall (median of 3), host syncs, the device time by class and the idle
+   wall (one warm solve), host syncs, the device time by class and the idle
    share; (c) Broyden, Klement, LimitedMemoryBroyden and DFSane alone at
    N=32, each with the JAX package's retcode (Unstable, MaxIters,
    ConvergenceFailure, MaxIters; the diverging Broyden and
@@ -223,7 +223,7 @@ result line.
    unknowns): BiCGStab with a Jacobi preconditioner over K4, the root
    within 1e-10 of the CPU port's.  Each run: the JAX package's retcode,
    nsteps and nf (``JAX_SPARSE_DIRECT``), the route it takes, max|F|, the
-   warm wall (median of 3), host syncs, the device time by class and the
+   warm wall (one warm solve), host syncs, the device time by class and the
    idle share.  Then (g): DeviceLU.solve on the card against the port's
    CPU solve of the same state (rel-inf 1e-12, f64), its time at 128² f64
    and 64² f32 (CUDA events over 20 solves), its kernels and the refresh's
@@ -249,7 +249,8 @@ result line.
    are solved alone (B = 1): the batch's retcode and a root within rel-inf
    1e-10, and the NLStats for the Jacobian engines (the secant engines'
    differences are counted); every row that reports Success has |F|_inf
-   ≤ abstol.  Each run: warm wall (median of 3), trajectories per second,
+   ≤ abstol.  Each run: warm wall (one warm solve),
+   trajectories per second,
    steps of the slowest row, host reads, the device idle share and three
    largest kernels (torch.profiler) and the peak memory.  No custom
    kernel is launched;
@@ -365,9 +366,38 @@ result line.
    maxiters 100: the CPU run's codes, nf and u, Success on the NaN row
    for Bisection, Falsi, Brent and ModAB as in the JAX package) and C.4
    (a singular Jacobian: a NaN gradient, no exception);
-26. the kernels line (each SpMV kernel's row with its reverse rule's
-   numbers from 23 (c)), then ``{"ok": true, "device": {...}}`` as the
-   last line.
+26. complex states under the engines that order values, sparsity
+   detection and double-f32 refinement (counters at 0 just before each
+   run, read just after), after phase 25 has waited for its CPU
+   reference; ``--only 26`` runs it alone.  (a) u³ − 8 (written u·u·u,
+   the JAX package's integer_pow) from −0.8 + 1.5i (complex128), the
+   default abstol, under LevenbergMarquardt, TrustRegion,
+   AndersonAcceleration, SimpleTrustRegion and SimpleDFSane: the JAX
+   package's retcode and
+   NLStats (JAX_ORDERED, tools/complex_reference.py); RobustMultiNewton
+   and PseudoTransient refused (the JAX package fails to trace them); the
+   N = 32 Brusselator on a complex128 state (2048 unknowns, phase 25
+   (b)'s start) under TrustRegion: the JAX package's NLStats, Re u within
+   1e-10 of the real f64 TrustRegion root, |Im u| under 1e-10.  (b)
+   ``detect_sparsity`` on the flat 512² Brusselator residual (524,288
+   unknowns, no ``sparsity=``): the pattern equal to
+   ``sparsity_pattern(512)``, and on phase 7's permuted residual equal to
+   (pinv[rows], pinv[cols]), each with its host seconds; then phase 6's
+   sparse path on the residual with no pattern: its retcode, NLStats and
+   root bit for bit phase 6's, K4 launches = Jacobian products, selection
+   launches = Jacobians.  (c) ``two_sum`` / ``two_prod`` error-free on
+   2²² seeded f32 pairs (checked in f64) and ``self_check``; phase 4's f32
+   root refined by ``refine_root`` with ``brusselator_2d_df32``, K1 as
+   the Jacobian product and the FFT preconditioner at bench.py:189-192's
+   operating point (REFINE): within 1e-8 rel-inf of phase 5's f64 polish,
+   the defect, the fast root's distance, the first and warm walls and the
+   K1 launches.  (d) ``auto_refine`` (the residual traced once and its
+   graph evaluated in double-f32 each round, df_exp included) on Bratu 128² solved in f32 by the sparse direct route
+   (BRATU_REFINE): within 1e-9 rel-inf of the f64 solve and 10× nearer
+   than the f32 root;
+27. the kernels line (each SpMV kernel's row with its reverse rule's
+   numbers from 23 (c), and K1, K4 and the selection with their launches
+   in phase 26), then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 import json
@@ -528,6 +558,34 @@ JAX_COMPLEX = {
     "complex_nlls": (1, [3, 1, 1, 1, 1]),
     "complex_brusselator32": (1, [6, 4, 4, 4, 4]),
 }
+# Phase 26 (a), tools/complex_reference.py likewise: u³ − 8 from
+# −0.8 + 1.5i under the engines that order values (SimpleTrustRegion with
+# the analytic Jacobian there, its jacfwd refusing complex inputs), and
+# the N = 32 complex Brusselator under TrustRegion (its real f64 solve
+# takes the same NLStats).  RobustMultiNewton and PseudoTransient fail to
+# trace there, and the port refuses them.  The cube is written u·u·u, as
+# the JAX package's integer_pow computes it: torch's `u ** 3` on a
+# complex CUDA tensor goes through its complex pow and rounds up to
+# 1.2e-14 off the product near the root, which the geodesic step of
+# LevenbergMarquardt amplifies (ROADMAP C, tools/complex_lm_trace.py).
+JAX_ORDERED = {
+    "LevenbergMarquardt": (1, [72, 35, 35, 70, 35]),
+    "TrustRegion": (6, [35, 33, 33, 33, 33]),
+    "AndersonAcceleration": (3, [1002, 0, 0, 0, 1000]),
+    "SimpleTrustRegion": (5, [34, 33, 0, 33, 33]),
+    "SimpleDFSane": (1, [24, 0, 0, 0, 7]),
+    "complex_brusselator32_tr": (1, [6, 4, 4, 4, 4]),
+}
+# phase 26 (c): bench.py:189-192's refinement operating point
+REFINE = {"rounds": 3, "inner_rtol": 1e-2, "restart": 16,
+          "krylov_maxiter": 100}
+# phase 26 (d): Bratu 128² in f32 (the sparse direct route, abstol 1e-2,
+# above the f32 residual's floor of about 4e-3 there) refined by
+# auto_refine; the unpreconditioned correction GMRES takes restart 32 and
+# 400 iterations a round at this size (the JAX test's 32² takes the
+# defaults)
+BRATU_REFINE = {"N": 128, "abstol32": 1e-2, "rounds": 4, "restart": 32,
+                "krylov_maxiter": 400}
 # phase 25 (e): the seeded quadratic system's size (2^n total-degree
 # paths) and the seed of its coefficients
 POLY_N, POLY_SEED = 10, 0
@@ -1723,10 +1781,12 @@ def sparse_alg3d(nls, fft_poisson_preconditioner, N, perm=None, dev=None):
         forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
 
 
-def flat_problem(nls, brusselator, N, dtype, dev, perm=None):
+def flat_problem(nls, brusselator, N, dtype, dev, perm=None,
+                 with_pattern=True):
     """The flat Brusselator (u0.reshape(-1), the residual on flat vectors)
     with its sparsity pattern; with ``perm``, its unknowns permuted:
-    w = u[perm], G(w) = F(w[pinv])[perm], pattern (pinv[rows], pinv[cols])."""
+    w = u[perm], G(w) = F(w[pinv])[perm], pattern (pinv[rows], pinv[cols]).
+    ``with_pattern=False`` gives no pattern (the solve detects it)."""
     import numpy as np
     import torch
     pat = brusselator.sparsity_pattern(N)
@@ -1736,8 +1796,8 @@ def flat_problem(nls, brusselator, N, dtype, dev, perm=None):
         def residual(u, p_):
             return brusselator.brusselator_2d(u.reshape(N, N, 2),
                                               p_).reshape(-1)
-        return nls.NonlinearProblem(
-            nls.NonlinearFunction(f=residual, sparsity=pat), u0, p)
+        return nls.NonlinearProblem(nls.NonlinearFunction(
+            f=residual, sparsity=pat if with_pattern else None), u0, p)
     pinv = np.argsort(perm)
     perm_t = torch.as_tensor(perm, device=dev)
     pinv_t = torch.as_tensor(pinv, device=dev)
@@ -1746,8 +1806,8 @@ def flat_problem(nls, brusselator, N, dtype, dev, perm=None):
         return brusselator.brusselator_2d(w[pinv_t].reshape(N, N, 2),
                                           p_).reshape(-1)[perm_t]
     coo = (pinv[pat.row_ids], pinv[pat.indices])
-    return nls.NonlinearProblem(
-        nls.NonlinearFunction(f=permuted, sparsity=coo), u0[perm_t], p)
+    return nls.NonlinearProblem(nls.NonlinearFunction(
+        f=permuted, sparsity=coo if with_pattern else None), u0[perm_t], p)
 
 
 def sparse_alg(nls, fft_poisson_preconditioner, N, perm=None, dev=None):
@@ -1777,29 +1837,39 @@ DENSE_GROUPS = {"dense linear algebra": (
 
 
 def dense_run_report(torch, nls, _backend, name, prob, alg, jac_fn,
-                     card, profile_last_warm=False, **kw):
+                     card, profile_first=False, **kw):
     """One dense solve: counters at 0 just before and read just after, the
     first solve timed, then the warm wall (median of 3), the device time
     by class (the Jacobian timed alone × njacs; the dense linear algebra by
     kernel name; the rest) and the idle share of a profiled solve — with
-    ``profile_last_warm`` (a solve of many seconds) the one warm solve is
-    the profiled one."""
+    ``profile_first`` (a solve of many seconds) the counted first solve is
+    the profiled one, and no warm solve is run."""
     t_report = time.perf_counter()
     torch.cuda.synchronize()
     _backend.reset_counters()
-    t0 = time.perf_counter()
-    sol = nls.solve(prob, alg, **kw)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    box = {}
+
+    def first():
+        box["sol"] = nls.solve(prob, alg, **kw)
+    if profile_first:
+        prof = profile_device(torch, first, groups=DENSE_GROUPS,
+                              host_events=False)
+        first_s = ("not measured apart: the first solve is the profiled "
+                   "one (profiled_solve_s, with the profiler's overhead)")
+    else:
+        t0 = time.perf_counter()
+        first()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    sol = box["sol"]
     launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
     if sol.retcode != nls.ReturnCode.Success:
         raise AssertionError(f"dense {name}: {sol.retcode.name}")
-    walls = ([] if profile_last_warm else
+    walls = ([] if profile_first else
              warm_walls(torch, lambda: nls.solve(prob, alg, **kw)))
-    prof = profile_device(torch, lambda: nls.solve(prob, alg, **kw),
-                          groups=DENSE_GROUPS, host_events=False)
-    if profile_last_warm:
-        walls.append(prof["profiled_solve_s"])
+    if not profile_first:
+        prof = profile_device(torch, lambda: nls.solve(prob, alg, **kw),
+                              groups=DENSE_GROUPS, host_events=False)
     # the Jacobian's kernels alone, one evaluation, × the Jacobians
     jac = profile_device(torch, lambda: jac_fn(sol.u), groups={},
                          host_events=False)
@@ -1816,11 +1886,15 @@ def dense_run_report(torch, nls, _backend, name, prob, alg, jac_fn,
            "host_syncs": sol.counters["host_syncs"],
            "custom_kernel_launches": launches, "first_solve_s": first_s,
            "warm_wall_s": walls,
-           "warm_wall_s_median": sorted(walls)[len(walls) // 2],
+           "warm_wall_s_median": (sorted(walls)[len(walls) // 2] if walls
+                                  else "not measured (the first solve "
+                                       "profiled, no warm solve)"),
            "device_ms_by_class": by_class,
            "device_busy_ms": prof["device_busy_ms"],
            "device_idle_share": prof["device_idle_share"],
            "profiled_solve_s": prof["profiled_solve_s"],
+           "profiled_solve": ("first (first-call costs included)"
+                              if profile_first else "warm"),
            "top_device_ms": prof["top_device_ms"],
            "report_s": time.perf_counter() - t_report, "card": card}
     emit(rec)
@@ -1870,12 +1944,13 @@ def dense_brusselator_phase(torch, nls, _backend, brusselator,
     dists, roots = {}, {}
     for name, (alg, abstol) in algs.items():
         # LM's step is a 4096×2048 SVD (about 0.5 s): a cap on its steps
-        # bounds the phase if it ever left its 28-step course
+        # bounds the phase if it ever left its 28-step course; its one
+        # solve (15.8 s) is the profiled one
         lm = name == "LevenbergMarquardt"
         sol = dense_run_report(torch, nls, _backend, name, prob, alg,
                                jac_fn, card, abstol=abstol,
                                maxiters=60 if lm else 1000,
-                               profile_last_warm=lm)
+                               profile_first=lm)
         dists[name] = {k: float((sol.u - r).abs().max())
                        for k, r in refs.items()}
         roots[name] = sol.u
@@ -2099,7 +2174,7 @@ def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
     run = lambda: nls.solve(bprob, abstol=1e-10)     # noqa: E731
     sol, first_s, launches = counted(run)
     dist = float((sol.u - nr_root).abs().max())
-    walls = warm_walls(torch, run)
+    walls = warm_walls(torch, run, count=1)
     prof = profile_device(torch, run, groups=QN_GROUPS, host_events=False)
     ok = sol.retcode == nls.ReturnCode.Success and dist <= 1e-8
     emit({"phase": "qn_default_dense_brusselator", "N": N,
@@ -2112,7 +2187,7 @@ def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
           "host_syncs_per_step": sol.counters["host_syncs"]
           / max(sol.stats.nsteps, 1),
           "custom_kernel_launches": launches, "first_solve_s": first_s,
-          "warm_wall_s": walls, "warm_wall_s_median": sorted(walls)[1],
+          "warm_wall_s_one": walls[0],
           "device_ms_by_class": prof["device_ms_by_group"],
           "device_busy_ms": prof["device_busy_ms"],
           "device_idle_share": prof["device_idle_share"],
@@ -2138,7 +2213,7 @@ def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
               "host_syncs": sol.counters["host_syncs"],
               "host_syncs_per_step": sol.counters["host_syncs"]
               / max(sol.stats.nsteps, 1),
-              "first_solve_s": first_s, "warm_wall_s": walls[0],
+              "first_solve_s": first_s, "warm_wall_s_one": walls[0],
               "ms_per_step": 1e3 * walls[0] / max(sol.stats.nsteps, 1),
               "ok": ok, "card": card})
         if not ok:
@@ -2415,7 +2490,7 @@ def sparse_direct_phase(torch, nls, _backend, spmv, card):
         launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
         routes = {k: v for k, v in _backend.ROUTES.items() if v}
         (plan,) = _SPARSE_PLANS[prob.f].values()
-        walls = warm_walls(torch, solve)
+        walls = warm_walls(torch, solve, count=1)
         prof = profile_device(torch, solve, groups=SPARSE_DIRECT_GROUPS,
                               host_events=False)
         want, jsteps, jnf, jjacs, route = JAX_SPARSE_DIRECT[key]
@@ -2430,8 +2505,7 @@ def sparse_direct_phase(torch, nls, _backend, spmv, card):
                "host_syncs": sol.counters["host_syncs"],
                "krylov_iters": sol.counters["krylov_iters"],
                "jac_products": sol.counters["jvp"], "launches": launches,
-               "first_solve_s": first_s, "warm_wall_s": walls,
-               "warm_wall_s_median": sorted(walls)[1],
+               "first_solve_s": first_s, "warm_wall_s_one": walls[0],
                "device_ms_by_class": prof["device_ms_by_group"],
                "device_busy_ms": prof["device_busy_ms"],
                "device_idle_share": prof["device_idle_share"],
@@ -2704,15 +2778,13 @@ def batched_run_report(torch, _backend, run, label, B, card):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
-    walls = warm_walls(torch, run)
+    walls = warm_walls(torch, run, count=1)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     prof = profile_device(torch, run, groups=BATCH_GROUPS, host_events=False)
     peak = torch.cuda.max_memory_allocated()
-    median = sorted(walls)[1]
-    rec = {"B": B, "first_solve_s": first_s, "warm_wall_s": walls,
-           "warm_wall_s_median": median,
-           "trajectories_per_s": B / median,
+    rec = {"B": B, "first_solve_s": first_s, "warm_wall_s_one": walls[0],
+           "trajectories_per_s": B / walls[0],
            "slowest_row_steps": int(sol.stats.nsteps.max()),
            "host_reads": sol.counters["host_syncs"],
            "device_idle_share": prof["device_idle_share"],
@@ -4039,6 +4111,227 @@ def _a33_cases(torch, nls, _backend, brusselator, fft_poisson_preconditioner,
           and bool(torch.isnan(grad).all()))
 
 
+def slice17_phase(torch, nls, _backend, brusselator, stencil,
+                  fft_poisson_preconditioner, card, flag_sol, flag_pm, u64,
+                  ssol_ref):
+    """Phase 26: complex states under the engines that order values,
+    sparsity detection at the flagship's width and double-f32 refinement
+    on the card (see the module docstring).  ``flag_sol`` is phase 4's f32
+    root, ``flag_pm`` its preconditioner, ``u64`` phase 5's f64 polish and
+    ``ssol_ref`` phase 6's sparse solve on the analytic pattern.  Each run
+    with the launch counters at 0 just before and read just after.  Returns
+    the launches of (b)'s detected-pattern solve and (c)'s refinement, for
+    the kernels line."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.core import solve as solve_mod
+    from nonlinearsolve_tpu_torch.models import bratu
+    from nonlinearsolve_tpu_torch.ops import doublef32 as dfm
+    from nonlinearsolve_tpu_torch.ops.coloring import detect_sparsity
+    t_phase = time.perf_counter()
+    f32, f64, c128 = torch.float32, torch.float64, torch.complex128
+    dev = torch.device("cuda")
+    failed = []
+
+    def check(name, ok):
+        if not ok:
+            failed.append(name)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, {
+            k: v for k, v in _backend.LAUNCHES.items() if v}
+
+    def stats_of(sol):
+        s = sol.stats
+        return [int(s.nf), int(s.njacs), int(s.nfactors), int(s.nsolve),
+                int(s.nsteps)]
+
+    # --- (a) complex states under the engines that order values ---------
+    jf = nls.NonlinearFunction(f=lambda u, p: u * u * u - p,
+                               jac=lambda u, p: torch.diag(3 * u * u))
+    cubic = nls.NonlinearProblem(jf, torch.tensor([-0.8 + 1.5j], dtype=c128,
+                                                  device=dev), 8.0)
+    for name in ("LevenbergMarquardt", "TrustRegion", "AndersonAcceleration",
+                 "SimpleTrustRegion", "SimpleDFSane"):
+        sol, wall, launched = run(lambda: nls.solve(
+            cubic, getattr(nls, name)()))
+        code, stats = JAX_ORDERED[name]
+        ok = (int(sol.retcode) == code and stats_of(sol) == stats
+              and sol.u.device.type == "cuda" and not launched)
+        check(f"(a) cubic {name}", ok)
+        emit({"phase": "slice17_complex_order", "case": "cubic",
+              "alg": name, "retcode": sol.retcode.name,
+              "stats": stats_of(sol), "jax": [code, stats],
+              "u": [complex(sol.u[0]).real, complex(sol.u[0]).imag],
+              "wall_s": wall, "launches": launched, "ok": ok})
+    for name in ("RobustMultiNewton", "PseudoTransient"):
+        try:
+            nls.solve(cubic, getattr(nls, name)())
+            refused = False
+        except NotImplementedError as e:
+            refused = "fails to trace" in str(e)
+        check(f"(a) {name} refused", refused)
+        emit({"phase": "slice17_complex_order", "case": "cubic",
+              "alg": name, "refused": refused,
+              "jax": "fails to trace (tools/complex_reference.py)"})
+    N = 32
+    u0 = brusselator.init_u0(N, f64)
+    z = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        tuple(u0.shape)), device=dev)
+    p = brusselator.default_p(N, f64)
+    real, _w, _l = run(lambda: nls.solve(nls.NonlinearProblem(
+        brusselator.brusselator_2d, u0, p), nls.TrustRegion(), abstol=1e-10))
+    cplx, wall, launched = run(lambda: nls.solve(nls.NonlinearProblem(
+        brusselator.brusselator_2d, (u0 + 1e-3j * z).to(c128), p),
+        nls.TrustRegion(), abstol=1e-10))
+    code, stats = JAX_ORDERED["complex_brusselator32_tr"]
+    re_gap = float((cplx.u.real - real.u).abs().max())
+    im_max = float(cplx.u.imag.abs().max())
+    ok = (int(cplx.retcode) == code and stats_of(cplx) == stats
+          and stats_of(real) == stats and re_gap < 1e-10 and im_max < 1e-10
+          and not launched)
+    check("(a) complex Brusselator 32 under TrustRegion", ok)
+    emit({"phase": "slice17_complex_order", "case": "complex_brusselator",
+          "N": N, "unknowns": 2 * N * N, "alg": "TrustRegion",
+          "retcode": cplx.retcode.name, "stats": stats_of(cplx),
+          "real_stats": stats_of(real), "jax": [code, stats],
+          "max_real_gap": re_gap, "max_imag": im_max, "wall_s": wall,
+          "ok": ok, "card": card})
+    del real, cplx
+
+    # --- (b) sparsity detection at the flagship's width -----------------
+    N = 512
+    n = 2 * N * N
+    pat = brusselator.sparsity_pattern(N)
+    plain = flat_problem(nls, brusselator, N, f64, dev)
+    t0 = time.perf_counter()
+    got = detect_sparsity(lambda u: plain.f.f(u, plain.p), n,
+                          dtype=f64, device=dev)
+    plain_s = time.perf_counter() - t0
+    ok_plain = (np.array_equal(got.indptr, pat.indptr)
+                and np.array_equal(got.indices, pat.indices))
+    perm = np.random.default_rng(42).permutation(n)
+    pinv = np.argsort(perm)
+    permuted = flat_problem(nls, brusselator, N, f64, dev, perm=perm)
+    t0 = time.perf_counter()
+    gotp = detect_sparsity(lambda w: permuted.f.f(w, permuted.p), n,
+                           dtype=f64, device=dev)
+    perm_s = time.perf_counter() - t0
+    want = type(pat).from_pattern(pinv[pat.row_ids], pinv[pat.indices],
+                                  (n, n))
+    ok_perm = (np.array_equal(gotp.indptr, want.indptr)
+               and np.array_equal(gotp.indices, want.indices))
+    check("(b) detected pattern == sparsity_pattern(512)", ok_plain)
+    check("(b) permuted pattern == (pinv[rows], pinv[cols])", ok_perm)
+    emit({"phase": "slice17_detection", "N": N, "unknowns": n,
+          "nnz": got.nnz, "plain_equal": ok_plain, "plain_host_s": plain_s,
+          "permuted_nnz": gotp.nnz, "permuted_equal": ok_perm,
+          "permuted_host_s": perm_s,
+          "note": "host seconds: the ATen trace on the card plus the "
+                  "scipy propagation"})
+    del got, gotp, want, permuted
+    salg = sparse_alg(nls, fft_poisson_preconditioner, N)
+    if ssol_ref is None:              # --only 26: phase 6's solve rebuilt
+        ssol_ref = nls.solve(plain, salg, abstol=1e-4, maxiters=30)
+    dprob = flat_problem(nls, brusselator, N, f64, dev, with_pattern=False)
+    dsol, wall, det_launches = run(lambda: nls.solve(
+        dprob, salg, abstol=1e-4, maxiters=30))
+    dplan, = solve_mod._SPARSE_PLANS[dprob.f].values()
+    bit_equal = (dsol.retcode == ssol_ref.retcode
+                 and vars(dsol.stats) == vars(ssol_ref.stats)
+                 and bool(torch.equal(dsol.u, ssol_ref.u)))
+    ok = (dsol.retcode == nls.ReturnCode.Success and bit_equal
+          and np.array_equal(dplan.pattern.indices, pat.indices)
+          and det_launches.get("dia_spmv", 0) == dsol.counters["jvp"] > 0
+          and det_launches.get("gather_select", 0) == dsol.stats.njacs)
+    check("(b) detected-pattern solve bit-equal to the analytic one", ok)
+    emit({"phase": "slice17_detected_sparse_path", "N": N,
+          "retcode": dsol.retcode.name, "stats": vars(dsol.stats),
+          "bit_equal_to_analytic_pattern": bit_equal,
+          "jac_products": dsol.counters["jvp"], "launches": det_launches,
+          "first_solve_s_with_detection_and_plan": wall, "ok": ok,
+          "card": card})
+    del dsol, dprob, dplan, plain
+
+    # --- (c) double-f32 refinement of the flagship's f32 root -----------
+    rng = np.random.default_rng(17)
+    a = torch.as_tensor(rng.standard_normal(1 << 22) * 1e4,
+                        dtype=f32, device=dev)
+    b = torch.as_tensor(rng.standard_normal(1 << 22), dtype=f32, device=dev)
+    s_, e_ = dfm.two_sum(a, b)
+    p_, pe_ = dfm.two_prod(a, b)
+    sum_exact = bool(torch.equal(s_.double() + e_.double(),
+                                 a.double() + b.double()))
+    prod_exact = bool(torch.equal(p_.double() + pe_.double(),
+                                  a.double() * b.double()))
+    self_ok = dfm.self_check(dev)
+    check("(c) two_sum / two_prod error-free on the card",
+          sum_exact and prod_exact and self_ok)
+    emit({"phase": "slice17_error_free", "pairs": 1 << 22,
+          "two_sum_exact": sum_exact, "two_prod_exact": prod_exact,
+          "self_check": self_ok})
+    del a, b, s_, e_, p_, pe_
+    p64 = brusselator.default_p(N, f64)
+    p32 = brusselator.default_p(N, f32)
+
+    def refine():
+        return nls.refine_root(
+            flag_sol.u,
+            lambda uh, ul: brusselator.brusselator_2d_df32(uh, ul, p64),
+            lambda uh: (lambda v: stencil.brusselator_jvp(uh, v, p32)),
+            precond_fn=flag_pm, **REFINE)
+
+    res, first_wall, ref_launches = run(refine)
+    _res2, warm_wall, _l2 = run(refine)
+    u_ref = res.u.hi.double() + res.u.lo.double()
+    scale = float(u64.abs().max())
+    refined = float((u_ref - u64).abs().max()) / scale
+    fast = float((flag_sol.u.double() - u64).abs().max()) / scale
+    ok = (refined <= 1e-8 and refined < fast
+          and ref_launches.get("brusselator_jvp", 0) > 0)
+    check("(c) refined flagship root within 1e-8 of the f64 polish", ok)
+    emit({"phase": "slice17_refinement", "N": N, **REFINE,
+          "defect_inf": float(res.defect_norm), "refined_rel_inf": refined,
+          "fast_rel_inf": fast, "limit": 1e-8, "first_wall_s": first_wall,
+          "warm_wall_s": warm_wall, "launches": ref_launches, "ok": ok,
+          "card": card})
+    del res, _res2, u_ref
+
+    # --- (d) auto_refine through the graph front end: Bratu 128² --------
+    B = BRATU_REFINE
+    sparse = nls.NewtonRaphson(autodiff=nls.JacobianPolicy(mode="sparse"))
+    prob32 = bratu.make_problem(B["N"], dtype=f32)
+    sol32 = nls.solve(prob32, sparse, abstol=B["abstol32"], maxiters=50)
+    sol64 = nls.solve(bratu.make_problem(B["N"], dtype=f64), sparse,
+                      abstol=1e-10, maxiters=100)
+    res, wall, auto_launches = run(lambda: nls.auto_refine(
+        prob32, sol32.u, rounds=B["rounds"], restart=B["restart"],
+        krylov_maxiter=B["krylov_maxiter"]))
+    u_ref = res.u.hi.double() + res.u.lo.double()
+    scale = float(sol64.u.abs().max())
+    refined = float((u_ref - sol64.u).abs().max()) / scale
+    fast = float((sol32.u.double() - sol64.u).abs().max()) / scale
+    ok = (sol32.retcode == nls.ReturnCode.Success
+          and sol64.retcode == nls.ReturnCode.Success
+          and refined <= 1e-9 and refined <= fast / 10.0)
+    check("(d) auto_refine Bratu 128² within 1e-9 and 10x the f32 root", ok)
+    emit({"phase": "slice17_auto_refine", **B,
+          "f32_retcode": sol32.retcode.name, "f32_stats": stats_of(sol32),
+          "f64_stats": stats_of(sol64), "defect_inf": float(res.defect_norm),
+          "refined_rel_inf": refined, "fast_rel_inf": fast, "limit": 1e-9,
+          "wall_s": wall, "launches": auto_launches, "ok": ok, "card": card})
+    emit({"phase": "slice17_timing", "phase_seconds":
+          time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"phase 26 failed: {failed}")
+    return {"detected_sparse_path": det_launches,
+            "refinement": ref_launches}
+
+
 def flagship_setup(torch, nls, brusselator, fft_poisson_preconditioner,
                    N):
     """Phase 4's flagship: the N² Brusselator in f32 with K1 as its JVP,
@@ -4073,10 +4366,10 @@ def polish_setup(torch, nls, brusselator, fft_poisson_preconditioner, N,
 
 def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
                 fft_poisson_preconditioner, card, phases):
-    """``--only``: phases 19–25 alone, in the order given, each on the
+    """``--only``: phases 19–26 alone, in the order given, each on the
     set-up it takes from the earlier phases rebuilt here: phase 18's
     NewtonRaphson root at N=32 for 20; the flagship and its polish, solved
-    as phases 4 and 5 solve them, for 23; the flagship's problem and
+    as phases 4 and 5 solve them, for 23 and 26; the flagship's problem and
     algorithm for 24."""
     f64 = torch.float64
     for ph in phases:
@@ -4108,8 +4401,19 @@ def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
         elif ph == "25":
             a33_phase(torch, nls, _backend, brusselator,
                       fft_poisson_preconditioner, card)
+        elif ph == "26":
+            prob, alg, pm = flagship_setup(torch, nls, brusselator,
+                                           fft_poisson_preconditioner, 512)
+            sol = nls.solve(prob, alg, abstol=5.0, maxiters=30)
+            prob64, alg64 = polish_setup(torch, nls, brusselator,
+                                         fft_poisson_preconditioner, 512,
+                                         sol.u)
+            sol64 = nls.solve(prob64, alg64, abstol=1e-4, maxiters=10)
+            slice17_phase(torch, nls, _backend, brusselator, stencil,
+                          fft_poisson_preconditioner, card, sol, pm,
+                          sol64.u, None)
         else:
-            raise ValueError(f"--only takes phases 19 to 25, not {ph!r}")
+            raise ValueError(f"--only takes phases 19 to 26, not {ph!r}")
         emit({"phase": "only_phase", "only": ph,
               "seconds": time.perf_counter() - t0, "card": card})
 
@@ -5195,7 +5499,12 @@ def main(argv):
     a33_phase(torch, nls, _backend, brusselator, fft_poisson_preconditioner,
               card)
 
-    # --- 26. summary -------------------------------------------------------
+    # --- 26. complex ordering, sparsity detection, refinement -------------
+    s17 = slice17_phase(torch, nls, _backend, brusselator, stencil,
+                        fft_poisson_preconditioner, card, sol, pm, u64, ssol)
+    del ssol
+
+    # --- 27. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
@@ -5210,6 +5519,8 @@ def main(argv):
                "shape": [N, N, 2], "dtype": "float32",
                "note": "operands of 6 MiB are L2-resident at N=512",
                "N2048": {k: summary[(name, 2048)][k] for k in timing_keys}}
+        if name == "brusselator_jvp":
+            row["launches_refinement"] = s17["refinement"].get(name, 0)
         if name == "brusselator_jvp_scaled":
             row["chain_step_ms_graph"] = chain_graph_ms
             row["kernels_per_wrapper_call"] = timings[
@@ -5239,6 +5550,9 @@ def main(argv):
                     "library_note": r["library"],
                     "share_of_bound": r["share_of_bound"],
                     "shape": r["shape"], "dtype": "float64"})
+        if name != "gather_spmv":
+            out[-1]["launches_detected_pattern"] = s17[
+                "detected_sparse_path"].get(name, 0)
     k5_row = next(o for o in out if o["name"] == "gather_spmv")
     k5_row["index_select_ms"] = spmv_summary["gather_spmv"]["index_select_ms"]
     k5_row["other_tables"] = {

@@ -38,8 +38,13 @@ constructors; pytree, 0-d and complex states (``utils/pytree.py``'s flat
 path; holomorphic Jacobians, complex dense and Krylov solves),
 normal-form Krylov least squares, and the polynomial drivers
 (``solve_polynomial``, ``solve_multistart``, ``HomotopyContinuationJL``),
-which track every path in one lockstep batch.  See ROADMAP.md for what is
-still to come.
+which track every path in one lockstep batch; complex states under the
+engines that order values (JAX's lexicographic order,
+``utils/ordering.py``); sparsity detection from the residual's ATen graph
+(``ops/sparsity_trace.py``, ``ops.coloring.detect_sparsity``), so a sparse
+Jacobian needs no pattern; and double-f32 refinement (``ops/doublef32.py``,
+``ops/doublef32_eval.py``, ``refine_root`` / ``auto_refine``).  See
+ROADMAP.md for what is still to come.
 """
 
 from .core.autodiff import JacobianPolicy, pickchunksize
@@ -102,6 +107,7 @@ from .solvers.homotopy import (ArcLengthContinuation,
                                FastShortcutHomotopyPolyalg,
                                HomotopyPolyAlgorithm, HomotopySweep,
                                KantorovichHomotopy, SimpleHomotopySweep)
+from .solvers.refinement import RefineResult, auto_refine, refine_root
 from .solvers.scc import LinearSCCBlock, SCCAlg, scc_solve_up
 from .solvers.steady_state import DynamicSS, SSRootfind
 from .solvers.wrappers import (CMINPACK, KINSOL, FastLevenbergMarquardtJL,
@@ -138,7 +144,7 @@ __all__ = [
     "NormTerminationMode", "PETScSNES", "PolynomialHomotopy",
     "PostconditionSpace",
     "PostconditionSpecifier", "PseudoTransient", "QuasiNewtonAlgorithm",
-    "RadiusUpdateSchemes", "RelNormSafeBestTerminationMode",
+    "RadiusUpdateSchemes", "RefineResult", "RelNormSafeBestTerminationMode",
     "RelNormSafeTerminationMode", "RelNormTerminationMode",
     "RelTerminationMode", "ReturnCode", "Ridder", "RobustMultiNewton",
     "RobustNonMonotoneLineSearch", "SCCAlg", "SCCNonlinearProblem",
@@ -153,6 +159,7 @@ __all__ = [
     "TaylorHomotopyContinuationJL", "TerminationCondition", "TraceAll",
     "TraceConfig", "TraceMinimal",
     "TraceWithJacobianConditionNumber", "TrustRegion", "VecJacOperator",
-    "init", "pickchunksize", "polynomialize", "scc_solve_up", "solve",
+    "auto_refine", "init", "pickchunksize", "polynomialize", "refine_root",
+    "scc_solve_up", "solve",
     "solve_ensemble", "solve_multistart", "solve_polynomial",
 ]

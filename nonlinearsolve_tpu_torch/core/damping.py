@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from ..utils import ordering
 from ..utils.norms import l2_norm
 
 
@@ -52,12 +53,13 @@ def lm_damping_init(cfg: LevenbergMarquardtDamping, initial_damping, n: int,
 
 def lm_damping_update(cfg: LevenbergMarquardtDamping, state: LMDampingState,
                       jac_damp, *, is_normal_form: bool):
-    """DᵀD ← max(DᵀD, diag(JᵀJ)); the damping is λ·DᵀD (a vector)."""
+    """DᵀD ← max(DᵀD, diag(JᵀJ)) (JAX's order on a complex state); the
+    damping is λ·DᵀD (a vector)."""
     if is_normal_form:
         j_diag = jac_damp.diagonal()
     else:
         j_diag = torch.sum(jac_damp * jac_damp, dim=0)   # diag(JᵀJ) from J
-    DtD = torch.maximum(state.DtD, j_diag)
+    DtD = ordering.maximum(state.DtD, j_diag)
     return state.lam * DtD, state.replace(DtD=DtD)
 
 

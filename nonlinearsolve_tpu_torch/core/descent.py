@@ -33,7 +33,9 @@ import torch
 from .._backend import real_np_dtype
 from ..ops.linear_solve import LinearSolver, _lstsq, solve_dense, solve_spd
 from ..ops.operators import (StatefulJacobianNormalFormOperator,
-                             StatefulJacobianOperator, as_matvec, mv, rmv)
+                             StatefulJacobianOperator, as_matvec, mv, rmv,
+                             rmv_t)
+from ..utils import ordering
 from ..utils.norms import l2_norm, tree_dot
 from . import damping as dmp
 
@@ -391,7 +393,8 @@ def _damped_solve(cfg: DampedNewtonDescent, mode: str, J, fu, D,
         return -x, ok, None
     if mode == "least_squares":
         # [J; √D] δu ≈ [-fu; 0]
-        sqrtD = torch.sqrt(torch.clamp(D, min=0.0))
+        sqrtD = torch.sqrt(ordering.maximum(D, 0.0) if D.is_complex()
+                           else torch.clamp(D, min=0.0))
         A = torch.cat([J, torch.diag(sqrtD)], dim=0)
         b = torch.cat([fu, torch.zeros((J.shape[1],), dtype=fu.dtype,
                                        device=fu.device)])
@@ -449,22 +452,25 @@ def descent_solve(cfg, state, ctx: DescentCtx, J, fu, u, trust_region=None,
 def _dogleg_solve(cfg: Dogleg, state, ctx: DescentCtx, J, fu, u,
                   trust_region):
     """The dogleg step for the trust radius ``trust_region`` (a host
-    scalar); the branch is chosen on the device."""
+    scalar, complex on a complex state, compared in JAX's order); the
+    branch is chosen on the device."""
     assert trust_region is not None, "Dogleg requires a trust region radius"
     res_newton, state = descent_solve(cfg.newton, state, ctx, J, fu, u)
     du_newton = res_newton.du
     nan = _nan_like(du_newton)
-    tr = float(trust_region)
+    tr = (complex(trust_region) if np.iscomplexobj(trust_region)
+          else float(trust_region))
 
-    # the Cauchy (steepest-descent) point
-    du_cauchy = -rmv(J, fu)
+    # the Cauchy (steepest-descent) point, along −Jᵀfu unconjugated on a
+    # complex state, as the JAX package steps
+    du_cauchy = -rmv_t(J, fu)
     l_grad = l2_norm(du_cauchy)
     J_dc = mv(J, du_cauchy)
     duJtJdu = tree_dot(J_dc, J_dc)
     d_cauchy = (l_grad * (l_grad * l_grad)) / duJtJdu
 
     # 1: Newton inside the trust region
-    newton_inside = l2_norm(du_newton) <= tr
+    newton_inside = ordering.less(l2_norm(du_newton), tr, or_equal=True)
     # 2: the Cauchy point outside — the steepest direction to the radius
     lam = tr / l_grad
     du_clipped = lam * du_cauchy
@@ -474,11 +480,13 @@ def _dogleg_solve(cfg: Dogleg, state, ctx: DescentCtx, J, fu, u,
     a = tree_dot(du2, du2)
     b = 2.0 * tree_dot(du1, du2)
     c = d_cauchy * d_cauchy - tr * tr
-    aux = torch.clamp(b * b - 4.0 * a * c, min=0.0)
+    aux = b * b - 4.0 * a * c
+    aux = (ordering.maximum(aux, 0.0) if aux.is_complex()
+           else torch.clamp(aux, min=0.0))
     tau = (-b + torch.sqrt(aux)) / (2.0 * a)
     du_interp = torch.addcmul(du1, tau, du2)     # fused, as XLA's
 
-    outside = d_cauchy >= tr
+    outside = ordering.greater(d_cauchy, tr, or_equal=True)
     du = torch.where(newton_inside, du_newton,
                      torch.where(outside, du_clipped, du_interp))
     extra = torch.where(newton_inside, nan,

@@ -383,7 +383,7 @@ def robust_nonmonotone_batched(cfg: RobustNonMonotoneLineSearch,
     nf)``, (B,) tensors."""
     f_cur = ipow(_rows_l2(fu), cfg.n_exp)
     f_bar = state.history.amax(-1)
-    eta = state.f_1 / ipow((state.nsteps + 1).to(u.dtype), 2)
+    eta = state.f_1 / ipow((state.nsteps + 1).to(f_cur.dtype), 2)
     gamma = cfg.gamma
 
     def merit_at(alpha):

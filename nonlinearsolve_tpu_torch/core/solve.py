@@ -196,7 +196,7 @@ def _maybe_sparse_plan(f, alg, spec, f_flat, n_in, n_out, u0):
     if key not in plans:
         plans[key] = plan_sparse_jacobian(
             f_flat, n_in, n_out, sparsity=spec.sparsity,
-            colorvec=spec.colorvec)
+            colorvec=spec.colorvec, dtype=u0.dtype, device=u0.device)
     return plans[key]
 
 

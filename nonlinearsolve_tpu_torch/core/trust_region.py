@@ -25,9 +25,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .._backend import real_np_dtype
+from .._backend import np_dtype, real_np_dtype
 from .autodiff import jvp
-from ..ops.operators import mv, rmv
+from ..ops.operators import mv, rmv_t, transpose_apply
+from ..utils import ordering
 from ..utils.norms import l2_norm, tree_dot
 from .descent import DescentCtx, DescentResult
 
@@ -129,7 +130,10 @@ class LMTRState:
 
 
 def _vjp_at(ctx: DescentCtx, u, v):
-    return torch.func.vjp(ctx.f_flat, u)[1](v)[0]
+    """Jᵀv at ``u``, unconjugated on a complex state (the JAX package's
+    VJP; torch's gives Jᴴv)."""
+    vjp_fn = torch.func.vjp(ctx.f_flat, u)[1]
+    return transpose_apply(lambda w: vjp_fn(w)[0], v)
 
 
 def tr_init_reads(cfg, ctx: DescentCtx, fu, u) -> list:
@@ -137,18 +141,22 @@ def tr_init_reads(cfg, ctx: DescentCtx, fu, u) -> list:
     (Yuan) ‖Jᵀfu‖ at u0."""
     if isinstance(cfg, LevenbergMarquardtTrustRegion):
         return []
-    out = [l2_norm(u), l2_norm(fu), u.max(), u.min()]
+    out = [l2_norm(u), l2_norm(fu), ordering.amax(u), ordering.amin(u)]
     if cfg.method == "yuan":
         out.append(l2_norm(_vjp_at(ctx, u, fu)))
     return out
 
 
 def tr_init(cfg, u, host) -> Any:
-    """The initial state from the host values of ``tr_init_reads``."""
-    npdt = real_np_dtype(u.dtype)
+    """The initial state from the host values of ``tr_init_reads``.  Its
+    scalars have the state's dtype, as in the JAX package: complex on a
+    complex state (numpy orders complex scalars as JAX does), where
+    max(u) − min(u) can give the radius an imaginary part."""
+    npdt = np_dtype(u.dtype)
     if isinstance(cfg, LevenbergMarquardtTrustRegion):
         return LMTRState(loss_old=npdt(np.inf), v_cache=u,
                          norm_v_old=npdt(np.inf), last_step_accepted=False)
+    rdt = real_np_dtype(u.dtype)
     u0_norm, fu_norm, umax, umin = host[:4]
     with np.errstate(all="ignore"):
         # max_trust_radius: Inf except Simple / NocedalWright →
@@ -163,19 +171,20 @@ def tr_init(cfg, u, host) -> Any:
         if cfg.initial_trust_radius is not None:
             itr = npdt(cfg.initial_trust_radius)
         elif cfg.method == "nlsolve":
-            itr = u0_norm if u0_norm > 0 else npdt(1)
+            itr = u0_norm if u0_norm > 0 else rdt(1)
         elif cfg.method in ("hei", "bastin"):
             itr = npdt(1)
         elif cfg.method == "fan":
-            itr = (fu_norm ** npdt(0.99)) / npdt(10.0)
+            itr = (fu_norm ** rdt(0.99)) / rdt(10.0)
         else:
-            itr = mtr / npdt(11.0)
+            itr = mtr / rdt(11.0)
         if cfg.method == "yuan":
             # Yuan always starts from p1·‖Jᵀfu‖ at u0, a given initial
             # radius included (as the reference does)
             itr = p1 * host[4]
-    return TRState(trust_region=itr, max_trust_radius=mtr, p1=p1, p2=p2,
-                   p3=p3, p4=p4, shrink_counter=0, last_step_accepted=False)
+    return TRState(trust_region=npdt(itr), max_trust_radius=npdt(mtr),
+                   p1=p1, p2=p2, p3=p3, p4=p4, shrink_counter=0,
+                   last_step_accepted=False)
 
 
 def tr_candidate(cfg, state, ctx: DescentCtx, J, fu, u, du,
@@ -193,7 +202,7 @@ def tr_candidate(cfg, state, ctx: DescentCtx, J, fu, u, du,
     Jdu = mv(J, du)
     duJtJdu = torch.where(torch.isnan(descent_result.duJtJdu),
                           tree_dot(Jdu, Jdu), descent_result.duJtJdu)
-    reads = [l2_norm(fu_new), l2_norm(fu), tree_dot(du, rmv(J, fu)),
+    reads = [l2_norm(fu_new), l2_norm(fu), tree_dot(du, rmv_t(J, fu)),
              duJtJdu, l2_norm(du)]
     if cfg.method == "yuan":
         reads.append(l2_norm(_vjp_at(ctx, u_new, fu_new)))
@@ -201,8 +210,8 @@ def tr_candidate(cfg, state, ctx: DescentCtx, J, fu, u, du,
         # ρ re-estimated with the operators at u_NEW, as the reference does
         _, vjp_new = torch.func.vjp(ctx.f_flat, u_new)
         Jdu_new = jvp(ctx.f_flat, u_new, du)[1]
-        jtfu_new = vjp_new(fu_new)[0]
-        jt_jdu = vjp_new(Jdu_new)[0]
+        jtfu_new = transpose_apply(lambda w: vjp_new(w)[0], fu_new)
+        jt_jdu = transpose_apply(lambda w: vjp_new(w)[0], Jdu_new)
         reads += [tree_dot(jtfu_new, jtfu_new), tree_dot(jt_jdu, jt_jdu)]
     return u_new, fu_new, reads
 
@@ -273,7 +282,7 @@ def tr_update(cfg, state, host, descent_result: DescentResult, du):
                 p1 = p1 * p2
             elif rho > et:
                 p1 = np.minimum(p1 * p3, p4)
-            tr = p1 * (fn_new ** npdt(0.99))
+            tr = p1 * (fn_new ** type(fn_new)(0.99))
         elif method == "bastin":
             rho_b = num / (host[5] + host[6] / npdt(2.0))
             if accepted:

@@ -140,3 +140,62 @@ def make_problem(N: int = 32, dtype=torch.float64, *,
             NonlinearFunction(f=brusselator_2d, sparsity=sparsity_pattern(N)),
             u0, p)
     return problem(u0, p, kernel_jvp)
+
+
+def brusselator_2d_df32(U_hi: torch.Tensor, U_lo: torch.Tensor, p):
+    """The residual evaluated in double-f32 (``ops/doublef32.py``): the
+    state is the unevaluated sum ``U_hi + U_lo``, and every term — the
+    Laplacian's scaling alpha/dx² (~2.6e6 at N=512, the dominant f32
+    noise), the cubic reaction, the forcing — is carried as an error-free
+    pair (~1e-14 relative).  Feeds the mixed-precision refinement loop
+    (``solvers/refinement.py``).  Returns ``(F_hi, F_lo)``.
+
+    The constants are split exactly from float64 on the host, so ``p``
+    must be concrete (a tensor or a sequence of four numbers); the forcing
+    is the JAX package's df32 one, on the float64 grid."""
+    from ..ops.doublef32 import (DF, df_add, df_add_f, df_from_f64, df_mul,
+                                 df_mul_f, df_roll, df_sub)
+
+    dtype, dev = U_hi.dtype, U_hi.device
+    if isinstance(p, torch.Tensor):
+        p = p.detach().cpu().numpy()
+    A64, B64, alpha64, dx64 = np.asarray(p, np.float64).tolist()
+
+    def const(v):
+        return df_from_f64(v, dtype, device=dev)
+
+    alpha_df = const(alpha64 / dx64 ** 2)
+    A_df = const(A64)
+    A1_df = const(A64 + 1.0)
+    B_df = const(B64)
+
+    u = DF(U_hi[..., 0], U_lo[..., 0])
+    v = DF(U_hi[..., 1], U_lo[..., 1])
+    N = u.hi.shape[0]
+    xy = np.linspace(0.0, 1.0, N)
+    x = xy[:, None]
+    y = xy[None, :]
+    force = torch.as_tensor(
+        5.0 * (((x - 0.3) ** 2 + (y - 0.6) ** 2) <= 0.01), dtype=dtype,
+        device=dev)
+
+    def lap(w: DF) -> DF:
+        s = df_add(df_roll(w, 1, 0), df_roll(w, -1, 0))
+        s = df_add(s, df_add(df_roll(w, 1, 1), df_roll(w, -1, 1)))
+        return df_sub(s, df_mul_f(w, torch.tensor(4.0, dtype=dtype,
+                                                  device=dev)))
+
+    def bcast(c: DF, shape) -> DF:
+        return DF(c.hi.expand(shape), c.lo.expand(shape))
+
+    shape = u.hi.shape
+    uuv = df_mul(df_mul(u, u), v)
+    du = df_add(df_mul(bcast(alpha_df, shape), lap(u)),
+                df_add(bcast(B_df, shape), uuv))
+    du = df_sub(du, df_mul(bcast(A1_df, shape), u))
+    du = df_add_f(du, force)
+    dv = df_sub(df_add(df_mul(bcast(alpha_df, shape), lap(v)),
+                       df_mul(bcast(A_df, shape), u)), uuv)
+    F_hi = torch.stack([du.hi, dv.hi], dim=-1)
+    F_lo = torch.stack([du.lo, dv.lo], dim=-1)
+    return F_hi, F_lo

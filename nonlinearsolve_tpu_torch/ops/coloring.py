@@ -9,9 +9,9 @@ of ``ops/coloring.py``).
   algorithm in Python: the executable specification, which runs only when
   called by name.
 
-Sparsity detection (the JAX package's ``detect_sparsity`` and its jaxpr
-tracer) is ROADMAP A.25: until then a sparse Jacobian needs ``sparsity``
-or ``jac_prototype`` on the ``NonlinearFunction``.
+- ``detect_sparsity``: the Jacobian's pattern when the user gives none —
+  the exact ATen-graph tracer (``ops/sparsity_trace.py``) first, else the
+  union of ``|J| > 0`` over random-probe dense Jacobians at small sizes.
 """
 
 from __future__ import annotations
@@ -20,6 +20,44 @@ import numpy as np
 import torch
 
 from .sparse import CSR
+
+
+def detect_sparsity(f_flat, n: int, *, n_probes: int = 2, seed: int = 0,
+                    dtype=torch.float64, device=None) -> CSR:
+    """A CSR *pattern* of the Jacobian of ``f_flat`` at a flat state of
+    ``n`` elements on ``device`` (the card when None).
+
+    Tries the EXACT graph tracer first (no probabilistic misses); falls
+    back to the union of ``jacfwd`` patterns at ``n_probes`` random
+    points (``np.random.default_rng(seed)``, as the JAX package draws
+    them) when the trace fails or uses an op the tracer does not support,
+    and refuses when that dense probe would be too large."""
+    from .. import _backend
+    from .sparsity_trace import detect_sparsity_exact
+    dev = _backend.resolve_device(device)
+    dt = _backend.resolve_dtype(dtype)
+    exact = detect_sparsity_exact(f_flat, n, dtype=dt, device=dev)
+    if exact is not None:
+        return exact
+    n_out = f_flat(torch.zeros((n,), dtype=dt, device=dev)).numel()
+    if n * max(n_out, 1) > 16_777_216:
+        raise ValueError(
+            "sparsity detection fell back to dense jacobian probing (the "
+            "residual uses an op the exact graph tracer does not "
+            f"support), but a dense ({n_out}, {n}) probe is infeasible at "
+            "this size.  Pass the pattern explicitly via "
+            "NonlinearFunction(sparsity=...) or jac_prototype=..., or use "
+            "a matrix-free Krylov linear solver instead of a concrete "
+            "sparse jacobian.")
+    rng = np.random.default_rng(seed)
+    mask = None
+    for _ in range(n_probes):
+        u = torch.as_tensor(rng.standard_normal(n) * 0.5 + 0.3, dtype=dt,
+                            device=dev)
+        m = (torch.func.jacfwd(f_flat)(u) != 0).reshape(n_out, n).cpu()
+        mask = m if mask is None else (mask | m)
+    rows, cols = np.nonzero(mask.numpy())
+    return CSR.from_pattern(rows, cols, tuple(mask.shape))
 
 
 def pattern_from(obj, n_out: int, n_in: int) -> CSR:

@@ -154,3 +154,19 @@ def rmv(A, v):
     if v.dim() != 1:
         return (At @ v.reshape(-1)).reshape(v.shape)
     return At @ v
+
+
+def transpose_apply(adjoint, v):
+    """``Aᵀ @ v`` from ``adjoint``, a callable ``v -> Aᴴ @ v`` (torch's
+    products and VJPs conjugate): ``conj(Aᴴ conj v)`` on a complex ``v``,
+    ``Aᴴ @ v`` on a real one.  It is the JAX package's unconjugated
+    product and VJP, which its trust regions and Dogleg step along."""
+    if not v.is_complex():
+        return adjoint(v)
+    return adjoint(v.conj()).conj()
+
+
+def rmv_t(A, v):
+    """``Aᵀ @ v`` with no conjugation: :func:`transpose_apply` of
+    :func:`rmv`."""
+    return transpose_apply(lambda w: rmv(A, w), v)

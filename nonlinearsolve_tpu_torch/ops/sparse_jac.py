@@ -23,7 +23,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .coloring import greedy_column_coloring, pattern_from
+from .coloring import (detect_sparsity, greedy_column_coloring,
+                       pattern_from)
 from .selection import StaticSelection
 from .sparse import CSR, DIA
 from ..core.autodiff import jvp
@@ -104,16 +105,16 @@ class ColoredJacobian:
 
 
 def plan_sparse_jacobian(f_flat: Callable, n_in: int, n_out: int, *,
-                         sparsity=None, colorvec=None) -> ColoredJacobian:
+                         sparsity=None, colorvec=None, dtype=torch.float64,
+                         device=None) -> ColoredJacobian:
     """Build the (pattern, coloring) plan.  ``sparsity`` may be a CSR
-    pattern, a COO tuple or a dense mask; without it, detection is
-    ROADMAP A.25 and raises."""
+    pattern, a COO tuple or a dense mask; None detects it
+    (``coloring.detect_sparsity``, tracing ``f_flat`` at a state of
+    ``dtype`` on ``device``)."""
     if sparsity is None:
-        raise NotImplementedError(
-            "sparsity detection (the jaxpr tracer of ops/sparsity_trace.py) "
-            "is ROADMAP A.25; pass sparsity= or jac_prototype= on the "
-            "NonlinearFunction")
-    pattern = pattern_from(sparsity, n_out, n_in)
+        pattern = detect_sparsity(f_flat, n_in, dtype=dtype, device=device)
+    else:
+        pattern = pattern_from(sparsity, n_out, n_in)
     colors = (np.asarray(colorvec, np.int32) if colorvec is not None
               else greedy_column_coloring(pattern))
     return ColoredJacobian(pattern, colors)

@@ -22,6 +22,7 @@ from ..core.returncode import ReturnCode
 from ..core.solution import NLStats
 from ..core.tracing import init_trace, record_trace
 from ..ops.linear_solve import _square_solve
+from ..utils import ordering
 from .quasi_newton import finish, flat_ctx
 
 
@@ -66,7 +67,8 @@ def _anderson_gamma(dF, fu, hist_mask, reg):
     G = dFm @ dFm.T
     lam = reg * (torch.trace(G) + 1.0)
     G = G + lam * eye
-    G = torch.where((hist_mask[:, None] * hist_mask[None, :]) > 0, G, eye)
+    G = torch.where(ordering.greater(hist_mask[:, None] * hist_mask[None, :],
+                                     0), G, eye)
     rhs = (dFm @ fu) * hist_mask
     gamma = _square_solve(G, rhs)
     return torch.where(torch.isfinite(gamma), gamma,

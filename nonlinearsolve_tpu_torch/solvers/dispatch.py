@@ -49,27 +49,30 @@ def run_algorithm(alg, ctx, term_cfg, jac_spec, u0, abstol, reltol,
 
 
 def _refuse_complex(alg, u0) -> None:
-    """The engines that order or compare values (a trust region, LM or
-    SER damping, Anderson's safeguard, the simple trust region and
-    DFSane's line search) run on real states only: on a complex one the
-    JAX package orders complex numbers, which torch refuses."""
+    """The JAX package runs every engine on a complex state, ordering
+    complex values lexicographically (``utils/ordering.py``), but for
+    that fail to trace there: ``PseudoTransient`` (its SER damping
+    carries a complex residual norm into a real one), a trust region
+    under the NLsolve or Fan radius scheme (a real initial radius updated
+    into a complex one) and so ``RobustMultiNewton``, which holds both
+    schemes.  The port refuses those, as the reference does not run
+    them."""
     if not u0.is_complex():
         return
-    from ..core.descent import DampedNewtonDescent, GeodesicAcceleration
-    from .anderson import AndersonAcceleration
+    from ..core.descent import DampedNewtonDescent
+    from ..core.damping import SwitchedEvolutionRelaxation
     from .first_order import GeneralizedFirstOrderAlgorithm
-    from .quasi_newton import QuasiNewtonAlgorithm
-    from .simple import SimpleDFSane, SimpleTrustRegion
+    from .polyalg import NonlinearSolvePolyAlgorithm
     descent = getattr(alg, "descent", None)
-    while isinstance(descent, GeodesicAcceleration):
-        descent = descent.descent
-    ordered = (isinstance(alg, (AndersonAcceleration, SimpleTrustRegion,
-                                SimpleDFSane))
-               or (isinstance(alg, (GeneralizedFirstOrderAlgorithm,
-                                    QuasiNewtonAlgorithm))
-                   and (alg.trustregion is not None
-                        or isinstance(descent, DampedNewtonDescent))))
-    if ordered:
+    ser = (isinstance(alg, GeneralizedFirstOrderAlgorithm)
+           and isinstance(descent, DampedNewtonDescent)
+           and isinstance(descent.damping, SwitchedEvolutionRelaxation))
+    tr = getattr(alg, "trustregion", None)
+    real_radius = getattr(tr, "method", None) in ("nlsolve", "fan")
+    robust = (isinstance(alg, NonlinearSolvePolyAlgorithm)
+              and getattr(alg, "name", "") == "RobustMultiNewton")
+    if ser or real_radius or robust:
         raise NotImplementedError(
-            f"{getattr(alg, 'name', type(alg).__name__)} on a complex state "
-            f"is ROADMAP A.33 (it orders complex values)")
+            f"{getattr(alg, 'name', type(alg).__name__)} on a complex state: "
+            f"the JAX package fails to trace it there too, so there is no "
+            f"reference result to hold it to")

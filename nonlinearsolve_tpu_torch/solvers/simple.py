@@ -37,6 +37,7 @@ from ..core.lockstep import row_flags, select_rows
 from ..core.returncode import ReturnCode
 from ..core.solution import NLStats
 from ..ops.linear_solve import _lstsq, solve_dense_batched
+from ..utils import ordering
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,7 +400,8 @@ def run_simple_trust_region(alg: SimpleTrustRegion, res, term_cfg, x0,
     fx0 = res(x0)
     fnorm0 = _l2(fx0)
     if alg.max_trust_radius is None:
-        mtr = torch.maximum(fnorm0, x0.amax(-1) - x0.amin(-1))
+        mtr = ordering.maximum(fnorm0, ordering.amax(x0, -1)
+                               - ordering.amin(x0, -1))
     else:
         mtr = torch.full_like(fnorm0, alg.max_trust_radius)
     if alg.initial_trust_radius is not None:
@@ -423,18 +425,21 @@ def run_simple_trust_region(alg: SimpleTrustRegion, res, term_cfg, x0,
         l_grad = _l2(dx_cauchy)
         Jg = _mv(J, dx_cauchy)
         d_cauchy = ipow(l_grad, 3) / nz(_dot(Jg, Jg))
-        newton_inside = _l2(dx_newton) <= tr
+        newton_inside = ordering.less(_l2(dx_newton), tr, or_equal=True)
         lam = tr / nz(l_grad)
         du1 = (d_cauchy / nz(l_grad))[:, None] * dx_cauchy
         du2 = dx_newton - du1
         a = _dot(du2, du2)
         b = 2.0 * _dot(du1, du2)
         cc = ipow(d_cauchy, 2) - ipow(tr, 2)
-        aux = torch.clamp(b * b - 4.0 * a * cc, min=0.0)
+        aux = b * b - 4.0 * a * cc
+        aux = (ordering.maximum(aux, 0.0) if aux.is_complex()
+               else torch.clamp(aux, min=0.0))
         tau = (-b + torch.sqrt(aux)) / torch.where(a == 0, 1.0, 2.0 * a)
         dx = torch.where(
             newton_inside[:, None], dx_newton,
-            torch.where((d_cauchy >= tr)[:, None], lam[:, None] * dx_cauchy,
+            torch.where(ordering.greater(d_cauchy, tr, or_equal=True)[:, None],
+                        lam[:, None] * dx_cauchy,
                         du1 + tau[:, None] * du2))
         x_cand = c.u + dx
         fx_cand = res(x_cand)
@@ -442,20 +447,24 @@ def run_simple_trust_region(alg: SimpleTrustRegion, res, term_cfg, x0,
         pred = -(_dot(g, dx) + 0.5 * _dot(Jdx, Jdx))
         act = 0.5 * (ipow(_l2(c.fu), 2) - ipow(_l2(fx_cand), 2))
         rho = act / nz(pred, eps)
-        accept = (rho >= alg.step_threshold)[:, None]
+        accept = ordering.greater(rho, alg.step_threshold,
+                                  or_equal=True)[:, None]
+        shrink = ordering.less(rho, eta2)
+        expand = ordering.greater(rho, eta3)
         x = torch.where(accept, x_cand, c.u)
         fx = torch.where(accept, fx_cand, c.fu)
         if nur:
             dlen = t2 * _l2(dx)
-            tr_new = torch.where(rho < eta2, tr * t1, tr)
+            tr_new = torch.where(shrink, tr * t1, tr)
             tr_new = torch.where(
-                rho > eta3, dlen,
-                torch.where(rho > 0.5, torch.maximum(tr_new, dlen), tr_new))
+                expand, dlen,
+                torch.where(ordering.greater(rho, 0.5),
+                            ordering.maximum(tr_new, dlen), tr_new))
         else:
-            tr_new = torch.where(rho < eta2, tr * t1,
-                                 torch.where(rho > eta3, tr * t2, tr))
-            tr_new = torch.minimum(tr_new, mtr)
-        shrink_counter = torch.where(rho < eta2, shrink_counter + 1,
+            tr_new = torch.where(shrink, tr * t1,
+                                 torch.where(expand, tr * t2, tr))
+            tr_new = ordering.minimum(tr_new, mtr)
+        shrink_counter = torch.where(shrink, shrink_counter + 1,
                                      torch.zeros_like(shrink_counter))
         fail = (shrink_counter > alg.max_shrink_times) | ~ok
         return x, fx, (tr_new, shrink_counter), 1, 1, 1, fail

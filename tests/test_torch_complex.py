@@ -283,15 +283,32 @@ def test_normal_form_operator():
                                   "RobustMultiNewton", "SimpleTrustRegion",
                                   "SimpleDFSane"])
 def test_engines_that_order_values_refuse_complex_states(name):
-    """The engines that order or compare values are ROADMAP A.33's rest on
-    a complex state; they refuse it, naming the item, where the JAX
-    package orders complex numbers (its LM succeeds on the cubic, its
-    PseudoTransient fails to trace)."""
+    """The engines that order or compare values run a complex state in
+    JAX's lexicographic order (ROADMAP A.33) and give the JAX package's
+    retcode, NLStats and root on u³ − 8 from −0.8 + 1.5i (its TrustRegion
+    stalls on the unconjugated gradient, its LM succeeds).  They refuse it
+    only where the JAX package fails to trace it too: PseudoTransient and
+    RobustMultiNewton.  SimpleTrustRegion's JAX run takes the analytic
+    Jacobian (the JAX simple tier's jacfwd refuses complex inputs)."""
+    jf = jnls.NonlinearFunction(f=lambda u, p: u ** 3 - p,
+                                jac=lambda u, p: jnp.diag(3 * u ** 2))
+    jprob = jnls.NonlinearProblem(jf, jnp.array([-0.8 + 1.5j],
+                                                jnp.complex128), 8.0 + 0j)
     prob = tnls.NonlinearProblem(lambda u, p: u ** 3 - p,
                                  torch.tensor([-0.8 + 1.5j], dtype=C128),
                                  8.0)
-    with pytest.raises(NotImplementedError, match="A.33"):
-        tnls.solve(prob, getattr(tnls, name)())
+    if name in ("PseudoTransient", "RobustMultiNewton"):
+        with pytest.raises(TypeError):
+            jnls.solve(jprob, getattr(jnls, name)())
+        with pytest.raises(NotImplementedError, match="fails to trace"):
+            tnls.solve(prob, getattr(tnls, name)())
+        return
+    jsol = jnls.solve(jprob, getattr(jnls, name)())
+    tsol = tnls.solve(prob, getattr(tnls, name)())
+    assert int(tsol.retcode) == int(jsol.retcode)
+    assert _stats(tsol) == _stats(jsol)
+    np.testing.assert_allclose(tsol.u.numpy(), np.asarray(jsol.u),
+                               rtol=0, atol=1e-12)
 
 
 def test_complex_steepest_descent_follows_the_gradient():

@@ -2200,3 +2200,124 @@ def test_complex_krylov_and_repairs_on_card(cuda):
         tnls.NewtonRaphson(), maxiters=30)
     grad, = torch.autograd.grad(sol.u.sum(), q)
     assert torch.isnan(grad).all()
+
+
+@pytest.mark.cuda
+def test_ordered_engines_on_complex_states_on_card(cuda):
+    """u³ − 8 from −0.8 + 1.5i (complex128, the default abstol) under the
+    engines that order values (ROADMAP A.33): on the card, the CPU run's
+    retcode and NLStats and its root within 1e-14; PseudoTransient refused
+    on the card too.  The cube is written u·u·u, the JAX package's
+    integer_pow: torch's complex ``pow`` on a CUDA tensor rounds off the
+    product (ROADMAP C)."""
+    import nonlinearsolve_tpu_torch as tnls
+    for name in ("LevenbergMarquardt", "TrustRegion", "AndersonAcceleration",
+                 "SimpleTrustRegion", "SimpleDFSane"):
+        g, c = [tnls.solve(tnls.NonlinearProblem(
+            lambda u, p: u * u * u - p,
+            torch.tensor([-0.8 + 1.5j], dtype=torch.complex128, device=d),
+            8.0), getattr(tnls, name)()) for d in (cuda, "cpu")]
+        assert g.u.is_cuda and g.retcode == c.retcode, name
+        assert g.stats == c.stats, (name, g.stats, c.stats)
+        torch.testing.assert_close(g.u.cpu(), c.u, rtol=0, atol=1e-14)
+    with pytest.raises(NotImplementedError, match="fails to trace"):
+        tnls.solve(tnls.NonlinearProblem(
+            lambda u, p: u * u * u - p,
+            torch.tensor([-0.8 + 1.5j], dtype=torch.complex128, device=cuda),
+            8.0), tnls.PseudoTransient())
+
+
+@pytest.mark.cuda
+def test_sparsity_detection_on_card(cuda):
+    """``detect_sparsity`` traces a residual on the card: the flat 64²
+    Brusselator's pattern is ``sparsity_pattern(64)``, the permuted
+    residual's (pinv[rows], pinv[cols]); a data-dependent residual probes
+    on the card and gets the CPU run's pattern."""
+    from nonlinearsolve_tpu_torch.ops.coloring import detect_sparsity
+    N = 64
+    n = 2 * N * N
+    p = tbru.default_p(N, device=cuda)
+    pat = tbru.sparsity_pattern(N)
+    got = detect_sparsity(
+        lambda u: tbru.brusselator_2d(u.reshape(N, N, 2), p).reshape(-1), n,
+        device=cuda)
+    np.testing.assert_array_equal(got.indptr, pat.indptr)
+    np.testing.assert_array_equal(got.indices, pat.indices)
+    perm = np.random.default_rng(42).permutation(n)
+    pinv = np.argsort(perm)
+    perm_t, pinv_t = (torch.as_tensor(perm, device=cuda),
+                      torch.as_tensor(pinv, device=cuda))
+    gotp = detect_sparsity(lambda w: tbru.brusselator_2d(
+        w[pinv_t].reshape(N, N, 2), p).reshape(-1)[perm_t], n, device=cuda)
+    want = type(pat).from_pattern(pinv[pat.row_ids], pinv[pat.indices],
+                                  (n, n))
+    np.testing.assert_array_equal(gotp.indptr, want.indptr)
+    np.testing.assert_array_equal(gotp.indices, want.indices)
+
+    def dd(u):
+        return u * u[torch.clamp(u[0].to(torch.int64), 0, 2)]
+    g, c = (detect_sparsity(dd, 3, device=d) for d in (cuda, "cpu"))
+    np.testing.assert_array_equal(g.indices, c.indices)
+    np.testing.assert_array_equal(g.indptr, c.indptr)
+
+
+@pytest.mark.cuda
+def test_double_f32_refinement_on_card(cuda):
+    """The error-free transforms are exact on the card on 2²⁰ seeded f32
+    pairs; ``brusselator_2d_df32`` gives the CPU run's words; the N = 64
+    flagship's f32 root refined with K1 as the Jacobian product lands
+    within 1e-8 rel-inf of the f64 solve; ``auto_refine`` on Bratu 32² is
+    the CPU run's refined root within 1e-12."""
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.models import bratu as tbratu
+    from nonlinearsolve_tpu_torch.ops import doublef32 as dfm
+    from nonlinearsolve_tpu_torch.ops.preconditioners import \
+        fft_poisson_preconditioner
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(rng.standard_normal(1 << 20) * 1e4,
+                        dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(rng.standard_normal(1 << 20), dtype=torch.float32,
+                        device=cuda)
+    s, e = dfm.two_sum(a, b)
+    assert torch.equal(s.double() + e.double(), a.double() + b.double())
+    p_, e = dfm.two_prod(a, b)
+    assert torch.equal(p_.double() + e.double(), a.double() * b.double())
+    assert dfm.self_check(cuda)
+    N = 64
+    U = tbru.init_u0(N, torch.float32, device=cuda)
+    p64 = tbru.default_p(N, torch.float64, device="cpu")
+    gh, gl = tbru.brusselator_2d_df32(U, torch.zeros_like(U), p64)
+    ch, cl = tbru.brusselator_2d_df32(U.cpu(), torch.zeros_like(U.cpu()),
+                                      p64)
+    assert torch.equal(gh.cpu(), ch) and torch.equal(gl.cpu(), cl)
+    pm = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
+                                    shift=3.0, n_components=2)
+    prob = tbru.make_problem(N, torch.float32, kernel_jvp=True, device=cuda)
+    alg = tnls.NewtonRaphson(
+        linsolve=tnls.LinearSolver(method="gmres", restart=16,
+                                   krylov_maxiter=100, precond_fn=pm),
+        forcing=tnls.EisenstatWalkerForcing(eta_0=1e-2, eta_max=1e-2))
+    sol = tnls.solve(prob, alg, abstol=0.05, maxiters=30)
+    sol64 = tnls.solve(tbru.make_problem(N, torch.float64, device=cuda),
+                       tnls.NewtonRaphson(linsolve=tnls.LinearSolver(
+                           method="gmres", restart=16, krylov_maxiter=200,
+                           precond_fn=pm)), abstol=1e-8, maxiters=50)
+    p32 = prob.p
+    before = dict(_backend.LAUNCHES)
+    res = tnls.refine_root(
+        sol.u, lambda uh, ul: tbru.brusselator_2d_df32(uh, ul, p64),
+        lambda uh: (lambda v: tst.brusselator_jvp(uh, v, p32)),
+        rounds=3, inner_rtol=1e-2, restart=16, precond_fn=pm)
+    assert _backend.LAUNCHES["brusselator_jvp"] > before["brusselator_jvp"]
+    u_ref = res.u.hi.double() + res.u.lo.double()
+    scale = float(sol64.u.abs().max())
+    assert float((u_ref - sol64.u).abs().max()) / scale < 1e-8
+    refined = []
+    for d in (cuda, "cpu"):
+        prob32 = tbratu.make_problem(32, dtype=torch.float32, device=d)
+        s32 = tnls.solve(prob32, tnls.NewtonRaphson(
+            linsolve=tnls.LinearSolver(method="gmres", restart=32)),
+            abstol=1e-3, maxiters=50)
+        r = tnls.auto_refine(prob32, s32.u.cpu().to(d), rounds=4)
+        refined.append(dfm.df_value_f64(r.u))
+    assert np.abs(refined[0] - refined[1]).max() < 1e-12

@@ -58,7 +58,12 @@ def test_port_imports_no_jax():
             "nonlinearsolve_tpu_torch.core.bounds, "
             "nonlinearsolve_tpu_torch.core.cache, "
             "nonlinearsolve_tpu_torch.core.timer, "
-            "nonlinearsolve_tpu_torch.utils.profiling\n"
+            "nonlinearsolve_tpu_torch.utils.profiling, "
+            "nonlinearsolve_tpu_torch.utils.ordering, "
+            "nonlinearsolve_tpu_torch.ops.sparsity_trace, "
+            "nonlinearsolve_tpu_torch.ops.doublef32, "
+            "nonlinearsolve_tpu_torch.ops.doublef32_eval, "
+            "nonlinearsolve_tpu_torch.solvers.refinement\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'nonlinearsolve_tpu'"
             " or m.startswith('nonlinearsolve_tpu.'))\n"
@@ -234,6 +239,7 @@ def test_port_exports_the_jax_names_of_its_modules():
     that the port has (the same path under nonlinearsolve_tpu_torch) is
     exported by the port too (ROADMAP C.2), except the named later items;
     and every name the port exports is one the JAX package exports."""
+    import importlib
     import importlib.util
     missing = {}
     for name in dir(jnls):
@@ -248,6 +254,20 @@ def test_port_exports_the_jax_names_of_its_modules():
             missing[name] = mod
     assert set(missing) == set(NOT_YET_EXPORTED), missing
     assert set(tnls.__all__) <= set(dir(jnls))
+    # the refinement names (ROADMAP A.27) are the JAX package's, and the
+    # modules of A.25 and A.27 define every public name of theirs
+    assert tnls.refine_root is importlib.import_module(
+        "nonlinearsolve_tpu_torch.solvers.refinement").refine_root
+    assert tnls.RefineResult._fields == jnls.RefineResult._fields
+    assert callable(tnls.auto_refine)
+    for mod in ("ops.sparsity_trace", "ops.coloring", "ops.doublef32",
+                "ops.doublef32_eval", "solvers.refinement"):
+        jmod = importlib.import_module("nonlinearsolve_tpu." + mod)
+        tmod = importlib.import_module("nonlinearsolve_tpu_torch." + mod)
+        names = {n for n, v in vars(jmod).items() if not n.startswith("_")
+                 and getattr(v, "__module__", None) == jmod.__name__}
+        assert names and all(hasattr(tmod, n) for n in names), \
+            (mod, sorted(n for n in names if not hasattr(tmod, n)))
     for name in tnls.__all__:
         assert hasattr(tnls, name), name
     # the C.2 names work as the JAX ones do

@@ -383,5 +383,19 @@ def test_colored_jacobian_equals_dense_jacobian():
 
 
 def test_sparse_plan_without_pattern_names_a25():
-    with pytest.raises(NotImplementedError, match="A.25"):
-        plan_sparse_jacobian(lambda v: v, 4, 4)
+    """Without a pattern the plan detects it (ROADMAP A.25): the
+    pattern and coloring of the JAX package's plan."""
+    from nonlinearsolve_tpu.ops.sparse_jac import \
+        plan_sparse_jacobian as jplan_sparse_jacobian
+    N = 6
+    jp = jbru.default_p(N)
+    tp = tbru.default_p(N, device="cpu")
+    jplan = jplan_sparse_jacobian(
+        lambda v: jbru.brusselator_2d(v.reshape(N, N, 2), jp).reshape(-1),
+        2 * N * N, 2 * N * N)
+    tplan = plan_sparse_jacobian(lambda v: _flat_residual(N)(v, tp),
+                                 2 * N * N, 2 * N * N, device="cpu")
+    np.testing.assert_array_equal(tplan.pattern.indptr, jplan.pattern.indptr)
+    np.testing.assert_array_equal(tplan.pattern.indices,
+                                  jplan.pattern.indices)
+    np.testing.assert_array_equal(tplan.colors, jplan.colors)

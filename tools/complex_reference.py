@@ -1,13 +1,19 @@
 """The JAX package's outcomes at the complex-state points that
-``chip_smoke.py`` phase 25 holds the PyTorch port to: u³ − 8 from
-−0.8 + 1.5i (complex128) under NewtonRaphson, Broyden, Klement and the
-default ladder; ``tests/test_core_solvers.py``'s complex least-squares fit
-under GaussNewton; and the N = 32 Brusselator (2048 unknowns, abstol
-1e-10, NewtonRaphson) on a complex128 state started at ``init_u0`` plus
-1e-3·i times a seeded standard-normal field (numpy seed 0), beside the
-real f64 solve.  Runs on the CPU in f64 and prints one JSON line a case
-(retcode, NLStats [nf, njacs, nfactors, nsolve, nsteps], and for the
-Brusselator max|Im u| and max|Re u − u_real|).
+``chip_smoke.py`` phases 25 and 26 hold the PyTorch port to: u³ − 8
+from −0.8 + 1.5i (complex128) under NewtonRaphson, Broyden, Klement and
+the default ladder (phase 25) and under the engines that order values
+(phase 26: LevenbergMarquardt, TrustRegion, AndersonAcceleration,
+SimpleTrustRegion — with the analytic Jacobian, as the JAX simple tier's
+jacfwd refuses complex inputs — SimpleDFSane, and RobustMultiNewton and
+PseudoTransient, which fail to trace: their line carries the error);
+``tests/test_core_solvers.py``'s complex least-squares fit under
+GaussNewton; and the N = 32 Brusselator (2048 unknowns, abstol 1e-10,
+NewtonRaphson, and TrustRegion for phase 26) on a complex128 state
+started at ``init_u0`` plus 1e-3·i times a seeded standard-normal field
+(numpy seed 0), beside the real f64 solve.  Runs on the CPU in f64 and
+prints one JSON line a case (retcode, NLStats [nf, njacs, nfactors,
+nsolve, nsteps], and for the Brusselator max|Im u| and
+max|Re u − u_real|).
 
     python tools/complex_reference.py
 
@@ -75,6 +81,20 @@ def main():
                           "retcode": int(sol.retcode), "stats": stats(sol),
                           "u": [complex(sol.u[0]).real,
                                 complex(sol.u[0]).imag]}), flush=True)
+    jac = nls.NonlinearFunction(f=lambda u, p: u ** 3 - p,
+                                jac=lambda u, p: jnp.diag(3 * u ** 2))
+    for name in ("LevenbergMarquardt", "TrustRegion", "AndersonAcceleration",
+                 "SimpleTrustRegion", "SimpleDFSane", "RobustMultiNewton",
+                 "PseudoTransient"):
+        line = {"case": "cubic", "alg": name}
+        try:
+            sol = nls.solve(prob.remake(f=jac) if name == "SimpleTrustRegion"
+                            else prob, getattr(nls, name)())
+            line.update(retcode=int(sol.retcode), stats=stats(sol),
+                        u=[complex(sol.u[0]).real, complex(sol.u[0]).imag])
+        except TypeError as e:
+            line["error"] = str(e).splitlines()[0]
+        print(json.dumps(line), flush=True)
     ts = jnp.linspace(0.0, 1.0, 8)
     e = jnp.exp(1j * 2 * jnp.pi * ts)
     sol = nls.solve(nls.NonlinearLeastSquaresProblem(
@@ -88,20 +108,21 @@ def main():
     u0 = np.asarray(brusselator.init_u0(N))
     pert = np.random.default_rng(0).standard_normal(u0.shape)
     p = brusselator.default_p(N)
-    t0 = time.time()
-    real = nls.solve(nls.NonlinearProblem(brusselator.brusselator_2d,
-                                          jnp.asarray(u0), p),
-                     nls.NewtonRaphson(), abstol=1e-10)
-    cplx = nls.solve(nls.NonlinearProblem(complex_brusselator(N),
-                                          jnp.asarray(u0 + 1e-3j * pert), p),
-                     nls.NewtonRaphson(), abstol=1e-10)
-    print(json.dumps({
-        "case": "complex_brusselator", "N": N,
-        "real_retcode": int(real.retcode), "real_stats": stats(real),
-        "retcode": int(cplx.retcode), "stats": stats(cplx),
-        "max_imag": float(jnp.abs(cplx.u.imag).max()),
-        "max_real_gap": float(jnp.abs(cplx.u.real - real.u).max()),
-        "seconds": time.time() - t0}), flush=True)
+    for alg in ("NewtonRaphson", "TrustRegion"):
+        t0 = time.time()
+        real = nls.solve(nls.NonlinearProblem(brusselator.brusselator_2d,
+                                              jnp.asarray(u0), p),
+                         getattr(nls, alg)(), abstol=1e-10)
+        cplx = nls.solve(nls.NonlinearProblem(
+            complex_brusselator(N), jnp.asarray(u0 + 1e-3j * pert), p),
+            getattr(nls, alg)(), abstol=1e-10)
+        print(json.dumps({
+            "case": "complex_brusselator", "N": N, "alg": alg,
+            "real_retcode": int(real.retcode), "real_stats": stats(real),
+            "retcode": int(cplx.retcode), "stats": stats(cplx),
+            "max_imag": float(jnp.abs(cplx.u.imag).max()),
+            "max_real_gap": float(jnp.abs(cplx.u.real - real.u).max()),
+            "seconds": time.time() - t0}), flush=True)
 
 
 if __name__ == "__main__":
