@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``nonlinearsolve_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24,25,26]
+    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24,25,26,27]
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a); exits
 non-zero without one, and without the package beside it.  Each phase
 prints one JSON line (``--log`` also appends every line to PATH); a failed
 check raises, so the script exits non-zero.  ``--only`` runs phases 1
-and 2, then the listed phases of 19–26 alone, each timed, on the set-up
+and 2, then the listed phases of 19–27 alone, each timed, on the set-up
 they take from earlier phases rebuilt (``only_phases``), and prints no
 result line.
 
@@ -197,8 +197,8 @@ result line.
    1e-10: Success, the root within 1e-8 (inf-norm) of phase 18's
    NewtonRaphson root, and NLStats beside the JAX package's (1026 steps,
    1032 residuals, 4 Jacobians), each rung's retcode and steps, the warm
-   wall (one warm solve), host syncs, the device time by class and the idle
-   share; (c) Broyden, Klement, LimitedMemoryBroyden and DFSane alone at
+   wall (the profiled solve's), host syncs, the device time by class and
+   the idle share; (c) Broyden, Klement, LimitedMemoryBroyden and DFSane alone at
    N=32, each with the JAX package's retcode (Unstable, MaxIters,
    ConvergenceFailure, MaxIters; the diverging Broyden and
    LimitedMemoryBroyden runs may also end as the JAX package's own run
@@ -223,8 +223,8 @@ result line.
    unknowns): BiCGStab with a Jacobi preconditioner over K4, the root
    within 1e-10 of the CPU port's.  Each run: the JAX package's retcode,
    nsteps and nf (``JAX_SPARSE_DIRECT``), the route it takes, max|F|, the
-   warm wall (one warm solve), host syncs, the device time by class and the
-   idle share.  Then (g): DeviceLU.solve on the card against the port's
+   warm wall (the profiled solve's), host syncs, the device time by class
+   and the idle share.  Then (g): DeviceLU.solve on the card against the port's
    CPU solve of the same state (rel-inf 1e-12, f64), its time at 128² f64
    and 64² f32 (CUDA events over 20 solves), its kernels and the refresh's
    parts; K5 on every gather table of the 128² plan against its plain
@@ -249,7 +249,7 @@ result line.
    are solved alone (B = 1): the batch's retcode and a root within rel-inf
    1e-10, and the NLStats for the Jacobian engines (the secant engines'
    differences are counted); every row that reports Success has |F|_inf
-   ≤ abstol.  Each run: warm wall (one warm solve),
+   ≤ abstol.  Each run: warm wall (the profiled run's),
    trajectories per second,
    steps of the slowest row, host reads, the device idle share and three
    largest kernels (torch.profiler) and the peak memory.  No custom
@@ -395,9 +395,43 @@ result line.
    graph evaluated in double-f32 each round, df_exp included) on Bratu 128² solved in f32 by the sparse direct route
    (BRATU_REFINE): within 1e-9 rel-inf of the f64 solve and 10× nearer
    than the f32 root;
-27. the kernels line (each SpMV kernel's row with its reverse rule's
-   numbers from 23 (c), and K1, K4 and the selection with their launches
-   in phase 26), then ``{"ok": true, "device": {...}}`` as the last line.
+27. multigrid, the matrix-product DFT / hybrid preconditioners and the
+   sharded layer (counters at 0 just before each run, read just after);
+   ``--only 27`` runs it alone.  (a) Newton–GMRES(20) with
+   ``multigrid_preconditioner`` (c = 1, Dirichlet) on Δ_h u − u³ − u + g
+   at 1024² f64 (tests/test_sparse_krylov.py:576-597's problem, abstol
+   1e-9·(N/32)²): Success, no kernel launched, the V-cycle's apply time;
+   GMRES(30) iterations on the variable-coefficient operator at 256²
+   unpreconditioned, with Jacobi and with Chebyshev multigrid (Chebyshev
+   ≤ Jacobi, multigrid < 1/5 of none).  (b) On the 512² f32 flagship: the
+   ``mxu_poisson_preconditioner`` apply's error against the FFT apply for
+   each precision name, and the apply times; the flagship solved under
+   mxu("highest") and under ``hybrid_poisson_preconditioner`` (switch
+   0.1·‖F(u0)‖∞): retcode, NLStats, K1 launches (= Jacobian products),
+   the linearizations of each branch, the root's distance to phase 5's
+   polish (a stall is recorded, not required).  (c) NCCL at world size 1:
+   phase 7's Jacobian at its root through ``make_sharded_csr_matvec``
+   (one K5 launch a product, bit for bit K5 on the shard's tables and the
+   unsharded K5 product; K5 on the shard tables timed by ``k5_case``); the
+   JAX multihost problem A u + 0.1u³ − b with A banded at MULTIHOST_N²
+   rows through the sharded matvec (Success, the root within 1e-6 of the
+   same solve through ``CSR.matvec``); the config-5 shape at 128² (the
+   Jacobian by colored sparse AD each step, applied through the sharded
+   matvec's K5 tier, multigrid-preconditioned GMRES(40): |F|∞ ≤ 1e-8,
+   within 1e-6 of ``solve`` with ``jac_prototype``); and
+   ``weak_scaling_sparse_report([1], rows_per_device=1<<22)`` (100 K5
+   launches).  (d) ``distributed_solve`` of the 3D problem at 256³ f32
+   with phase 10's algorithm and the autodiff J·v: Success, nsteps within
+   1 of phase 10's, the root within 1e-4 rel-inf of it, ``sol.u`` a
+   DTensor with Shard(0); wall and idle share.  (e)
+   ``solve_ensemble(mesh=)`` of phase 22's problem-9 batch (262,144
+   starts, SimpleNewtonRaphson): every row bit for bit the unsharded
+   ensemble's;
+28. the kernels line (each SpMV kernel's row with its reverse rule's
+   numbers from 23 (c), K1, K4 and the selection with their launches
+   in phase 26, and K5's row with its launches and time on the sharded
+   matvec of 27 (c)), then ``{"ok": true, "device": {...}}`` as the last
+   line.
 """
 
 import json
@@ -2174,8 +2208,9 @@ def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
     run = lambda: nls.solve(bprob, abstol=1e-10)     # noqa: E731
     sol, first_s, launches = counted(run)
     dist = float((sol.u - nr_root).abs().max())
-    walls = warm_walls(torch, run, count=1)
+    # the warm wall is the profiled solve's (one run for both, for time)
     prof = profile_device(torch, run, groups=QN_GROUPS, host_events=False)
+    walls = [prof["profiled_solve_s"]]
     ok = sol.retcode == nls.ReturnCode.Success and dist <= 1e-8
     emit({"phase": "qn_default_dense_brusselator", "N": N,
           "n": int(bprob.u0.numel()), "retcode": sol.retcode.name,
@@ -2478,7 +2513,7 @@ def sparse_direct_phase(torch, nls, _backend, spmv, card):
 
     def run(key, make, alg, abstol, **extra):
         """The counted first solve (counters at 0 just before, read just
-        after), three warm walls, one profiled solve."""
+        after), then one profiled solve (its wall the warm wall)."""
         prob = make(dev)
         solve = lambda: nls.solve(prob, alg, abstol=abstol)  # noqa: E731
         torch.cuda.synchronize()
@@ -2490,9 +2525,10 @@ def sparse_direct_phase(torch, nls, _backend, spmv, card):
         launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
         routes = {k: v for k, v in _backend.ROUTES.items() if v}
         (plan,) = _SPARSE_PLANS[prob.f].values()
-        walls = warm_walls(torch, solve, count=1)
+        # the warm wall is the profiled solve's (one run, for time)
         prof = profile_device(torch, solve, groups=SPARSE_DIRECT_GROUPS,
                               host_events=False)
+        walls = [prof["profiled_solve_s"]]
         want, jsteps, jnf, jjacs, route = JAX_SPARSE_DIRECT[key]
         stats = vars(sol.stats)
         rec = {"phase": "sparse_direct", "run": key,
@@ -2768,8 +2804,8 @@ def _stats_dict(stats, i=None):
 
 
 def batched_run_report(torch, _backend, run, label, B, card):
-    """One batched solve: the first run (counted), three warm walls, one
-    profiled run and the peak memory of a run.  Returns (solution, the
+    """One batched solve: the first run (counted), then one profiled run
+    (its wall the warm wall) with the peak memory of a run.  Returns (solution, the
     record's timing fields)."""
     torch.cuda.synchronize()
     _backend.reset_counters()
@@ -2778,10 +2814,11 @@ def batched_run_report(torch, _backend, run, label, B, card):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
-    walls = warm_walls(torch, run, count=1)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    # the warm wall is the profiled run's (one run for both, for time)
     prof = profile_device(torch, run, groups=BATCH_GROUPS, host_events=False)
+    walls = [prof["profiled_solve_s"]]
     peak = torch.cuda.max_memory_allocated()
     rec = {"B": B, "first_solve_s": first_s, "warm_wall_s_one": walls[0],
            "trajectories_per_s": B / walls[0],
@@ -3377,9 +3414,10 @@ def continuation_phase(torch, nls, _backend, card, flag_prob, flag_alg):
         for name, make in methods.items():
             solve = lambda: nls.solve(prob, make(), abstol=1e-8)  # noqa
             sol, wall, counts = run(solve)
-            warm, = warm_walls(torch, solve, count=1)
+            # the warm wall is the profiled solve's (one run, for time)
             prof = profile_device(torch, solve, groups=CONTINUATION_GROUPS,
                                   host_events=False)
+            warm = prof["profiled_solve_s"]
             busy = prof["device_busy_ms"]
             shares = ({g: ms / busy for g, ms in
                        prof["device_ms_by_group"].items()}
@@ -4022,8 +4060,9 @@ def _a33_cases(torch, nls, _backend, brusselator, fft_poisson_preconditioner,
                    "card": card}, poly10, None))
     # the CPU reference has ended: the warm walls and profiles
     for line, fn, groups in timed:
-        warm, = warm_walls(torch, fn, count=1)
+        # the warm wall is the profiled run's (one run, for time)
         prof = profile_device(torch, fn, groups=groups, host_events=False)
+        warm = prof["profiled_solve_s"]
         stamped({**line, "warm_wall_s": warm,
                  "device_idle_share": prof["device_idle_share"],
                  "device_busy_ms": prof["device_busy_ms"],
@@ -4332,6 +4371,535 @@ def slice17_phase(torch, nls, _backend, brusselator, stencil,
             "refinement": ref_launches}
 
 
+MULTIHOST_N = 128       # the multihost problem's grid (see slice18_phase)
+CONFIG5_N = 128         # __graft_entry__.py's config-5 grid
+
+
+def _mg_phase(torch, nls, _backend, dev, card):
+    """Phase 27 (a): multigrid at 1024² (the Dirichlet Newton problem) and
+    the variable-coefficient GMRES counts at 256²."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.ops.krylov import gmres
+    from nonlinearsolve_tpu_torch.ops.multigrid import (
+        _lap, multigrid_preconditioner)
+    f64 = torch.float64
+    failed = []
+    N = 1024
+    h = 1.0 / N
+    g = torch.as_tensor(np.random.default_rng(1).standard_normal((N, N)),
+                        device=dev)
+
+    def f(u, p):
+        return (1.0 / h ** 2) * _lap(u, "dirichlet") - u ** 3 - u + p
+
+    M = multigrid_preconditioner((N, N), 1.0, h, c=1.0, bc="dirichlet")
+    alg = nls.NewtonRaphson(linsolve=nls.LinearSolver(
+        method="gmres", restart=20, precond_fn=lambda u: M))
+    abstol = 1e-9 * (N / 32) ** 2
+    prob = nls.NonlinearProblem(f, torch.zeros(N, N, dtype=f64, device=dev),
+                                g)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    sol = nls.solve(prob, alg, abstol=abstol)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    resid = float(sol.resid.abs().max())
+    launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+    v = torch.as_tensor(np.random.default_rng(2).standard_normal((N, N)),
+                        device=dev)
+    apply_ms = event_time_ms(torch, lambda: M(v), calls=10)
+    rec = {"phase": "slice18_multigrid", "N": N, "dtype": "float64",
+           "retcode": sol.retcode.name, "stats": vars(sol.stats),
+           "resid_inf": resid, "abstol": abstol,
+           "krylov_iters": sol.counters["krylov_iters"],
+           "host_syncs": sol.counters["host_syncs"], "first_solve_s": wall,
+           "custom_kernel_launches": launches,
+           "vcycle_apply_ms": apply_ms, "card": card}
+    if sol.retcode != nls.ReturnCode.Success or resid > abstol or launches:
+        failed.append("(a) Newton with multigrid at 1024²")
+    # the variable-coefficient operator at 256²: GMRES(30) iterations
+    Nv = 256
+    hv = 1.0 / Nv
+    rng = np.random.default_rng(0)
+    cfield = torch.as_tensor(1.0 + 2.0 * rng.random((Nv, Nv)), device=dev)
+    b = torch.as_tensor(rng.standard_normal((Nv, Nv)), device=dev)
+
+    def A(u):
+        return (1.0 / hv ** 2) * _lap(u, "dirichlet") - cfield * u
+
+    iters = {}
+    for name, M2, maxiter in (
+            ("none", None, 3000),
+            ("jacobi_mg", multigrid_preconditioner(
+                (Nv, Nv), 1.0, hv, c=cfield, bc="dirichlet"), 500),
+            ("chebyshev_mg", multigrid_preconditioner(
+                (Nv, Nv), 1.0, hv, c=cfield, bc="dirichlet",
+                smoother="chebyshev", nu=3), 500)):
+        t0 = time.perf_counter()
+        r = gmres(A, b, restart=30, rtol=1e-8, maxiter=maxiter, M=M2)
+        torch.cuda.synchronize()
+        iters[name] = {"iterations": r.iterations, "success": r.success,
+                       "seconds": time.perf_counter() - t0}
+    rec["gmres_256_variable_coefficient"] = iters
+    emit(rec)
+    if not (iters["jacobi_mg"]["success"] and iters["chebyshev_mg"]["success"]
+            and iters["chebyshev_mg"]["iterations"]
+            <= iters["jacobi_mg"]["iterations"]
+            and iters["jacobi_mg"]["iterations"]
+            < iters["none"]["iterations"] // 5):
+        failed.append("(a) GMRES counts at 256²")
+    return failed
+
+
+def _spectral_phase(torch, nls, _backend, brusselator,
+                    fft_poisson_preconditioner, u64, card):
+    """Phase 27 (b): the matrix-product DFT and the hybrid on the
+    flagship."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.ops.preconditioners import (
+        hybrid_poisson_preconditioner, mxu_poisson_preconditioner)
+    N = 512
+    dev = torch.device("cuda")
+    prob, _alg, pm = flagship_setup(torch, nls, brusselator,
+                                    fft_poisson_preconditioner, N)
+    kw = dict(shift=3.0, n_components=2)
+    v = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (N, N, 2)).astype(np.float32), device=dev)
+    exact = pm(v)
+    errors = {"fft_apply_ms": event_time_ms(torch, lambda: pm(v), calls=20)}
+    for name in (None, "default", "bf16", "high", "highest", "f32"):
+        apply = mxu_poisson_preconditioner((N, N), 10.0, 1.0 / (N - 1),
+                                           precision=name, **kw)(prob.u0)
+        got = apply(v)
+        errors[str(name)] = {
+            "rel_err": float((got - exact).abs().max()
+                             / exact.abs().max()),
+            "apply_ms": event_time_ms(torch, lambda: apply(v), calls=20)}
+    failed = []
+    if torch.get_float32_matmul_precision() != "highest":
+        failed.append("(b) the f32 matmul precision left changed")
+    f0 = float(prob.f.f(prob.u0, prob.p).abs().max())
+    switch = 0.1 * f0
+    hyb = hybrid_poisson_preconditioner((N, N), 10.0, 1.0 / (N - 1),
+                                        switch_abs=switch, **kw)
+    branches = {"loose": 0, "exact": 0}
+
+    def counting(u, fu):
+        branches["loose" if float(fu.abs().max()) > switch
+                 else "exact"] += 1
+        return hyb(u, fu)
+
+    counting.wants_residual = True
+    runs = {}
+    for label, precond in (
+            ("mxu_highest", mxu_poisson_preconditioner(
+                (N, N), 10.0, 1.0 / (N - 1), precision="highest", **kw)),
+            ("hybrid", counting)):
+        alg = nls.NewtonRaphson(
+            linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                      krylov_maxiter=100,
+                                      precond_fn=precond),
+            forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        sol = nls.solve(prob, alg, abstol=5.0, maxiters=30)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dist = float((sol.u.double() - u64).abs().max()
+                     / u64.abs().max())
+        runs[label] = {"retcode": sol.retcode.name, "stats": vars(sol.stats),
+                       "resid_inf": float(sol.resid.abs().max()),
+                       "jac_products": sol.counters["jvp"],
+                       "k1_launches": _backend.LAUNCHES["brusselator_jvp"],
+                       "root_rel_inf_to_f64_polish": dist,
+                       "first_solve_s": wall}
+        if _backend.LAUNCHES["brusselator_jvp"] != sol.counters["jvp"]:
+            failed.append(f"(b) {label}: K1 launches != Jacobian products")
+    runs["hybrid"]["linearizations"] = dict(branches)
+    runs["hybrid"]["switch_abs"] = switch
+    emit({"phase": "slice18_spectral", "N": N, "dtype": "float32",
+          "mxu_rel_err_to_fft": errors, "solves": runs,
+          "f0_inf": f0, "card": card,
+          "note": "a stall of the loose paths is recorded, not required"})
+    return failed
+
+
+def _sharded_csr_phase(torch, nls, _backend, spmv, mesh, csr7, card):
+    """Phase 27 (c): the row-sharded CSR matvec (K5 on each shard) on the
+    one-rank mesh."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from nonlinearsolve_tpu_torch.ops.krylov import gmres
+    from nonlinearsolve_tpu_torch.ops.multigrid import (
+        multigrid_preconditioner)
+    from nonlinearsolve_tpu_torch.ops.sparse import CSR
+    from nonlinearsolve_tpu_torch.ops.sparse_jac import plan_sparse_jacobian
+    from nonlinearsolve_tpu_torch.parallel import make_sharded_csr_matvec
+    from nonlinearsolve_tpu_torch.parallel.scaling import (
+        weak_scaling_sparse_report)
+    dev, f64 = torch.device("cuda"), torch.float64
+    failed = []
+    launches = {}
+
+    def sharded(x):
+        return distribute_tensor(x, mesh, [Shard(0)], src_data_rank=None)
+
+    # the CSR route's permuted 512² Jacobian at its root (phase 7)
+    n = csr7.shape[0]
+    mv = make_sharded_csr_matvec(csr7, mesh)
+    plan = mv.plan
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(n),
+                        device=dev)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    y = mv(x)
+    torch.cuda.synchronize()
+    launches["sharded_product"] = dict(_backend.LAUNCHES)
+    nnz = int(plan.shard_indptr[0, -1])
+    s_indptr = torch.as_tensor(plan.shard_indptr[0].astype(np.int32),
+                               device=dev)
+    s_cols = torch.as_tensor(plan.seg_pos[0, :nnz], device=dev)
+    s_data = csr7.data[int(plan.seg_src[0, 0]):][:nnz].contiguous()
+    indptr, indices = csr7.device_tables(dev)
+    whole = spmv.gather_spmv(indptr, indices, csr7.data, x)
+    on_shard = spmv.gather_spmv(s_indptr, s_cols, s_data, x)
+    yl = y.to_local()
+    k5 = k5_case(torch, spmv, "sharded_csr_route_512_permuted", "float64",
+                 s_indptr, s_cols, s_data, x, [n, n])
+    rec = {"phase": "slice18_sharded_csr", "n": n, "nnz": nnz,
+           "mode": plan.mode, "tier": mv.tier, "chunk": plan.chunk,
+           "pallas_ok": plan.pallas_ok,
+           "launches": launches["sharded_product"],
+           "dtensor": isinstance(y, DTensor),
+           "bit_equal_k5_on_shard_tables": bool(torch.equal(yl, on_shard)),
+           "bit_equal_unsharded_k5": bool(torch.equal(yl, whole)),
+           "sharded_call_ms_events": event_time_ms(torch, lambda: mv(x)),
+           "local_product_ms_events": event_time_ms(
+               torch, lambda: mv.local(x)),
+           "k5_on_shard_tables": {k: k5[k] for k in (
+               "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+               "share_of_bound", "max_abs_err")},
+           "card": card}
+    emit(rec)
+    if not (mv.tier == "pallas" and rec["dtensor"]
+            and launches["sharded_product"]["gather_spmv"] == 1
+            and rec["bit_equal_k5_on_shard_tables"]
+            and rec["bit_equal_unsharded_k5"]):
+        failed.append("(c) the sharded product")
+
+    # the JAX multihost problem A u + 0.1u³ − b through the sharded matvec
+    Ng = MULTIHOST_N
+    rng = np.random.default_rng(0)
+    nm = Ng * Ng
+    d = np.ones(nm)
+    A = sp.diags([d * 4, -d[:-1], -d[:-1], -d[:-Ng], -d[:-Ng]],
+                 [0, 1, -1, Ng, -Ng], format="csr")
+    A.data = A.data * (1 + 0.1 * rng.standard_normal(A.nnz))
+    b = torch.as_tensor(rng.standard_normal(nm), device=dev)
+    csrA = CSR(torch.as_tensor(A.data, device=dev),
+               np.asarray(A.indices, np.int32),
+               np.asarray(A.indptr, np.int32), (nm, nm))
+    mvA = make_sharded_csr_matvec(csrA, mesh)
+    bs = sharded(b)
+    alg = nls.NewtonRaphson(linsolve=nls.LinearSolver(
+        method="gmres", restart=30, krylov_maxiter=400))
+    sols = {}
+    for label, f, jvp, u0 in (
+            ("sharded", lambda u, p: mvA(u) + 0.1 * u ** 3 - bs,
+             lambda v, u, p: mvA(v) + 0.3 * u ** 2 * v,
+             sharded(torch.zeros(nm, dtype=f64, device=dev))),
+            ("csr_matvec", lambda u, p: csrA.matvec(u) + 0.1 * u ** 3 - b,
+             lambda v, u, p: csrA.matvec(v) + 0.3 * u ** 2 * v,
+             torch.zeros(nm, dtype=f64, device=dev))):
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        sol = nls.solve(nls.NonlinearProblem(
+            nls.NonlinearFunction(f=f, jvp=jvp), u0), alg, abstol=1e-5,
+            maxiters=50)
+        torch.cuda.synchronize()
+        sols[label] = (sol, time.perf_counter() - t0,
+                       dict(_backend.LAUNCHES))
+    (sd, sd_s, sd_l), (sc, sc_s, sc_l) = sols["sharded"], sols["csr_matvec"]
+    ud = sd.u.full_tensor()
+    du = float((ud - sc.u).abs().max())
+    launches["multihost_newton"] = sd_l
+    rec = {"phase": "slice18_multihost_newton", "grid": Ng, "rows": nm,
+           "mode": mvA.plan.mode, "tier": mvA.tier,
+           "sharded": {"retcode": sd.retcode.name, "stats": vars(sd.stats),
+                       "krylov_iters": sd.counters["krylov_iters"],
+                       "jac_products": sd.counters["jvp"],
+                       "k5_launches": sd_l["gather_spmv"],
+                       "resid_inf": float(sd.resid.full_tensor().abs().max()),
+                       "first_solve_s": sd_s},
+           "csr_matvec": {"retcode": sc.retcode.name,
+                          "stats": vars(sc.stats),
+                          "krylov_iters": sc.counters["krylov_iters"],
+                          "launches": {k: v for k, v in sc_l.items() if v},
+                          "first_solve_s": sc_s},
+           "root_inf_distance": du, "limit": 1e-6, "card": card}
+    emit(rec)
+    if not (sd.retcode == nls.ReturnCode.Success and du <= 1e-6
+            and sd_l["gather_spmv"] >= sd.counters["jvp"] > 0):
+        failed.append("(c) the multihost Newton problem")
+
+    # the config-5 shape at the JAX package's 128²
+    N5 = CONFIG5_N
+    m5, n5 = N5 * N5, 2 * N5 * N5
+    Ac, Bc, a5 = 1.0, 3.0, 50.0
+    d5 = np.ones(m5)
+    L5 = sp.diags([4 * d5, -d5[:-1], -d5[:-1], -d5[:-N5], -d5[:-N5]],
+                  [0, 1, -1, N5, -N5], format="csr")
+    I5 = sp.identity(m5, format="csr")
+    rows5, cols5 = [], []
+    for (rr, cc, M5) in ((0, 0, L5), (0, 1, I5), (1, 0, I5), (1, 1, L5)):
+        Mc = M5.tocoo()
+        rows5.append(2 * Mc.row + rr)
+        cols5.append(2 * Mc.col + cc)
+    patt = sp.csr_matrix((np.ones(sum(r.size for r in rows5)),
+                          (np.concatenate(rows5), np.concatenate(cols5))),
+                         shape=(n5, n5))
+    patt.sort_indices()
+    csr5 = CSR(torch.zeros(patt.nnz, dtype=f64, device=dev),
+               np.asarray(patt.indices, np.int32),
+               np.asarray(patt.indptr, np.int32), (n5, n5))
+
+    def f5(u):
+        U = u.reshape(N5, N5, 2)
+        Up = F.pad(U, (0, 0, 1, 1, 1, 1))
+        lap = (Up[:-2, 1:-1] + Up[2:, 1:-1] + Up[1:-1, :-2]
+               + Up[1:-1, 2:] - 4.0 * U)
+        u0c, v0c = U[..., 0], U[..., 1]
+        fu = a5 * lap[..., 0] + Ac + u0c * u0c * v0c - (Bc + 1.0) * u0c
+        fv = a5 * lap[..., 1] + Bc * u0c - u0c * u0c * v0c
+        return torch.stack([fu, fv], dim=-1).reshape(-1)
+
+    jac5 = plan_sparse_jacobian(f5, n5, n5, sparsity=csr5, device=dev)
+    mv5 = make_sharded_csr_matvec(csr5, mesh, use_pallas=True)
+    mg5 = multigrid_preconditioner((N5, N5), a5, 1.0, c=0.0,
+                                   bc="dirichlet")
+
+    def pm5(v):
+        w = v.reshape(N5, N5, 2)
+        return torch.stack([mg5(w[..., 0]), mg5(w[..., 1])],
+                           dim=-1).reshape(v.shape)
+
+    from torch.distributed.tensor.experimental import implicit_replication
+    U0 = torch.stack([torch.full((N5, N5), Ac, dtype=f64, device=dev),
+                      torch.full((N5, N5), Bc / Ac, dtype=f64, device=dev)],
+                     dim=-1).reshape(-1)
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    u5, steps, kry = U0, 0, 0
+    for _ in range(20):
+        J = jac5(f5, u5)
+        r = f5(u5)
+        with implicit_replication():
+            res = gmres(lambda v: mv5(v, data=J.data), -sharded(r), M=pm5,
+                        rtol=1e-6, restart=40, maxiter=400)
+        u5 = u5 + res.x.full_tensor()
+        steps += 1
+        kry += res.iterations
+        if float(r.abs().max()) <= 1e-8:
+            break
+    torch.cuda.synchronize()
+    c5_s = time.perf_counter() - t0
+    launches["config5"] = dict(_backend.LAUNCHES)
+    resid5 = float(f5(u5).abs().max())
+    ref5 = nls.solve(nls.NonlinearProblem(
+        nls.NonlinearFunction(f=lambda u, p: f5(u), jac_prototype=csr5), U0),
+        nls.NewtonRaphson(linsolve=nls.LinearSolver(
+            method="gmres", restart=40, krylov_maxiter=400,
+            precond_fn=pm5)), abstol=1e-8, maxiters=20)
+    du5 = float((u5 - ref5.u).abs().max())
+    rec = {"phase": "slice18_config5", "grid": N5, "unknowns": n5,
+           "nnz": patt.nnz, "n_colors": jac5.n_colors,
+           "mode": mv5.plan.mode, "tier": mv5.tier, "hl": mv5.plan.hl,
+           "hr": mv5.plan.hr, "chunk": mv5.plan.chunk, "newton_steps": steps,
+           "krylov_iters": kry, "resid_inf": resid5,
+           "k5_launches": launches["config5"]["gather_spmv"],
+           "launches": {k: v for k, v in launches["config5"].items() if v},
+           "seconds": c5_s, "reference_retcode": ref5.retcode.name,
+           "reference_stats": vars(ref5.stats),
+           "root_inf_distance_to_reference": du5, "limit": 1e-6,
+           "card": card}
+    emit(rec)
+    if not (resid5 <= 1e-8 and du5 <= 1e-6 and mv5.tier == "pallas"
+            and launches["config5"]["gather_spmv"] >= kry > 0):
+        failed.append("(c) the config-5 shape")
+
+    # the sparse weak-scaling report at 4M rows a device
+    torch.cuda.synchronize()
+    _backend.reset_counters()
+    t0 = time.perf_counter()
+    rows = weak_scaling_sparse_report([1], rows_per_device=1 << 22)
+    torch.cuda.synchronize()
+    launches["weak_scaling_sparse"] = dict(_backend.LAUNCHES)
+    emit({"phase": "slice18_weak_scaling_sparse",
+          "rows_per_device": 1 << 22, "n_matvecs": 50, "rows": rows,
+          "k5_launches": launches["weak_scaling_sparse"]["gather_spmv"],
+          "seconds": time.perf_counter() - t0, "card": card})
+    if not (len(rows) == 1 and rows[0][2] == 1.0 and rows[0][1] > 0
+            and launches["weak_scaling_sparse"]["gather_spmv"] == 100):
+        failed.append("(c) the sparse weak-scaling report")
+    return failed, launches, rec_k5(k5, plan, launches)
+
+
+def rec_k5(k5, plan, launches):
+    """K5's record on the sharded matvec, for the kernels line."""
+    return {"tables": "sharded_csr_route_512_permuted (one shard)",
+            "launches_in": {k: v["gather_spmv"] for k, v in launches.items()},
+            "mode": plan.mode, "chunk": plan.chunk,
+            **{k: k5[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "share_of_bound",
+                                  "max_abs_err")}}
+
+
+def slice18_setup(torch, nls, brusselator, fft_poisson_preconditioner):
+    """For ``--only 27``: phase 7's permuted Jacobian at its root (the CSR
+    route's solve, f64 N=512) and phase 10's 3D root and nsteps (256³
+    f32, K9), solved as those phases solve them."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.core import solve as solve_mod
+    from nonlinearsolve_tpu_torch.models import reaction_diffusion
+    dev, N, N3 = torch.device("cuda"), 512, 256
+    perm = np.random.default_rng(42).permutation(N * N * 2)
+    cprob = flat_problem(nls, brusselator, N, torch.float64, dev, perm=perm)
+    calg = sparse_alg(nls, fft_poisson_preconditioner, N, perm=perm,
+                      dev=dev)
+    csol = nls.solve(cprob, calg, abstol=1e-4, maxiters=30)
+    cplan, = solve_mod._SPARSE_PLANS[cprob.f].values()
+    jac = cplan(lambda u: cprob.f.f(u, cprob.p), csol.u)
+    prob3 = reaction_diffusion.make_problem(N3, dtype=torch.float32,
+                                            kernel_jvp=True)
+    pm3 = fft_poisson_preconditioner((N3, N3, N3), 0.01, 1.0 / N3,
+                                     shift=-0.9)
+    alg3 = nls.NewtonRaphson(
+        linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                  krylov_maxiter=200, precond_fn=pm3),
+        forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+    sol3 = nls.solve(prob3, alg3, abstol=1e-5 * N3, maxiters=30)
+    return jac, (sol3.u, sol3.stats.nsteps)
+
+
+def slice18_phase(torch, nls, _backend, brusselator, spmv,
+                  fft_poisson_preconditioner, card, u64, csr7, rd3d):
+    """Phase 27 (see the module docstring).  ``u64``: phase 5's f64
+    polish; ``csr7``: phase 7's permuted Jacobian at its root (a CSR);
+    ``rd3d``: phase 10's (root, nsteps).  Returns K5's record on the
+    sharded matvec."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from nonlinearsolve_tpu_torch.models import problems23 as p23
+    from nonlinearsolve_tpu_torch.models import reaction_diffusion
+    from nonlinearsolve_tpu_torch.parallel import (create_mesh,
+                                                   distributed_solve)
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    failed = _mg_phase(torch, nls, _backend, dev, card)
+    failed += _spectral_phase(torch, nls, _backend, brusselator,
+                              fft_poisson_preconditioner, u64, card)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = create_mesh()
+        f_c, launches, k5_rec = _sharded_csr_phase(torch, nls, _backend,
+                                                   spmv, mesh, csr7, card)
+        failed += f_c
+
+        # (d) distributed_solve: BASELINE config 5's one-card half
+        N3 = 256
+        root3, nsteps3 = rd3d
+        prob = reaction_diffusion.make_problem(N3, dtype=torch.float32)
+        pm3 = fft_poisson_preconditioner((N3, N3, N3), 0.01, 1.0 / N3,
+                                         shift=-0.9)
+        alg3 = nls.NewtonRaphson(
+            linsolve=nls.LinearSolver(method="gmres", restart=8,
+                                      krylov_maxiter=200, precond_fn=pm3),
+            forcing=nls.EisenstatWalkerForcing(eta_0=0.1, eta_max=0.1))
+        abstol3 = 1e-5 * N3
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        sol = distributed_solve(prob, alg3, mesh, abstol=abstol3,
+                                maxiters=30)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d_launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
+        u = sol.u.full_tensor()
+        dist3 = float((u - root3).abs().max() / root3.abs().max())
+
+        def warm():
+            distributed_solve(prob, alg3, mesh, abstol=abstol3, maxiters=30)
+
+        prof = profile_device(torch, warm, host_events=False)
+        rec = {"phase": "slice18_distributed_solve", "N": N3,
+               "dtype": "float32", "retcode": sol.retcode.name,
+               "stats": vars(sol.stats), "nsteps_phase10": nsteps3,
+               "resid_inf": float(sol.resid.full_tensor().abs().max()),
+               "root_rel_inf_to_phase10": dist3, "limit": 1e-4,
+               "dtensor": isinstance(sol.u, DTensor),
+               "placements": [str(p) for p in sol.u.placements]
+               if isinstance(sol.u, DTensor) else None,
+               "krylov_iters": sol.counters["krylov_iters"],
+               "jac_products": sol.counters["jvp"],
+               "host_syncs": sol.counters["host_syncs"],
+               "first_solve_s": wall, "launches": d_launches, **prof,
+               "card": card}
+        emit(rec)
+        if not (sol.retcode == nls.ReturnCode.Success
+                and abs(sol.stats.nsteps - nsteps3) <= 1 and dist3 <= 1e-4
+                and rec["dtensor"] and list(sol.u.placements) == [Shard(0)]):
+            failed.append("(d) distributed_solve")
+        del sol, u, prob
+
+        # (e) solve_ensemble(mesh=): phase 22's problem-9 batch
+        B = 262144
+        tp9 = p23.PROBLEMS_23[8]
+        xi = np.random.default_rng(9).uniform(-1.0, 1.0,
+                                              size=(B, len(tp9.start)))
+        U0 = torch.tensor(np.asarray(tp9.start) * (1.0 + 0.1 * xi),
+                          dtype=torch.float64, device=dev)
+        base = nls.NonlinearProblem(tp9.f, U0[0])
+        bmesh = create_mesh(axis_names=("batch",))
+        ref = nls.solve_ensemble(base, nls.SimpleNewtonRaphson(), u0s=U0,
+                                 maxiters=200)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = nls.solve_ensemble(base, nls.SimpleNewtonRaphson(), u0s=U0,
+                                 maxiters=200, mesh=bmesh)
+        torch.cuda.synchronize()
+        e_wall = time.perf_counter() - t0
+        same = (isinstance(got.u, DTensor)
+                and torch.equal(got.u.full_tensor(), ref.u)
+                and torch.equal(got.retcode.full_tensor(), ref.retcode)
+                and all(torch.equal(getattr(got.stats, k).full_tensor(),
+                                    getattr(ref.stats, k))
+                        for k in ("nf", "njacs", "nsteps")))
+        emit({"phase": "slice18_ensemble_mesh", "batch": B,
+              "engine": "SimpleNewtonRaphson", "rows_bit_equal": same,
+              "placements": [str(p) for p in got.u.placements]
+              if isinstance(got.u, DTensor) else None,
+              "seconds": e_wall, "card": card})
+        if not same:
+            failed.append("(e) solve_ensemble(mesh=)")
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "slice18_timing",
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"phase 27 failed: {failed}")
+    return k5_rec
+
+
 def flagship_setup(torch, nls, brusselator, fft_poisson_preconditioner,
                    N):
     """Phase 4's flagship: the N² Brusselator in f32 with K1 as its JVP,
@@ -4366,11 +4934,12 @@ def polish_setup(torch, nls, brusselator, fft_poisson_preconditioner, N,
 
 def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
                 fft_poisson_preconditioner, card, phases):
-    """``--only``: phases 19–26 alone, in the order given, each on the
+    """``--only``: phases 19–27 alone, in the order given, each on the
     set-up it takes from the earlier phases rebuilt here: phase 18's
     NewtonRaphson root at N=32 for 20; the flagship and its polish, solved
-    as phases 4 and 5 solve them, for 23 and 26; the flagship's problem and
-    algorithm for 24."""
+    as phases 4 and 5 solve them, for 23, 26 and 27; the flagship's problem
+    and algorithm for 24; phase 7's Jacobian at its root and phase 10's
+    root for 27 (``slice18_setup``)."""
     f64 = torch.float64
     for ph in phases:
         t0 = time.perf_counter()
@@ -4401,6 +4970,18 @@ def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
         elif ph == "25":
             a33_phase(torch, nls, _backend, brusselator,
                       fft_poisson_preconditioner, card)
+        elif ph == "27":
+            prob, alg, pm = flagship_setup(torch, nls, brusselator,
+                                           fft_poisson_preconditioner, 512)
+            sol = nls.solve(prob, alg, abstol=5.0, maxiters=30)
+            prob64, alg64 = polish_setup(torch, nls, brusselator,
+                                         fft_poisson_preconditioner, 512,
+                                         sol.u)
+            u64 = nls.solve(prob64, alg64, abstol=1e-4, maxiters=10).u
+            csr7, rd3d = slice18_setup(torch, nls, brusselator,
+                                       fft_poisson_preconditioner)
+            slice18_phase(torch, nls, _backend, brusselator, spmv,
+                          fft_poisson_preconditioner, card, u64, csr7, rd3d)
         elif ph == "26":
             prob, alg, pm = flagship_setup(torch, nls, brusselator,
                                            fft_poisson_preconditioner, 512)
@@ -4413,7 +4994,7 @@ def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
                           fft_poisson_preconditioner, card, sol, pm,
                           sol64.u, None)
         else:
-            raise ValueError(f"--only takes phases 19 to 26, not {ph!r}")
+            raise ValueError(f"--only takes phases 19 to 27, not {ph!r}")
         emit({"phase": "only_phase", "only": ph,
               "seconds": time.perf_counter() - t0, "card": card})
 
@@ -4853,7 +5434,8 @@ def main(argv):
     vjp_summary = {"gather_spmv": reverse_rule_check(
         torch, _backend, spmv, "gather_spmv", "csr_route_512_permuted",
         cplan.pattern, jac.data)}
-    del jac, cprob, csol, back
+    csr7 = jac              # phase 27 (c) applies it row-sharded
+    del cprob, csol, back
 
     # --- 8. 3D kernels against their plain versions -------------------------
     rd3d_summary = rd3d_kernel_checks(torch, dev, stencil3d)
@@ -4982,6 +5564,8 @@ def main(argv):
           "chained_solve_s": chained3_s,
           "mdof_per_s_chained": N3 ** 3 / max(chained3_s, 1e-9) / 1e6,
           "card": card})
+
+    rd3d_ref = (sol3.u.clone(), sol3.stats.nsteps)     # for phase 27 (d)
 
     # --- 11. 3D f64 polish on the card ---------------------------------------
     prob3_64 = reaction_diffusion.make_problem(
@@ -5504,7 +6088,13 @@ def main(argv):
                         fft_poisson_preconditioner, card, sol, pm, u64, ssol)
     del ssol
 
-    # --- 27. summary -------------------------------------------------------
+    # --- 27. multigrid, the spectral factories, the sharded layer ---------
+    k5_sharded = slice18_phase(torch, nls, _backend, brusselator, spmv,
+                               fft_poisson_preconditioner, card, u64, csr7,
+                               rd3d_ref)
+    del csr7, rd3d_ref
+
+    # --- 28. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):
@@ -5555,6 +6145,7 @@ def main(argv):
                 "detected_sparse_path"].get(name, 0)
     k5_row = next(o for o in out if o["name"] == "gather_spmv")
     k5_row["index_select_ms"] = spmv_summary["gather_spmv"]["index_select_ms"]
+    k5_row["sharded_matvec"] = k5_sharded
     k5_row["other_tables"] = {
         rec["tables"] + "_" + rec["dtype"]: {
             k: rec[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -59,8 +59,13 @@ ROUTES: dict = {"pcr": 0, "bcr": 0, "rcm_bcr": 0, "host_lu": 0,
                 "iterative": 0, "dense": 0, "device_lu": 0}
 
 
+#: collectives issued by the distributed layer's explicit tier (P2P sends
+#: of the ring halos and all_gathers of x), counted where they are issued
+COLLECTIVES: dict = {"p2p_send": 0, "all_gather": 0}
+
+
 def reset_counters() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, COLLECTIVES):
         for k in counts:
             counts[k] = 0
     HOST_SYNCS["n"] = 0
@@ -68,6 +73,10 @@ def reset_counters() -> None:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def count_collective(name: str) -> None:
+    COLLECTIVES[name] += 1
 
 
 def count_route(name: str) -> None:
@@ -183,6 +192,7 @@ def fetch(*tensors: torch.Tensor) -> list:
     (Mixed dtypes travel as f64, which holds every f32, int32 and bool
     value exactly, or as complex128 when one of them is complex.)"""
     HOST_SYNCS["n"] += 1
+    tensors = [whole(t) for t in tensors]
     wire = tensors[0].dtype
     if any(t.dtype != wire for t in tensors):
         wire = (torch.complex128 if any(t.is_complex() for t in tensors)
@@ -197,6 +207,39 @@ def fetch(*tensors: torch.Tensor) -> list:
         out.append(part[0] if t.dim() == 0 else part)
         at += t.numel()
     return out
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a plain tensor on this rank (a
+    replicated scalar's own copy; a sharded one gathered); any other
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def apply_whole(fn, v: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a DTensor ``v`` gathered whole on every rank, the result
+    sharded as ``v`` is (each rank keeps its shard, no communication): the
+    preconditioners whose DTensor ops would take collectives in every
+    pass (the FFT's transforms, the V-cycle's rolls and restrictions)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(fn(v.full_tensor()), v.device_mesh,
+                             v.placements, src_data_rank=None)
+
+
+def roll(x: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
+    """``torch.roll``; a DTensor is rolled as the concatenation of its two
+    slices, the same values.  torch 2.11's DTensor has no sharding rule for
+    ``roll``, and slices and ``cat`` keep their rules under the
+    reverse-over-reverse J·v of a sharded state (``core/autodiff.py``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return torch.roll(x, shift, dim)
+    n = x.shape[dim]
+    s = shift % n
+    if s == 0:
+        return x
+    return torch.cat([x.narrow(dim, n - s, s), x.narrow(dim, 0, n - s)], dim)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

@@ -11,7 +11,8 @@ back as ``out_shape + in_shape`` and ``core/jacobian.py`` makes it 2-D.
 PyTorch does not nest forward-AD levels, so inside one (a caller
 differentiating a solve with ``torch.autograd.forward_ad``) they take the
 same products in reverse mode: J·v as the VJP of the VJP, the Jacobian by
-``jacrev``.
+``jacrev``.  J·v on a DTensor state takes the reverse route too, by
+``torch.autograd``.
 """
 
 from __future__ import annotations
@@ -34,12 +35,29 @@ def forward_level_active() -> bool:
 
 def jvp(f: Callable, u, v):
     """``(f(u), J(u)·v)``: ``torch.func.jvp``, or inside a forward-AD
-    level the VJP of the (linear) VJP."""
+    level the VJP of the (linear) VJP.  On a DTensor state (forward mode
+    has no sharding rule for DTensors) the VJP of the VJP is taken with
+    ``torch.autograd``, which keeps the residual's tensors DTensors
+    (``torch.func`` would wrap them)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(u, DTensor):
+        return _dtensor_jvp(f, u, v)
     if not forward_level_active():
         return torch.func.jvp(f, (u,), (v,))
     fu, vjp_fn = torch.func.vjp(f, u)
     _, back = torch.func.vjp(lambda w: vjp_fn(w)[0], torch.zeros_like(fu))
     return fu, back(v)[0]
+
+
+def _dtensor_jvp(f: Callable, u, v):
+    """``(f(u), J(u)·v)`` as the VJP of the VJP by ``torch.autograd``."""
+    with torch.enable_grad():
+        x = u.detach().requires_grad_(True)
+        fu = f(x)
+        w = torch.zeros_like(fu, requires_grad=True)
+        g, = torch.autograd.grad(fu, x, w, create_graph=True)
+        jv, = torch.autograd.grad(g, w, v)
+    return fu.detach(), jv
 
 
 def jacfwd(f: Callable) -> Callable:

@@ -256,18 +256,25 @@ def _krylov_solve(cfg: NewtonDescent, ctx: DescentCtx, J, fu,
     rtol = (krylov_rtol if krylov_rtol is not None
             else float(np.sqrt(np.finfo(npdt).eps)))
     if cfg.linsolve.precond_fn is not None:
-        if getattr(cfg.linsolve.precond_fn, "wants_residual", False):
-            raise NotImplementedError(
-                "residual-aware preconditioner factories are ROADMAP A.24")
         # Contract: precond_fn(u) -> (v -> M⁻¹v); a plain v -> M⁻¹v
         # callable (u-independent) is accepted too.  As in the JAX package,
         # the factory is always called first: a plain callable then returns
         # an array (one preconditioner application, wasted, per Newton step)
         # and is used itself.  The wasted call is kept so that the iterates
-        # and stats match the JAX package's.
-        M = cfg.linsolve.precond_fn(u)
-        if not callable(M):
-            M = cfg.linsolve.precond_fn
+        # and stats match the JAX package's.  A factory marked
+        # ``wants_residual`` is called as precond_fn(u, fu) and must return
+        # the callable.
+        if getattr(cfg.linsolve.precond_fn, "wants_residual", False):
+            M = cfg.linsolve.precond_fn(u, fu)
+            if not callable(M):
+                raise TypeError(
+                    "a wants_residual preconditioner factory must "
+                    "return a v -> M⁻¹v callable from prep(u, fu); "
+                    f"got {type(M).__name__}")
+        else:
+            M = cfg.linsolve.precond_fn(u)
+            if not callable(M):
+                M = cfg.linsolve.precond_fn
     else:
         M = _matrix_precond(cfg.linsolve, J, ctx.verbosity)
     kw = {}

@@ -12,6 +12,9 @@ of ``u0`` and / or ``p``.  Here:
   each trajectory's result there is its lone solve's, which is what this
   gives.  Batched engines of that kind are ROADMAP A.29.
 
+With ``mesh=`` the batch's rows are split over a mesh axis: each rank
+solves its rows as above, and the fields come back as DTensors.
+
 Either way the solution's fields carry the batch axis: ``u`` (B, ...),
 ``retcode`` a (B,) int tensor, each ``NLStats`` field a (B,) tensor.
 Trajectories that do not share the base problem's function and shapes
@@ -114,8 +117,10 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
     ``ps`` (like ``prob.p``, leading batch axis).  For an
     ``IntervalNonlinearProblem``, ``ps`` is the batch (its ``tspan`` may
     be batched too).  Returns one ``NonlinearSolution`` whose fields carry
-    the batch axis.  ``mesh`` (sharding the batch over devices) is ROADMAP
-    A.29."""
+    the batch axis.  ``mesh`` (a ``DeviceMesh``) shards the batch over its
+    axis ``batch_axis``, whose size must divide the batch: each rank solves
+    its rows, and the fields come back as DTensors sharded on the batch.
+    Every rank of the mesh calls it with the same batches."""
     from ..solvers.simple import is_simple_alg
     from .solve import _default_algorithm, check_kwargs, solve_nonlinear
 
@@ -125,10 +130,10 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
             "enforced by host-clock chunked advances, which cannot run "
             "inside vmap.  Batch with maxtime by looping solve(..., "
             "maxtime=...) per trajectory instead.")
+    if u0s is None and ps is None:
+        raise ValueError("solve_ensemble needs u0s and/or ps batches")
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_ensemble(mesh=...): sharding the batch over devices is "
-            "ROADMAP A.29")
+        return _solve_sharded(prob, alg, u0s, ps, mesh, batch_axis, kwargs)
     if u0s is None and ps is None:
         raise ValueError("solve_ensemble needs u0s and/or ps batches")
     merged = {**prob.kwargs, **kwargs}
@@ -159,6 +164,51 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
                                   "nsteps")]),
         counters={"host_syncs": sum(s.counters["host_syncs"]
                                     for s in sols)})
+
+
+def _solve_sharded(prob, alg, u0s, ps, mesh, batch_axis, kwargs):
+    """``solve_ensemble`` with the batch's rows split over
+    ``mesh[batch_axis]``: this rank's rows (of a plain batch, the same on
+    every rank, or of a DTensor batch) through the unsharded ensemble,
+    the fields wrapped as DTensors sharded on the batch (and replicated
+    over the mesh's other axes)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    group = mesh.get_group(batch_axis)
+    S, me = dist.get_world_size(group), dist.get_rank(group)
+    B = _first_leaf(u0s if u0s is not None else ps).shape[0]
+    if B % S:
+        raise ValueError(f"a batch of {B} does not split over the "
+                         f"{S} devices of mesh axis {batch_axis!r}")
+    rows = slice(me * (B // S), (me + 1) * (B // S))
+    placements = [Shard(0) if name == batch_axis else Replicate()
+                  for name in mesh.mesh_dim_names]
+
+    def local(x):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        if isinstance(x, torch.Tensor) and x.dim() >= 1 and \
+                x.shape[0] == B:
+            return x[rows]
+        return x
+
+    if isinstance(prob, IntervalNonlinearProblem):
+        prob = prob.remake(tspan=tree_map(local, prob.tspan))
+    sol = solve_ensemble(
+        prob, alg, u0s=None if u0s is None else tree_map(local, u0s),
+        ps=None if ps is None else tree_map(local, ps), **kwargs)
+
+    def whole(x):
+        full = torch.empty((B,) + tuple(x.shape[1:]), device="meta")
+        return DTensor.from_local(x, mesh, placements, run_check=False,
+                                  shape=full.shape, stride=full.stride())
+
+    return dataclasses.replace(
+        sol, u=tree_map(whole, sol.u), resid=tree_map(whole, sol.resid),
+        retcode=whole(sol.retcode),
+        stats=NLStats(*[whole(getattr(sol.stats, k)) for k in (
+            "nf", "njacs", "nfactors", "nsolve", "nsteps")]))
 
 
 def _lone_options(prob, merged) -> bool:

@@ -39,6 +39,7 @@ also ``rungs`` — (index, retcode, nsteps) of each rung it ran — and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import difflib
 import weakref
@@ -533,6 +534,18 @@ def solution_of(prob, prep: Prepared, carry, counters, trace=None,
         timer=None if timer is None else timer.summarize())
 
 
+def _state_scope(u0):
+    """Around a solve of a state sharded on a mesh (a DTensor:
+    ``parallel.distributed_solve``), plain tensors beside it — constants,
+    p's leaves, the engines' host values — act as replicated, as
+    unsharded arrays do under GSPMD."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(u0, DTensor):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
                     termination_condition=None, precondition=None,
                     postcondition=None, show_trace=False, store_trace=False,
@@ -547,38 +560,41 @@ def solve_nonlinear(prob, alg, *, abstol=None, reltol=None, maxiters=1000,
     u0 = prob.u0
     if isinstance(u0, torch.Tensor) and u0.numel() == 0:
         return _null_solution(prob, abstol)
-    # alias_u0 has no effect: the engine never writes into u0.  The root
-    # depends on p alone: u0's and the bounds' tangents are zero.
-    from .timer import PhaseTimer
-    from .tracing import finalize_trace, trace_config
-    from .verbosity import normalize_verbosity
-    trace_cfg = trace_config(show_trace, store_trace, trace_level)
-    verbosity = normalize_verbosity(verbose)
-    _emit_solve_messages(verbosity, alias_u0, postcondition,
-                         prob.lb is not None or prob.ub is not None)
-    timer = None
-    if time_phases:
-        # the set-up counts as "other", up to the engine's first mark
-        timer = PhaseTimer(state_device(u0, prob.p))
-        timer.mark("other")
-    prep = prepare(prob, alg, abstol=abstol, reltol=reltol,
-                   termination_condition=termination_condition,
-                   precondition=precondition, postcondition=postcondition,
-                   trace=trace_cfg, verbosity=verbosity, timer=timer)
-    from ..solvers.dispatch import run_algorithm
-    with torch.no_grad():
-        syncs0 = _backend.HOST_SYNCS["n"]
-        carry = run_algorithm(alg, prep.ctx, prep.term_cfg, prep.spec,
-                              prep.x0, prep.abstol, prep.reltol,
-                              int(maxiters))
-        # DynamicSS and run_flat carries count no JVPs or Krylov steps
-        counters = {"jvp": getattr(carry, "njvp", 0),
-                    "krylov_iters": getattr(carry, "krylov_iters", 0),
-                    "host_syncs": _backend.HOST_SYNCS["n"] - syncs0}
-        if hasattr(carry, "winner"):
-            counters["rungs"] = list(carry.rungs)
-            counters["winner"] = carry.winner
-    return solution_of(
-        prob, prep, carry, counters,
-        trace=finalize_trace(trace_cfg, getattr(carry, "trace_state", None)),
-        timer=timer)
+    with _state_scope(u0):
+        # alias_u0 has no effect: the engine never writes into u0.  The
+        # root depends on p alone: u0's and the bounds' tangents are zero.
+        from .timer import PhaseTimer
+        from .tracing import finalize_trace, trace_config
+        from .verbosity import normalize_verbosity
+        trace_cfg = trace_config(show_trace, store_trace, trace_level)
+        verbosity = normalize_verbosity(verbose)
+        _emit_solve_messages(verbosity, alias_u0, postcondition,
+                             prob.lb is not None or prob.ub is not None)
+        timer = None
+        if time_phases:
+            # the set-up counts as "other", up to the engine's first mark
+            timer = PhaseTimer(state_device(u0, prob.p))
+            timer.mark("other")
+        prep = prepare(prob, alg, abstol=abstol, reltol=reltol,
+                       termination_condition=termination_condition,
+                       precondition=precondition,
+                       postcondition=postcondition, trace=trace_cfg,
+                       verbosity=verbosity, timer=timer)
+        from ..solvers.dispatch import run_algorithm
+        with torch.no_grad():
+            syncs0 = _backend.HOST_SYNCS["n"]
+            carry = run_algorithm(alg, prep.ctx, prep.term_cfg, prep.spec,
+                                  prep.x0, prep.abstol, prep.reltol,
+                                  int(maxiters))
+            # DynamicSS and run_flat carries count no JVPs or Krylov steps
+            counters = {"jvp": getattr(carry, "njvp", 0),
+                        "krylov_iters": getattr(carry, "krylov_iters", 0),
+                        "host_syncs": _backend.HOST_SYNCS["n"] - syncs0}
+            if hasattr(carry, "winner"):
+                counters["rungs"] = list(carry.rungs)
+                counters["winner"] = carry.winner
+        return solution_of(
+            prob, prep, carry, counters,
+            trace=finalize_trace(trace_cfg,
+                                 getattr(carry, "trace_state", None)),
+            timer=timer)

@@ -79,8 +79,9 @@ def brusselator_2d(U: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     force = _force(int(u.shape[0]), U.dtype, U.device)
 
     def lap(w):
-        return (torch.roll(w, 1, 0) + torch.roll(w, -1, 0)
-                + torch.roll(w, 1, 1) + torch.roll(w, -1, 1) - 4.0 * w)
+        roll = _backend.roll
+        return (roll(w, 1, 0) + roll(w, -1, 0)
+                + roll(w, 1, 1) + roll(w, -1, 1) - 4.0 * w)
 
     du = alpha * lap(u) + B + u * u * v - (A + 1.0) * u + force
     dv = alpha * lap(v) + A * u - u * u * v

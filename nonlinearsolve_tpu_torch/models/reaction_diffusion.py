@@ -36,9 +36,10 @@ def reaction_diffusion_3d(u: torch.Tensor, p) -> torch.Tensor:
     D, g = p
     N = u.shape[0]
     h = 1.0 / N
-    lap = (torch.roll(u, 1, 0) + torch.roll(u, -1, 0)
-           + torch.roll(u, 1, 1) + torch.roll(u, -1, 1)
-           + torch.roll(u, 1, 2) + torch.roll(u, -1, 2) - 6.0 * u) / (h * h)
+    roll = _backend.roll
+    lap = (roll(u, 1, 0) + roll(u, -1, 0)
+           + roll(u, 1, 1) + roll(u, -1, 1)
+           + roll(u, 1, 2) + roll(u, -1, 2) - 6.0 * u) / (h * h)
     return D * lap + u - u ** 3 + g
 
 

@@ -109,7 +109,7 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     else:
         b_norm, rnorm = fetch(l2(mb), l2(r))
     tol = np.maximum(rdt(rtol) * b_norm, rdt(atol))
-    V = torch.empty((m + 1, n), dtype=basis_dtype or dtype, device=b.device)
+    V = _basis(b, m + 1, basis_dtype or dtype)
     beta = rnorm           # the norm of r, known for the first cycle
     it = 0
     while rnorm > tol and it < maxiter:
@@ -127,7 +127,7 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             w = M(matvec(V[k].view(shape).to(dtype))).reshape(-1)
             Vk = V[: k + 1].to(dtype)
             VkH = Vk.conj() if cplx else Vk
-            hd = VkH @ w
+            hd = _replicated(VkH @ w)
             w_norm0 = l2(w)
             w = w - hd @ Vk
             wn = l2(w)
@@ -135,7 +135,7 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             h = np.zeros(m + 1, npdt)
             h[: k + 1] = h_host
             if h_next < rdt(0.7071) * w_norm0:
-                hd2 = VkH @ w
+                hd2 = _replicated(VkH @ w)
                 w = w - hd2 @ Vk
                 h2_host, h_next = fetch(hd2, l2(w))
                 h[: k + 1] += h2_host
@@ -184,6 +184,36 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     finite, = fetch(torch.isfinite(x).all())
     return KrylovResult(x=x, residual_norm=rnorm, iterations=it,
                         success=bool(rnorm <= tol) and bool(finite))
+
+
+def _basis(b, rows: int, dtype):
+    """The (rows, n) buffer of the Krylov basis; for a DTensor ``b``, a
+    DTensor whose columns are laid out as ``b.reshape(-1)``'s entries."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import empty as dempty
+    n = b.numel()
+    if not isinstance(b, DTensor):
+        return torch.empty((rows, n), dtype=dtype, device=b.device)
+    from torch.distributed.tensor.placement_types import _StridedShard
+    flat = b.reshape(-1)
+    # a state sharded on several axes flattens to strided shards: keep
+    # their split factors one dimension down
+    placements = [
+        _StridedShard(p.dim + 1, split_factor=p.split_factor)
+        if isinstance(p, _StridedShard)
+        else Shard(p.dim + 1) if isinstance(p, Shard) else p
+        for p in flat.placements]
+    return dempty((rows, n), dtype=dtype, device_mesh=flat.device_mesh,
+                  placements=placements)
+
+
+def _replicated(t):
+    """A DTensor reduced over the mesh (``Vₖᴴ·w`` on a sharded basis) made
+    whole on every rank; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(placements=[Replicate()] * t.device_mesh.ndim)
 
 
 def _short_setup(b, x0, maxiter, rtol, atol, M):

@@ -435,6 +435,7 @@ ROWS_PER_TILE = SUBLANES * LANES
 MAX_X_ELEMS_VMEM = (10 * 1024 * 1024) // 4
 MAX_WINDOW_ROWS = 512
 MAX_SLOTS = 32
+_SMEM_R0_CAP_BYTES = 24 * 1024
 _UNROLL_G = 8
 # the JAX package's TPU constants of its dia-tier cost (ops/pallas_spmv.py)
 HBM_BYTES_PER_S = 2.2e12
@@ -486,21 +487,28 @@ class EllPlan:
     (w·n_pad, the size of its slot tables).  The TPU's window tables are not
     built.  When the pattern is outside the envelope for a reason the
     windows cannot change (``n_cols`` above ``MAX_X_ELEMS_VMEM``, or ``w``
-    above ``MAX_SLOTS``), the windows are not computed (``W`` and ``mode``
-    are None): the JAX package never reads them for an unsupported plan."""
+    above ``MAX_SLOTS``), the windows are not computed (``W``, ``mode`` and
+    ``nx_rows`` are None): the JAX package never reads them for an
+    unsupported plan.  ``min_w``, ``min_W`` and ``force_mode`` are the JAX
+    plan's lower bounds on the slot count and window height and its forced
+    window granularity, which give the shards of a row-partitioned
+    operator one kernel shape (``parallel/sparse_dist.py``); ``nx_rows`` is
+    its padded x-buffer height in tile rows and ``r0_size`` the entries of
+    its window-start table."""
 
-    def __init__(self, indptr, indices, n_rows, n_cols, *, rt=1):
+    def __init__(self, indptr, indices, n_rows, n_cols, *, rt=1, min_w=1,
+                 min_W=SUBLANES, force_mode=None):
         indptr = np.asarray(indptr, np.int64)
         indices = np.asarray(indices, np.int64)
         counts = np.diff(indptr)
-        w = max(int(counts.max()) if counts.size else 1, 1)
+        w = max(int(counts.max()) if counts.size else 1, 1, int(min_w))
         self.rt = max(int(rt), 1)
         n_pad = _round_up(max(n_rows, 1), ROWS_PER_TILE * self.rt)
         self.w, self.n_pad = w, n_pad
         self.n_rows, self.n_cols = int(n_rows), int(n_cols)
         self.ntiles = n_pad // ROWS_PER_TILE
         self.table_size = w * n_pad
-        self.W = self.mode = None
+        self.W = self.mode = self.nx_rows = self.r0_size = None
         self.supported = False
         if n_cols > MAX_X_ELEMS_VMEM or w > MAX_SLOTS:
             return
@@ -521,16 +529,23 @@ class EllPlan:
         hi_min_s = np.where(empty, 0, hi_min_s)
         hi_max_s = np.where(empty, 0, hi_max_s)
         r0_s = (hi_min_s // SUBLANES) * SUBLANES
-        Ws = _round_up(max(int((hi_max_s - r0_s + 1).max()), 1, SUBLANES),
-                       SUBLANES)
+        Ws = _round_up(max(int((hi_max_s - r0_s + 1).max()), 1,
+                           int(min_W)), SUBLANES)
         hi_min_g = hi_min_s.min(axis=0)
         hi_max_g = hi_max_s.max(axis=0)
         r0_g = (hi_min_g // SUBLANES) * SUBLANES
-        Wg = _round_up(max(int((hi_max_g - r0_g + 1).max()), 1, SUBLANES),
-                       SUBLANES)
+        Wg = _round_up(max(int((hi_max_g - r0_g + 1).max()), 1,
+                           int(min_W)), SUBLANES)
         Gs, Gg = Ws // SUBLANES, Wg // SUBLANES
-        self.mode = "slot" if 3 * w * Gs < (2 * w + 1) * Gg else "group"
+        if force_mode is not None:
+            self.mode = force_mode
+        else:
+            self.mode = "slot" if 3 * w * Gs < (2 * w + 1) * Gg else "group"
         self.W = Ws if self.mode == "slot" else Wg
+        self.nx_rows = max(_round_up(-(-max(int(n_cols), 1) // LANES),
+                                     SUBLANES), self.W)
+        self.r0_size = self.ntiles * SUBLANES * (w if self.mode == "slot"
+                                                 else 1)
         self.supported = self.W <= MAX_WINDOW_ROWS
 
 
@@ -692,8 +707,10 @@ def select_spmv_plan(indptr, indices, n_rows, n_cols):
 
 def clear_plan_caches() -> None:
     """Empty every pattern-keyed plan cache of the tiers."""
+    from ..parallel import sparse_dist
     from . import spmv_dia, spmv_scatter, spmv_stream
     for cache in (_TIER_CACHE, _PLAN_CACHE, _REORDER_CACHE,
+                  sparse_dist._PLAN_CACHE,
                   _RCM_PATTERN_CACHE, _BSR_EXPAND_CACHE,
                   spmv_dia._DIA_PLAN_CACHE,
                   spmv_stream._BAND_PLAN_CACHE,

@@ -13,8 +13,9 @@ calls the returned function, as every device runs a shard_map body.  The
 stencil factories return a ``PerShard``, whose ``local`` is the body on
 local shards.
 
-The GSPMD tier (``distributed_solve``: XLA partitions the whole solve) has
-no counterpart here; it raises naming ROADMAP A.31.
+The GSPMD tier's counterpart, ``distributed_solve``, places the state on
+the mesh as a DTensor and runs the ordinary solve on it: torch's DTensor
+ops insert the collectives, as XLA's partitioner does for the JAX package.
 """
 
 from __future__ import annotations
@@ -23,48 +24,121 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from .. import _backend
 from .mesh import replicated, row_sharding
 
 
-def distributed_solve(prob, alg=None, mesh=None, shard_axis: int = 0, **kw):
-    raise NotImplementedError(
-        "distributed_solve (the GSPMD tier: a rank-local engine with "
-        "all-reduced dots in GMRES) is ROADMAP A.31; the explicit tier "
-        "(halo_exchange and the sharded_* factories) is ported")
+def distributed_solve(prob, alg=None, mesh=None, shard_axis: int = 0, *,
+                      abstol=None, reltol=None, maxiters=1000,
+                      termination_condition=None):
+    """Solve with the state's axis ``shard_axis`` row-partitioned across
+    the first axis of ``mesh`` (every rank of the default group by
+    default).  ``u0`` becomes a DTensor sharded on that axis, each tensor
+    leaf of ``p`` with u0's shape is sharded the same way and every other
+    one replicated; then the ordinary ``solve_nonlinear`` runs on these
+    global DTensors, as the JAX package runs its ordinary solve under
+    GSPMD.  Rolls on the sharded axis and the reductions of the Krylov and
+    termination steps become collectives inside torch's DTensor ops; the
+    engines' J·v takes reverse mode (``core/autodiff.py``).  Every rank
+    calls it with the same problem; ``sol.u`` comes back a DTensor sharded
+    on ``shard_axis``."""
+    from ..core.solve import _default_algorithm, solve_nonlinear
+    from ..utils.pytree import tree_map
+    from .mesh import create_mesh
+
+    if mesh is None:
+        mesh = create_mesh()
+    axis = mesh.mesh_dim_names[0]
+    u0 = prob.u0
+    sharded = row_sharding(mesh, axis, ndim=u0.dim(), shard_dim=shard_axis)
+
+    def place(x, placements):
+        # every rank holds the same tensor: each keeps its own shard, with
+        # no communication
+        return distribute_tensor(x, mesh, placements, src_data_rank=None)
+
+    def shard_param(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.shape == u0.shape:
+            return place(x, sharded)
+        return place(x, replicated(mesh))
+
+    p = tree_map(shard_param, prob.p) if prob.p is not None else None
+    prob2 = prob.remake(u0=place(u0, sharded), p=p)
+    if alg is None:
+        alg = _default_algorithm(prob2)
+    return solve_nonlinear(prob2, alg, abstol=abstol, reltol=reltol,
+                           maxiters=maxiters,
+                           termination_condition=termination_condition)
 
 
 # ---------------------------------------------------------------------------
 # the ring
 # ---------------------------------------------------------------------------
 
-def _issue_halo_exchange(group, x_local, width: int = 1):
-    """Start the exchange of ``width`` boundary slices with the ring
-    neighbours of this rank in ``group``.  Returns ``(left_halo, right_halo,
-    works)``: the halos are complete once every work in ``works`` is
-    waited for.
+def _issue_halo_exchange(group, x_local, width: int = 1,
+                         right_width: int = None):
+    """Start the exchange of boundary slices with the ring neighbours of
+    this rank in ``group``: ``width`` slices (along dim 0) arrive from the
+    left and ``right_width`` (``width`` by default) from the right.
+    Returns ``(left_halo, right_halo, works)``: the halos are complete once
+    every work in ``works`` is waited for.
 
-    With one rank the ring is the identity permutation, as ``ppermute`` on
-    one device is: the shard's own last and first slices come back, with
-    no P2P call (c10d refuses a send to one's own rank).  With two, both
-    neighbours are one rank: the two sends and the two receives pair by
-    issue order (NCCL) and by tag (gloo) — tag 0 travels rightward and
-    arrives as the left halo, tag 1 leftward and arrives as the right
-    halo."""
-    right_send = x_local[-width:].contiguous()
-    left_send = x_local[:width].contiguous()
+    A width wider than the shard spans several neighbours: hop k brings
+    the whole shard of the rank k places away, and the farthest hop only
+    the slices still missing (the JAX package's ``ppermute`` hops).  A
+    width of 0 issues nothing.  With one rank the ring is the identity
+    permutation, as ``ppermute`` on one device is: the shard's own slices
+    come back, with no P2P call (c10d refuses a send to one's own rank).
+    Hop k leftward-received travels with tag 2(k−1), rightward-received
+    with tag 2(k−1)+1, so that gloo pairs the transfers between two ranks
+    by tag; every rank issues its sends, then its receives, in the same
+    (side, hop) order, which pairs them by issue order under NCCL."""
+    hl = int(width)
+    hr = hl if right_width is None else int(right_width)
+    chunk = x_local.shape[0]
     n = dist.get_world_size(group)
+    kl, kr = -(-hl // chunk), -(-hr // chunk)
+
+    def payload(side, k):
+        last = kl if side == 0 else kr
+        if k < last:
+            return x_local
+        rem = (hl if side == 0 else hr) - (last - 1) * chunk
+        return x_local[-rem:] if side == 0 else x_local[:rem]
+
+    hops = [(0, k) for k in range(kl, 0, -1)] + \
+        [(1, k) for k in range(1, kr + 1)]
     if n == 1:
-        return right_send, left_send, []
+        parts = [payload(side, k).contiguous() for side, k in hops]
+        left = torch.cat(parts[:kl]) if kl else x_local[:0]
+        right = torch.cat(parts[kl:]) if kr else x_local[:0]
+        return left, right, []
     me = dist.get_rank(group)
-    left_peer = dist.get_global_rank(group, (me - 1) % n)
-    right_peer = dist.get_global_rank(group, (me + 1) % n)
-    left_halo = torch.empty_like(right_send)
-    right_halo = torch.empty_like(left_send)
-    ops = [dist.P2POp(dist.isend, right_send, right_peer, group, tag=0),
-           dist.P2POp(dist.isend, left_send, left_peer, group, tag=1),
-           dist.P2POp(dist.irecv, left_halo, left_peer, group, tag=0),
-           dist.P2POp(dist.irecv, right_halo, right_peer, group, tag=1)]
-    return left_halo, right_halo, dist.batch_isend_irecv(ops)
+    left = x_local.new_empty((hl,) + tuple(x_local.shape[1:]))
+    right = x_local.new_empty((hr,) + tuple(x_local.shape[1:]))
+    sends, recvs = [], []
+    at = {0: 0, 1: 0}
+    for side, k in sorted(hops):
+        # side 0: the left halo, from the rank k places to the left (each
+        # rank sends the same piece k places to the right); side 1: mirror
+        step = k if side == 0 else -k
+        to = dist.get_global_rank(group, (me + step) % n)
+        frm = dist.get_global_rank(group, (me - step) % n)
+        piece = payload(side, k).contiguous()
+        tag = 2 * (k - 1) + side
+        sends.append(dist.P2POp(dist.isend, piece, to, group, tag=tag))
+        halo = left if side == 0 else right
+        width_k = piece.shape[0]
+        # left parts lie farthest first; right parts nearest first
+        lo = (hl - at[0] - width_k) if side == 0 else at[1]
+        at[side] += width_k
+        recvs.append(dist.P2POp(dist.irecv, halo[lo:lo + width_k], frm,
+                                group, tag=tag))
+    for _ in sends:
+        _backend.count_collective("p2p_send")
+    return left, right, dist.batch_isend_irecv(sends + recvs)
 
 
 def _wait(works) -> None:

@@ -98,6 +98,67 @@ def weak_scaling_sparse_report(device_counts: Sequence[int],
                                rows_per_device: int = 4096,
                                n_matvecs: int = 50, dtype=torch.float32,
                                devices=None):
-    raise NotImplementedError(
-        "weak_scaling_sparse_report needs parallel/sparse_dist.py (the "
-        "row-partitioned CSR matvec, K5 per shard), which is ROADMAP A.31")
+    """Weak scaling of the row-partitioned general-sparse operator
+    (``parallel/sparse_dist.py``): each of the first k of ``devices``
+    (ranks; all by default) owns ``rows_per_device`` rows of the JAX
+    package's banded-plus-noise CSR (diagonals 0, ±1, ±⌊√n⌋, values
+    perturbed by ``default_rng(0)``, one generator for the whole report),
+    whose halo rides the ring.  The chain ``c ← A·c / max(‖A·c‖∞, 1)`` of
+    ``n_matvecs`` products runs once to warm up and once timed, on each
+    member's own chunk (``matvec.local``; the ∞-norm all-reduced).
+    Returns ``[(k, nnz_per_s, efficiency_vs_1)]``, the rows of
+    ``weak_scaling_report``."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from ..ops.sparse import CSR
+    from .sparse_dist import make_sharded_csr_matvec
+
+    ranks = (list(range(dist.get_world_size())) if devices is None
+             else [int(r) for r in devices])
+    me = dist.get_rank()
+    rng = np.random.default_rng(0)
+    results = []
+    base_rate = None
+    for k in device_counts:
+        if k > len(ranks):
+            break
+        mesh = create_mesh((k,), ("x",), devices=ranks[:k])
+        device = mesh_device(mesh)
+        n = rows_per_device * k
+        Ng = max(int(np.sqrt(n)), 2)
+        d = np.ones(n)
+        A = sp.diags([d * 4, -d[:-1], -d[:-1], -d[:-Ng], -d[:-Ng]],
+                     [0, 1, -1, Ng, -Ng], format="csr")
+        A.data = A.data * (1 + 0.1 * rng.standard_normal(A.nnz))
+        dt = 0.0
+        if me in ranks[:k]:
+            csr = CSR(torch.as_tensor(A.data, dtype=dtype, device=device),
+                      np.asarray(A.indices, np.int32),
+                      np.asarray(A.indptr, np.int32), (n, n))
+            mv = make_sharded_csr_matvec(csr, mesh, "x")
+            group = mesh.get_group("x")
+
+            def chain(v):
+                for _ in range(n_matvecs):
+                    w = mv.local(v)
+                    top = torch.max(torch.abs(w))
+                    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+                    v = w / torch.clamp_min(top, 1.0)
+                return v
+
+            v0 = torch.ones(mv.plan.chunk, dtype=dtype, device=device)
+            chain(v0)
+            _sync(device)
+            t0 = time.perf_counter()
+            chain(v0)
+            _sync(device)
+            dt = time.perf_counter() - t0
+        slowest = torch.tensor(dt, dtype=torch.float64, device=device)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+        dt = float(slowest)
+        rate = n_matvecs * A.nnz / dt
+        if base_rate is None:
+            base_rate = rate / k
+        results.append((k, rate, rate / (base_rate * k)))
+    return results

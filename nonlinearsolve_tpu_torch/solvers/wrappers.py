@@ -246,7 +246,7 @@ def PETScSNES(*, petsclib=None, autodiff=None, mpi_comm=None,
     ``qn`` → ``Broyden``; ``ksponly`` → plain ``NewtonRaphson``.
 
     PETSc's MPI distribution role (``mpi_comm``) belongs to
-    ``parallel.distributed_solve`` (ROADMAP A.31); the constructor drops
+    ``parallel.distributed_solve``; the constructor drops
     it with the notice.
     """
     snes_type = _sym(snes_options.pop("snes_type", None), "newtonls")

@@ -2321,3 +2321,69 @@ def test_double_f32_refinement_on_card(cuda):
         r = tnls.auto_refine(prob32, s32.u.cpu().to(d), rounds=4)
         refined.append(dfm.df_value_f64(r.u))
     assert np.abs(refined[0] - refined[1]).max() < 1e-12
+
+
+@pytest.mark.cuda
+def test_k5_on_sharded_csr_shard_tables_on_card(cuda):
+    """K5 on a shard's local CSR tables (``parallel/sparse_dist.py``: the
+    rebased row pointers, the columns remapped into the shard's x buffer,
+    the data's contiguous run) against its plain version, f64 and f32, for
+    each of 4 shards of a banded pattern in halo mode; one launch a
+    call."""
+    import scipy.sparse as sp
+
+    from nonlinearsolve_tpu_torch.ops import spmv
+    from nonlinearsolve_tpu_torch.parallel.sparse_dist import \
+        build_sharded_csr_plan
+    rng = np.random.default_rng(0)
+    N = 256
+    n = N * N
+    d = np.ones(n)
+    A = sp.diags([d * 4, -d[:-1], -d[:-1], -d[:-N], -d[:-N]],
+                 [0, 1, -1, N, -N], format="csr")
+    A.data = A.data * (1 + 0.1 * rng.standard_normal(A.nnz))
+    S = 4
+    plan = build_sharded_csr_plan(A.indptr, A.indices, n, S)
+    assert plan.mode == "halo"
+    x = rng.standard_normal(S * plan.chunk)
+    for dtype in ("float64", "float32"):
+        dt = TORCH_DT[dtype]
+        for s in range(S):
+            nnz = int(plan.shard_indptr[s, -1])
+            lo = s * plan.chunk - plan.hl
+            buf = x[np.arange(lo, lo + plan.buf_len) % x.size]
+            args = (torch.as_tensor(plan.shard_indptr[s].astype(np.int32),
+                                    device=cuda),
+                    torch.as_tensor(plan.seg_pos[s, :nnz], device=cuda),
+                    torch.as_tensor(A.data[plan.seg_src[s, :nnz]],
+                                    dtype=dt, device=cuda),
+                    torch.as_tensor(buf, dtype=dt, device=cuda))
+            before = _backend.LAUNCHES["gather_spmv"]
+            got = spmv.gather_spmv(*args)
+            torch.cuda.synchronize()
+            assert _backend.LAUNCHES["gather_spmv"] == before + 1
+            _close(got, spmv.gather_spmv_plain(*args), dtype)
+            rows = slice(s * plan.chunk, (s + 1) * plan.chunk)
+            _close(got, torch.as_tensor(A[rows] @ x[:n]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc,smoother", [("periodic", "jacobi"),
+                                         ("dirichlet", "chebyshev")])
+def test_multigrid_on_card_matches_cpu(cuda, bc, smoother):
+    """``multigrid_preconditioner`` on a CUDA tensor against the same
+    apply on the CPU: rel-inf 1e-12 in f64, 2D (256²) and 3D (64³), c a
+    field."""
+    from nonlinearsolve_tpu_torch.ops.multigrid import \
+        multigrid_preconditioner
+    for shape in ((256, 256), (64, 64, 64)):
+        rng = np.random.default_rng(len(shape))
+        c = torch.as_tensor(1.0 + 2.0 * rng.random(shape))
+        v = torch.as_tensor(rng.standard_normal(shape))
+        kw = dict(c=c, bc=bc, smoother=smoother, cycles=2)
+        ref = multigrid_preconditioner(shape, 10.0, 1.0 / shape[0], **kw)(v)
+        kw["c"] = c.to(cuda)
+        got = multigrid_preconditioner(shape, 10.0, 1.0 / shape[0], **kw)(
+            v.to(cuda))
+        assert got.device.type == "cuda"
+        _close(got, ref, "float64")

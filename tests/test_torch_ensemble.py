@@ -193,9 +193,23 @@ def test_ensemble_options_refused():
     with pytest.raises(NotImplementedError, match="maxtime"):
         tnls.solve_ensemble(prob, tnls.NewtonRaphson(), ps=_t([1.0, 2.0]),
                             maxtime=1.0)
-    with pytest.raises(NotImplementedError, match="A.29"):
-        tnls.solve_ensemble(prob, tnls.NewtonRaphson(), ps=_t([1.0, 2.0]),
-                            mesh=object())
+    # mesh= (ROADMAP A.29) runs: on a one-rank gloo mesh the
+    # rows are the unsharded ensemble's, as DTensors
+    import torch.distributed as dist
+
+    from nonlinearsolve_tpu_torch.parallel import create_mesh
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        sharded = tnls.solve_ensemble(
+            prob, tnls.NewtonRaphson(), ps=_t([1.0, 2.0]),
+            mesh=create_mesh(axis_names=("batch",)))
+        plain = tnls.solve_ensemble(prob, tnls.NewtonRaphson(),
+                                    ps=_t([1.0, 2.0]))
+        assert torch.equal(sharded.u.full_tensor(), plain.u)
+        assert torch.equal(sharded.retcode.full_tensor(), plain.retcode)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="u0s and/or ps"):
         tnls.solve_ensemble(prob, tnls.NewtonRaphson())
     with pytest.raises(TypeError, match="ensemble"):

@@ -140,13 +140,51 @@ def test_k11_cpu_path_launches_no_kernel():
 
 
 def test_parallel_names_still_open_raise():
+    """The four names that raised until ROADMAP A.31 run on a one-rank
+    gloo group: the plan, the sharded matvec, ``distributed_solve`` and
+    the sparse weak-scaling report."""
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
     from nonlinearsolve_tpu_torch import parallel
+    from nonlinearsolve_tpu_torch.ops.sparse import CSR
     from nonlinearsolve_tpu_torch.parallel import scaling
-    for fn in (parallel.distributed_solve, parallel.build_sharded_csr_plan,
-               parallel.make_sharded_csr_matvec,
-               scaling.weak_scaling_sparse_report):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.31"):
-            fn(None)
+
+    A = sp.random(40, 40, density=0.1, random_state=0, format="csr") \
+        + 4.0 * sp.identity(40, format="csr")
+    plan = parallel.build_sharded_csr_plan(A.indptr, A.indices, 40, 1)
+    assert (plan.n, plan.chunk, plan.mode) == (40, 40, "allgather")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.create_mesh()
+        mv = parallel.make_sharded_csr_matvec(
+            CSR(torch.tensor(A.data), A.indices, A.indptr, (40, 40)), mesh)
+        x = np.arange(40.0)
+        np.testing.assert_allclose(mv(torch.tensor(x)).full_tensor().numpy(),
+                                   A @ x, rtol=1e-13)
+        sol = parallel.distributed_solve(
+            _sqrt_problem(), _gmres_newton(), mesh, abstol=1e-12)
+        assert int(sol.retcode) == 1
+        np.testing.assert_allclose(sol.u.full_tensor().numpy(),
+                                   np.sqrt([1.0, 2.0, 3.0, 4.0]), rtol=1e-12)
+        rows = scaling.weak_scaling_sparse_report([1], rows_per_device=64,
+                                                  n_matvecs=2)
+        assert len(rows) == 1 and rows[0][0] == 1 and rows[0][1] > 0
+    finally:
+        dist.destroy_process_group()
+
+
+def _sqrt_problem():
+    import nonlinearsolve_tpu_torch as tnls
+    return tnls.NonlinearProblem(
+        lambda u, p: u * u - p, torch.ones(4, dtype=torch.float64),
+        torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.float64))
+
+
+def _gmres_newton():
+    import nonlinearsolve_tpu_torch as tnls
+    return tnls.NewtonRaphson(linsolve=tnls.LinearSolver(method="gmres"))
 
 
 # ---------------------------------------------------------------------------
