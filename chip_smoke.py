@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``nonlinearsolve_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--log PATH] [--only 19,20,21,22,23,24,25,26,27]
+    python3 chip_smoke.py [--log PATH] [--only 19,20,...,28]
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a); exits
 non-zero without one, and without the package beside it.  Each phase
 prints one JSON line (``--log`` also appends every line to PATH); a failed
 check raises, so the script exits non-zero.  ``--only`` runs phases 1
-and 2, then the listed phases of 19–27 alone, each timed, on the set-up
+and 2, then the listed phases of 19–28 alone, each timed, on the set-up
 they take from earlier phases rebuilt (``only_phases``), and prints no
 result line.
 
@@ -174,9 +174,9 @@ result line.
    the same N (tests/test_golden_models.py:48-70's ladder), no custom
    kernel launched.  Then NewtonRaphson at N=64 (8192 unknowns, a 512 MiB
    Jacobian; abstol 1e-9, above the f64 floor of |F| there).  For each
-   run: the warm wall (median of 3; LevenbergMarquardt, 15.8 s a solve,
-   takes no warm solve: its first solve is the profiled one, so that the
-   script keeps its time with phases 23–26), NLStats,
+   run: the warm wall (median of 3; LevenbergMarquardt, 16 s a solve,
+   takes one solve, timed and not profiled: the profiler's processing of
+   it took another minute, cut for phase 28's time), NLStats,
    host syncs, the device time by class
    (the Jacobian's batched residual, timed alone; the dense linear algebra
    by kernel name; the rest) and the idle share;
@@ -203,7 +203,8 @@ result line.
    ConvergenceFailure, MaxIters; the diverging Broyden and
    LimitedMemoryBroyden runs may also end as the JAX package's own run
    does from a start one ulp away: Stalled, Unstable), and their steps,
-   residuals and warm walls (one warm solve each); (d) the quasi-Newton / polyalgorithm rows of
+   residuals and first-solve walls (the warm re-runs cut for time);
+   (d) the quasi-Newton / polyalgorithm rows of
    tests/test_23_problems.py CASES on the 23 problems (f64, maxiters
    10000, ‖f(u*)‖∞ ≤ 1e-4), each case that takes under 1000 steps in the
    JAX package on its CASES side, and the two n = 64 rows
@@ -245,8 +246,9 @@ result line.
    linspace(0.5, 10): roots within 1e-8 of √p; (e) the eight bracketing
    methods on u² − p over (0.1, 5.0) for the same p: every code
    successful, roots within 1e-8 of √p, and ModAB's implicit-function
-   derivative du/dp within rel 1e-8 of 1/(2√p).  In (b)–(d) 64 seeded rows
-   are solved alone (B = 1): the batch's retcode and a root within rel-inf
+   derivative du/dp within rel 1e-8 of 1/(2√p).  In (b) and (c) 16
+   seeded rows (cut from 64 for time), in (d) 64, are solved
+   alone (B = 1): the batch's retcode and a root within rel-inf
    1e-10, and the NLStats for the Jacobian engines (the secant engines'
    differences are counted); every row that reports Success has |F|_inf
    ≤ abstol.  Each run: warm wall (the profiled run's),
@@ -350,7 +352,7 @@ result line.
    Krylov iterations, ‖Jᵀr‖∞ down 1e-8 or more from u0's.  (e) The polynomial drivers: the JAX tests'
    systems (the cubic, the 2×2 system, the parametrised polynomial,
    Wilkinson-6) with the root sets of the port's CPU run within 1e-10; a
-   seeded dense quadratic system with n = 10 (1024 total-degree paths in
+   seeded dense quadratic system with n = 9 (512 total-degree paths in
    one lockstep batch, one γ): paths, steps, host reads, distinct roots
    (equal to the port's CPU run, which a second process of this script
    computes meanwhile: ``--poly-reference``), the largest root residual,
@@ -427,13 +429,44 @@ result line.
    ``solve_ensemble(mesh=)`` of phase 22's problem-9 batch (262,144
    starts, SimpleNewtonRaphson): every row bit for bit the unsharded
    ensemble's;
-28. the kernels line (each SpMV kernel's row with its reverse rule's
+28. lockstep first-order ensembles and the AOT round trip, f64, counters
+   at 0 just before each run (``--only 28`` runs it alone).  (a) The
+   23-problem #9 (n = 10) from 65,536 seeded starts under NewtonRaphson,
+   NewtonRaphson with BackTracking, TrustRegion (simple and Fan),
+   LevenbergMarquardt and the default ladder (``solve_ensemble`` with no
+   algorithm: Broyden, Klement, then the Newton rungs); (b) the 8×8 dense
+   Brusselator (128 unknowns) over 1024 seeded values of A under
+   NewtonRaphson, TrustRegion and the default ladder at abstol 1e-10
+   (phase 18's; the residual's floor is about 1e-12; the default
+   ladder's rows take about 1000 steps, so 8 are solved alone, and a row
+   whose NLStats part from its lone solve's must take them, with its
+   retcode and root, when the batch's products, dots and norms are taken
+   one row at a time (``rows_one_by_one``, the witness that the batched
+   products' rounding moved Broyden's stop), where the reads must not
+   depend on the rows' count; the 64-row and 1024-row reads are not
+   taken).  Before (a), one profiled run is read from the profiler's raw
+   events and through ``key_averages()``: the two busy times must agree
+   (every profile of the script reads the raw events).  Each run: the
+   route ``lockstep``, no
+   kernel launched, Success rows at |F|∞ ≤ abstol, the warm wall, the
+   idle share, the slowest row's steps and the host reads a run, equal
+   for 64 rows and for the same rows 16 times over (the rows within
+   1e-12: cuBLAS's batched products may round otherwise at another batch
+   size); 64 seeded rows
+   solved alone give the batch row's retcode and NLStats and a root
+   within 1e-12 rel-inf, their time beside the batch's.  (c)
+   ``export_solver`` of NewtonRaphson on the N = 32 dense Brusselator,
+   ``deserialize_solver``, a call on the card with a fresh p: bit for
+   bit ``solve``'s; the ``batch="b"`` artifact at two batch sizes, each
+   row within 1e-12 of its lone solve;
+29. the kernels line (each SpMV kernel's row with its reverse rule's
    numbers from 23 (c), K1, K4 and the selection with their launches
    in phase 26, and K5's row with its launches and time on the sharded
    matvec of 27 (c)), then ``{"ok": true, "device": {...}}`` as the last
    line.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -622,7 +655,9 @@ BRATU_REFINE = {"N": 128, "abstol32": 1e-2, "rounds": 4, "restart": 32,
                 "krylov_maxiter": 400}
 # phase 25 (e): the seeded quadratic system's size (2^n total-degree
 # paths) and the seed of its coefficients
-POLY_N, POLY_SEED = 10, 0
+# 512 paths, cut from 1024 for time: on the H100 the CPU reference of
+# 1024 took 82 s, and the phase waited 34 s for it
+POLY_N, POLY_SEED = 9, 0
 LOG = {"path": None}
 
 
@@ -693,6 +728,42 @@ def roofline_ms(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def device_ms_by_kernel(torch, prof):
+    """{kernel name: device ms} of a finished ``torch.profiler.profile``,
+    summed over its device events (kernels, copies, sets) as read from the
+    profiler's raw events.  ``key_averages()`` sums the same durations but
+    first builds a Python event a record, which takes tens of seconds for a
+    run of 10⁵ kernels (the lockstep default ladder's 1065 steps)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda or ev.duration_ns() <= 0:
+            continue
+        out[ev.name()] = out.get(ev.name(), 0.0) + ev.duration_ns() / 1e6
+    return out
+
+
+def device_time_sources_agree(torch, run, card):
+    """One profiled ``run()`` read both ways: ``device_ms_by_kernel`` and
+    ``key_averages()``'s CUDA events.  Emits both busy times; True when
+    they agree within 1e-6 relative."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    raw = sum(device_ms_by_kernel(torch, prof).values())
+    t0 = time.perf_counter()
+    avg = sum((getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+              for ev in prof.key_averages()
+              if str(ev.device_type).endswith("CUDA"))
+    avg_s = time.perf_counter() - t0
+    ok = raw > 0 and abs(raw - avg) <= 1e-6 * avg
+    emit({"phase": "device_time_sources", "raw_events_busy_ms": raw,
+          "key_averages_busy_ms": avg, "key_averages_s": avg_s, "ok": ok,
+          "card": card})
+    return ok
+
+
 def profile_device(torch, run, groups=None, host_events=True):
     """Run ``run()`` once under torch.profiler: its wall time, the device's
     busy time (summed kernel time), the device time by ``groups``
@@ -711,14 +782,7 @@ def profile_device(torch, run, groups=None, host_events=True):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0)) or 0
-        if dt > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
+    kernels = device_ms_by_kernel(torch, prof)
     busy_ms = sum(kernels.values())
     by_group = {}
     for key, ms in kernels.items():
@@ -1871,66 +1935,59 @@ DENSE_GROUPS = {"dense linear algebra": (
 
 
 def dense_run_report(torch, nls, _backend, name, prob, alg, jac_fn,
-                     card, profile_first=False, **kw):
+                     card, profile=True, **kw):
     """One dense solve: counters at 0 just before and read just after, the
-    first solve timed, then the warm wall (median of 3), the device time
-    by class (the Jacobian timed alone × njacs; the dense linear algebra by
-    kernel name; the rest) and the idle share of a profiled solve — with
-    ``profile_first`` (a solve of many seconds) the counted first solve is
-    the profiled one, and no warm solve is run."""
+    first solve timed; with ``profile`` then the warm wall (median of 3),
+    the device time by class (the Jacobian timed alone × njacs; the dense
+    linear algebra by kernel name; the rest) and the idle share of a
+    profiled warm solve. With ``profile=False`` only the first solve runs
+    (the profiler's event processing of a solve of many seconds takes
+    minutes)."""
     t_report = time.perf_counter()
     torch.cuda.synchronize()
     _backend.reset_counters()
-    box = {}
-
-    def first():
-        box["sol"] = nls.solve(prob, alg, **kw)
-    if profile_first:
-        prof = profile_device(torch, first, groups=DENSE_GROUPS,
-                              host_events=False)
-        first_s = ("not measured apart: the first solve is the profiled "
-                   "one (profiled_solve_s, with the profiler's overhead)")
-    else:
-        t0 = time.perf_counter()
-        first()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-    sol = box["sol"]
+    t0 = time.perf_counter()
+    sol = nls.solve(prob, alg, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
     launches = {k: v for k, v in _backend.LAUNCHES.items() if v}
     if sol.retcode != nls.ReturnCode.Success:
         raise AssertionError(f"dense {name}: {sol.retcode.name}")
-    walls = ([] if profile_first else
-             warm_walls(torch, lambda: nls.solve(prob, alg, **kw)))
-    if not profile_first:
-        prof = profile_device(torch, lambda: nls.solve(prob, alg, **kw),
-                              groups=DENSE_GROUPS, host_events=False)
-    # the Jacobian's kernels alone, one evaluation, × the Jacobians
-    jac = profile_device(torch, lambda: jac_fn(sol.u), groups={},
-                         host_events=False)
-    jac_ms = (jac["device_busy_ms"] * sol.stats.njacs
-              if isinstance(jac["device_busy_ms"], float) else "not measured")
-    by_class = dict(prof["device_ms_by_group"])
-    if isinstance(jac_ms, float):
-        by_class["jacobian (batched residual, timed alone x njacs)"] = jac_ms
-        by_class["the rest"] = by_class.pop("other", 0.0) - jac_ms
     rec = {"phase": "dense_brusselator", "run": name,
            "n": int(prob.u0.numel()), "retcode": sol.retcode.name,
            "resid_inf": float(sol.resid.abs().max()),
            "stats": vars(sol.stats),
            "host_syncs": sol.counters["host_syncs"],
-           "custom_kernel_launches": launches, "first_solve_s": first_s,
-           "warm_wall_s": walls,
-           "warm_wall_s_median": (sorted(walls)[len(walls) // 2] if walls
-                                  else "not measured (the first solve "
-                                       "profiled, no warm solve)"),
-           "device_ms_by_class": by_class,
-           "device_busy_ms": prof["device_busy_ms"],
-           "device_idle_share": prof["device_idle_share"],
-           "profiled_solve_s": prof["profiled_solve_s"],
-           "profiled_solve": ("first (first-call costs included)"
-                              if profile_first else "warm"),
-           "top_device_ms": prof["top_device_ms"],
-           "report_s": time.perf_counter() - t_report, "card": card}
+           "custom_kernel_launches": launches, "first_solve_s": first_s}
+    if profile:
+        walls = warm_walls(torch, lambda: nls.solve(prob, alg, **kw))
+        prof = profile_device(torch, lambda: nls.solve(prob, alg, **kw),
+                              groups=DENSE_GROUPS, host_events=False)
+        # the Jacobian's kernels alone, one evaluation, × the Jacobians
+        jac = profile_device(torch, lambda: jac_fn(sol.u), groups={},
+                             host_events=False)
+        jac_ms = (jac["device_busy_ms"] * sol.stats.njacs
+                  if isinstance(jac["device_busy_ms"], float)
+                  else "not measured")
+        by_class = dict(prof["device_ms_by_group"])
+        if isinstance(jac_ms, float):
+            by_class["jacobian (batched residual, timed alone x njacs)"] = \
+                jac_ms
+            by_class["the rest"] = by_class.pop("other", 0.0) - jac_ms
+        rec.update({"warm_wall_s": walls,
+                    "warm_wall_s_median": sorted(walls)[len(walls) // 2],
+                    "device_ms_by_class": by_class,
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "device_idle_share": prof["device_idle_share"],
+                    "profiled_solve_s": prof["profiled_solve_s"],
+                    "profiled_solve": "warm",
+                    "top_device_ms": prof["top_device_ms"]})
+    else:
+        unmeasured = "not measured (one solve, not profiled, for time)"
+        rec.update({"warm_wall_s_median": unmeasured,
+                    "device_ms_by_class": unmeasured,
+                    "device_idle_share": unmeasured})
+    rec.update({"report_s": time.perf_counter() - t_report, "card": card})
     emit(rec)
     if launches:
         raise AssertionError(f"dense {name} launched custom kernels: "
@@ -1979,12 +2036,12 @@ def dense_brusselator_phase(torch, nls, _backend, brusselator,
     for name, (alg, abstol) in algs.items():
         # LM's step is a 4096×2048 SVD (about 0.5 s): a cap on its steps
         # bounds the phase if it ever left its 28-step course; its one
-        # solve (15.8 s) is the profiled one
+        # solve (15.8 s) is timed, not profiled
         lm = name == "LevenbergMarquardt"
         sol = dense_run_report(torch, nls, _backend, name, prob, alg,
                                jac_fn, card, abstol=abstol,
                                maxiters=60 if lm else 1000,
-                               profile_first=lm)
+                               profile=not lm)
         dists[name] = {k: float((sol.u - r).abs().max())
                        for k, r in refs.items()}
         roots[name] = sol.u
@@ -2236,7 +2293,6 @@ def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
         alg = getattr(nls, name)()
         run = lambda: nls.solve(bprob, alg, abstol=1e-10)  # noqa: E731
         sol, first_s, launches = counted(run)
-        walls = warm_walls(torch, run, count=1)
         on_edge = edge is not None and sol.retcode.name == edge[1]
         ok = (sol.retcode.name == want or on_edge) and not launches
         emit({"phase": "qn_engine_dense_brusselator", "engine": name,
@@ -2248,8 +2304,11 @@ def qn_polyalg_phase(torch, nls, _backend, brusselator, nr_root, card):
               "host_syncs": sol.counters["host_syncs"],
               "host_syncs_per_step": sol.counters["host_syncs"]
               / max(sol.stats.nsteps, 1),
-              "first_solve_s": first_s, "warm_wall_s_one": walls[0],
-              "ms_per_step": 1e3 * walls[0] / max(sol.stats.nsteps, 1),
+              "first_solve_s": first_s,
+              "warm_wall_s_one": "not measured (one solve, for time)",
+              "ms_per_step": "not measured (no warm solve, for time)",
+              "first_solve_ms_per_step":
+                  1e3 * first_s / max(sol.stats.nsteps, 1),
               "ok": ok, "card": card})
         if not ok:
             failed.append(f"{name} alone at N=32")
@@ -2794,6 +2853,7 @@ BATCH_GROUPS = {
         "elementwise", "vectorized", "unrolled", "copy", "fill", "index",
         "cat", "scatter", "arange")}
 LONE_CHECKS = 64
+LONE_CHECKS_22 = 16   # (b) and (c), cut from 64 for the script's time
 
 
 def _stats_dict(stats, i=None):
@@ -2925,7 +2985,7 @@ def batched_tier_phase(torch, nls, _backend, card):
     tp9 = p23.PROBLEMS_23[8]
     U0 = starts(tp9.start, B, 9)
     base = nls.NonlinearProblem(tp9.f, U0[0])
-    rows = pick.choice(B, LONE_CHECKS, replace=False)
+    rows = pick.choice(B, LONE_CHECKS_22, replace=False)
     for name, (make, jacobian) in _batch_engines(nls).items():
         run = lambda: nls.solve_ensemble(base, make(), u0s=U0,  # noqa: E731
                                          maxiters=200)
@@ -2939,7 +2999,7 @@ def batched_tier_phase(torch, nls, _backend, card):
         emit({"phase": "batched_problem9", "engine": name, "n": 10,
               "maxiters": 200,
               "retcodes": codes, "success_resid_inf_max": worst,
-              "abstol": abstol, "lone_checked": LONE_CHECKS,
+              "abstol": abstol, "lone_checked": LONE_CHECKS_22,
               "lone_failures": bad, "lone_stats_differences": len(diffs),
               "lone_stats_difference_examples": diffs[:3],
               "lone_seconds": lone_s, **rec, "ok": ok})
@@ -2959,14 +3019,14 @@ def batched_tier_phase(torch, nls, _backend, card):
     codes = dict(zip(*[t_.tolist() for t_ in torch.unique(
         sol.retcode, return_counts=True)]))
     resid_ok, worst = success_resid_ok(p23._discrete_integral, sol)
-    rows = pick.choice(B, LONE_CHECKS, replace=False)
+    rows = pick.choice(B, LONE_CHECKS_22, replace=False)
     bad, diffs, lone_s = lone_checks(torch, nls, make, base, U0, sol, rows,
                                      False)
     ok = resid_ok and not bad and not rec["custom_kernel_launches"]
     emit({"phase": "batched_problem10_n64",
           "engine": "SimpleLimitedMemoryBroyden", "n": 64, "ring": 27,
           "retcodes": codes, "success_resid_inf_max": worst,
-          "lone_checked": LONE_CHECKS, "lone_failures": bad,
+          "lone_checked": LONE_CHECKS_22, "lone_failures": bad,
           "lone_stats_differences": len(diffs),
           "lone_stats_difference_examples": diffs[:3],
           "lone_seconds": lone_s, **rec, "ok": ok})
@@ -4932,9 +4992,323 @@ def polish_setup(torch, nls, brusselator, fft_poisson_preconditioner, N,
     return prob64, alg64
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: lockstep first-order engines and ladders for ensembles, and the
+# AOT round trip (see the module docstring).
+LOCKSTEP_ROWS = 64
+LOCKSTEP_P9_B = 65536          # (a): problem 9's starts
+LOCKSTEP_BRUSSELATOR_B = 1024  # (b): the 8×8 Brusselator's values of A
+LADDER_LONE_ROWS = 8           # (b): the default ladder's rows solved alone
+
+
+def _lockstep_engines(nls):
+    return {
+        "NewtonRaphson": nls.NewtonRaphson,
+        "NewtonRaphson+BackTracking": lambda: nls.NewtonRaphson(
+            linesearch=nls.BackTracking()),
+        "TrustRegion": nls.TrustRegion,
+        "TrustRegion-Fan": lambda: nls.TrustRegion(
+            radius_update_scheme="fan"),
+        "LevenbergMarquardt": nls.LevenbergMarquardt,
+        "default ladder": lambda: None,
+    }
+
+
+@contextlib.contextmanager
+def rows_one_by_one():
+    """The lockstep engines with every product and norm taken one row at a
+    time, as the lone engines take it: ``core/lockstep.py``'s CPU branch
+    (each row's own gemv and dot) applied to CUDA tensors, and the rows'
+    norms and dots of ``solvers/first_order_lockstep.py`` and
+    ``core/termination.py`` one row at a time.  Under it a lockstep row
+    rounds as its lone solve does but for the batched residual and square
+    solves: the witness that tells the batched products' rounding from a
+    defect of the batch."""
+    import torch
+    from nonlinearsolve_tpu_torch.core import termination as trm
+    from nonlinearsolve_tpu_torch.solvers import first_order_lockstep as fol
+
+    def norm_rows(name, x):
+        order = float("inf") if name == "linf" else 2
+        return torch.stack([torch.linalg.vector_norm(r, ord=order)
+                            for r in x])
+    swaps = [
+        (fol, "rows_matvec",
+         lambda A, x: torch.stack([a @ v for a, v in zip(A, x)])),
+        (fol, "rows_vecmat",
+         lambda x, A: torch.stack([v @ a for v, a in zip(x, A)])),
+        (fol, "rows_dot",
+         lambda a, b: torch.stack([torch.dot(x, y) for x, y in zip(a, b)])),
+        (fol, "_dot",
+         lambda a, b: torch.stack([(x * y).sum() for x, y in zip(a, b)])),
+        (fol, "_l2", lambda x: norm_rows("l2", x)),
+        (trm, "_rows_norm", norm_rows)]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+
+
+def _lockstep_run(torch, nls, _backend, name, make, base, card, u0s=None,
+                  ps=None, f=None, abstol=3.0e-13, lone_rows=None,
+                  witness=False):
+    """One lockstep ensemble on the card: its report, the reads at 64 rows
+    and at those rows 16 times over, and the ``lone_rows``
+    solved alone, each with the batch row's retcode, NLStats and a root
+    within 1e-12.  With ``witness`` (a run of about a thousand steps,
+    where the batched products' rounding may move a stop) a row whose
+    batch NLStats part from its lone solve's passes only if, run again
+    with the other parting rows as one lockstep batch under
+    ``rows_one_by_one``, it has its lone NLStats, retcode and a root
+    within 1e-12; the first two of those rows (two lone rows when none
+    part) are also run twice over there, with the same reads and rows
+    within 1e-12, and two parting rows as lockstep batches of one row
+    (recorded).  The 64-row and 1024-row reads are then not taken.
+    Returns (the record, whether its checks held, the solution)."""
+    kw = {"abstol": abstol}
+    batch = u0s if u0s is not None else ps
+    B = batch.shape[0]
+
+    def ens(rows=None):
+        pick = (lambda x: x) if rows is None else (lambda x: x[rows])
+        return nls.solve_ensemble(
+            base, make(), u0s=None if u0s is None else pick(u0s),
+            ps=None if ps is None else pick(ps), **kw)
+
+    sol, rec = batched_run_report(torch, _backend, ens, name, B, card)
+    codes = dict(zip(*[t.tolist() for t in torch.unique(
+        sol.retcode, return_counts=True)]))
+    ok_rows = sol.retcode == int(nls.ReturnCode.Success)
+    worst = (float(torch.func.vmap(f)(sol.u[ok_rows], *(
+        () if ps is None else (ps[ok_rows],))).abs().max())
+        if bool(ok_rows.any()) else 0.0)
+    reads = {"host_reads_64_rows": "not measured",
+             "host_reads_1024_rows": "not measured"}
+    reads_equal, tiled_equal, tiled_rel = True, None, 0.0
+    rows = torch.as_tensor(lone_rows, device=batch.device)
+    if not witness:
+        small = ens(rows)
+        big = ens(rows.repeat(16))
+        reads = {"host_reads_64_rows": small.counters["host_syncs"],
+                 "host_reads_1024_rows": big.counters["host_syncs"]}
+        reads_equal = (reads["host_reads_64_rows"]
+                       == reads["host_reads_1024_rows"])
+        # cuBLAS's batched products may round otherwise at another batch
+        # size
+        tiled_u = small.u.repeat((16,) + (1,) * (small.u.dim() - 1))
+        tiled_equal = bool(torch.equal(big.u, tiled_u))
+        tiled_rel = _rel_inf(big.u.reshape(-1), tiled_u.reshape(-1))
+    lones, t0 = [], time.perf_counter()
+    for i in lone_rows:
+        lones.append(nls.solve(base.remake(
+            u0=base.u0 if u0s is None else u0s[i],
+            p=base.p if ps is None else ps[i]), make(), **kw))
+    torch.cuda.synchronize()
+    lone_s = time.perf_counter() - t0
+    bad, diffs = [], []
+    for k, (i, lone) in enumerate(zip(lone_rows, lones)):
+        rel = _rel_inf(lone.u.reshape(-1), sol.u[i].reshape(-1))
+        row = {"row": int(i), "lone": int(lone.retcode),
+               "batch": int(sol.retcode[i]), "rel_inf": rel,
+               "lone_stats": _stats_dict(lone.stats),
+               "batch_stats": _stats_dict(sol.stats, i)}
+        if row["lone_stats"] != row["batch_stats"]:
+            diffs.append(k)
+        if int(lone.retcode) != int(sol.retcode[i]) or not rel <= 1e-12:
+            bad.append(row)
+        elif row["lone_stats"] != row["batch_stats"] and not witness:
+            bad.append(row)
+    out = {"route": sol.counters["ensemble_route"], "retcodes": codes,
+           "success_resid_inf_max": worst, "abstol": abstol,
+           **reads, "tiled_rows_bit_equal": tiled_equal,
+           "tiled_rows_rel_inf": tiled_rel,
+           "lone_checked": len(lone_rows),
+           "lone_stats_differences": len(diffs),
+           "lone_stats_difference_examples": [
+               {"row": int(lone_rows[k]),
+                "lone": _stats_dict(lones[k].stats),
+                "batch": _stats_dict(sol.stats, lone_rows[k])}
+               for k in diffs[:4]],
+           "lone_seconds": lone_s,
+           "lone_seconds_per_row": lone_s / len(lone_rows),
+           "batch_seconds_per_row": rec["warm_wall_s_one"] / B}
+    if witness:
+        # the parting rows (else two lone rows, for the reads) one row at a
+        # time; the first two of them also twice over
+        t1 = time.perf_counter()
+        wk = diffs or list(range(min(2, len(lone_rows))))
+        wrows = rows[wk]
+        with rows_one_by_one():
+            one = ens(wrows)
+            pair = one if len(wk) <= 2 else ens(wrows[:2])
+            two = ens(wrows[:2].repeat(2))
+        w_bad, w_bits = [], 0
+        for j, k in enumerate(wk):
+            lone = lones[k]
+            got = {"row": int(lone_rows[k]), "lone": int(lone.retcode),
+                   "witness": int(one.retcode[j]),
+                   "rel_inf": _rel_inf(lone.u.reshape(-1),
+                                       one.u[j].reshape(-1)),
+                   "lone_stats": _stats_dict(lone.stats),
+                   "witness_stats": _stats_dict(one.stats, j)}
+            w_bits += bool(torch.equal(lone.u.reshape(-1),
+                                       one.u[j].reshape(-1)))
+            if (got["lone"] != got["witness"] or not got["rel_inf"] <= 1e-12
+                    or got["lone_stats"] != got["witness_stats"]):
+                w_bad.append(got)
+        w_reads = [pair.counters["host_syncs"], two.counters["host_syncs"]]
+        w_twice_rel = _rel_inf(two.u.reshape(-1),
+                               torch.cat([pair.u, pair.u]).reshape(-1))
+        w_s = time.perf_counter() - t1
+        # two parting rows as lockstep batches of one row (not one by one)
+        b1 = {}
+        for k in diffs[:2]:
+            s1 = ens(rows[k:k + 1])
+            b1[int(lone_rows[k])] = {
+                "stats": _stats_dict(s1.stats, 0),
+                "equal_lone_stats": (_stats_dict(s1.stats, 0)
+                                     == _stats_dict(lones[k].stats)),
+                "bit_equal_lone": bool(torch.equal(
+                    s1.u[0].reshape(-1), lones[k].u.reshape(-1)))}
+        out.update({
+            "witness_rows_one_by_one": {
+                "rows": [int(lone_rows[k]) for k in wk],
+                "failures": w_bad[:4], "failure_count": len(w_bad),
+                "roots_bit_equal_lone": w_bits,
+                "host_reads_two_rows_and_twice": w_reads,
+                "twice_rows_rel_inf": w_twice_rel,
+                "seconds": w_s},
+            "parting_rows_at_B1": b1})
+        bad += w_bad
+        reads_equal = w_reads[0] == w_reads[1] and w_twice_rel <= 1e-12
+    ok = (out["route"] == "lockstep" and not rec["custom_kernel_launches"]
+          and worst <= abstol and reads_equal and tiled_rel <= 1e-12
+          and not bad)
+    out.update({"lone_failures": bad[:3], "lone_failure_count": len(bad),
+                **rec, "ok": ok})
+    return out, ok, sol
+
+
+def lockstep_phase(torch, nls, _backend, brusselator, card):
+    """Phase 28 (see the module docstring)."""
+    import numpy as np
+    from nonlinearsolve_tpu_torch.models import problems23 as p23
+    dev, f64 = torch.device("cuda"), torch.float64
+    t_phase = time.perf_counter()
+    failed = []
+    pick = np.random.default_rng(2819)
+
+    # (a) problem 9, n = 10, 65,536 seeded starts
+    B = LOCKSTEP_P9_B
+    tp9 = p23.PROBLEMS_23[8]
+    xi = np.random.default_rng(28).uniform(-1.0, 1.0, size=(B, 10))
+    U0 = torch.tensor(tp9.start * (1.0 + 0.5 * xi), dtype=f64, device=dev)
+    base = nls.NonlinearProblem(tp9.f, U0[0])
+    rows = sorted(pick.choice(B, LOCKSTEP_ROWS, replace=False).tolist())
+    # the profiles read the raw events: held once against key_averages()
+    if not device_time_sources_agree(torch, lambda: nls.solve_ensemble(
+            base, nls.NewtonRaphson(), u0s=U0[:4096]), card):
+        failed.append("device time sources")
+    for name, make in _lockstep_engines(nls).items():
+        t0 = time.perf_counter()
+        rec, ok, sol = _lockstep_run(torch, nls, _backend, name, make, base,
+                                     card, u0s=U0, f=tp9.f, lone_rows=rows)
+        emit({"phase": "lockstep_problem9", "engine": name, "n": 10,
+              "seconds": time.perf_counter() - t0, **rec})
+        if not ok:
+            failed.append(f"(a) {name}")
+        del sol
+
+    # (b) the 8×8 dense Brusselator (128 unknowns) over 1024 values of A
+    B = LOCKSTEP_BRUSSELATOR_B
+    bp = brusselator.make_problem(8, f64, device=dev)
+    ps = bp.p[None, :].repeat(B, 1)
+    ps[:, 0] = torch.tensor(np.random.default_rng(281).uniform(2.5, 4.5, B),
+                            dtype=f64, device=dev)
+    rows = sorted(pick.choice(B, LOCKSTEP_ROWS, replace=False).tolist())
+    f_b = brusselator.brusselator_2d
+    for name, make in _lockstep_engines(nls).items():
+        if name not in ("NewtonRaphson", "TrustRegion", "default ladder"):
+            continue
+        # the default ladder's rows take about 1000 steps (Broyden ends
+        # Unstable or Stalled after 20-60, Klement at its 1000), 1.7-2.6 s
+        # a row alone: 8 rows are checked, and the batched products'
+        # rounding, which may move Broyden's stop, is told from a defect
+        # by the witness (``rows_one_by_one``)
+        ladder = name == "default ladder"
+        t0 = time.perf_counter()
+        rec, ok, sol = _lockstep_run(
+            torch, nls, _backend, name, make, bp, card, ps=ps, f=f_b,
+            abstol=1e-10, lone_rows=rows[:LADDER_LONE_ROWS] if ladder
+            else rows, witness=ladder)
+        emit({"phase": "lockstep_brusselator8", "engine": name, "n": 128,
+              "seconds": time.perf_counter() - t0, **rec})
+        if not ok:
+            failed.append(f"(b) {name}")
+        del sol
+    del ps
+
+    # (c) the AOT round trip: NewtonRaphson on the N = 32 dense Brusselator
+    prob = brusselator.make_problem(32, f64, device=dev)
+    t0 = time.perf_counter()
+    data = nls.export_solver(prob, nls.NewtonRaphson(), abstol=1e-10)
+    export_s = time.perf_counter() - t0
+    solver = nls.deserialize_solver(data)
+    p2 = prob.p.clone()
+    p2[0] = 3.1
+    _backend.reset_counters()
+    got = solver(prob.u0, p2)
+    torch.cuda.synchronize()
+    walls = warm_walls(torch, lambda: solver(prob.u0, p2))
+    ref = nls.solve(prob.remake(p=p2), nls.NewtonRaphson(), abstol=1e-10)
+    ref_walls = warm_walls(torch, lambda: nls.solve(
+        prob.remake(p=p2), nls.NewtonRaphson(), abstol=1e-10))
+    bit_equal = (bool(torch.equal(got.u, ref.u))
+                 and int(got.retcode) == int(ref.retcode)
+                 and _stats_dict(got.stats) == _stats_dict(ref.stats))
+    batch_solver = nls.deserialize_solver(nls.export_solver(
+        prob, nls.NewtonRaphson(), batch="b", abstol=1e-10))
+    batches = []
+    for n in (2, 5):
+        pb = prob.p[None, :].repeat(n, 1)
+        pb[:, 0] = torch.linspace(3.0, 3.8, n, dtype=f64, device=dev)
+        u0b = prob.u0[None].repeat(n, 1, 1, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sols = batch_solver(u0b, pb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        worst = max(_rel_inf(nls.solve(prob.remake(p=pb[i]),
+                                       nls.NewtonRaphson(),
+                                       abstol=1e-10).u.reshape(-1),
+                             sols.u[i].reshape(-1)) for i in range(n))
+        batches.append({"B": n, "route": sols.counters["ensemble_route"],
+                        "retcodes": sols.retcode.tolist(),
+                        "rel_inf_to_lone_max": worst, "wall_s": wall})
+    ok = (bit_equal and got.u.device.type == "cuda"
+          and all(b["route"] == "lockstep" and b["rel_inf_to_lone_max"]
+                  <= 1e-12 and set(b["retcodes"]) == {1} for b in batches))
+    emit({"phase": "lockstep_aot", "N": 32, "n": 2048,
+          "artifact_bytes": len(data), "export_s": export_s,
+          "bit_equal_to_solve": bit_equal, "retcode": int(got.retcode),
+          "nsteps": int(got.stats.nsteps),
+          "warm_walls_s": walls, "solve_warm_walls_s": ref_walls,
+          "batched": batches, "ok": ok, "card": card})
+    if not ok:
+        failed.append("(c)")
+    emit({"phase": "lockstep_done",
+          "phase_seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"lockstep phase failed: {failed}")
+
+
 def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
                 fft_poisson_preconditioner, card, phases):
-    """``--only``: phases 19–27 alone, in the order given, each on the
+    """``--only``: phases 19–28 alone, in the order given, each on the
     set-up it takes from the earlier phases rebuilt here: phase 18's
     NewtonRaphson root at N=32 for 20; the flagship and its polish, solved
     as phases 4 and 5 solve them, for 23, 26 and 27; the flagship's problem
@@ -4993,8 +5367,10 @@ def only_phases(torch, nls, _backend, brusselator, stencil, spmv,
             slice17_phase(torch, nls, _backend, brusselator, stencil,
                           fft_poisson_preconditioner, card, sol, pm,
                           sol64.u, None)
+        elif ph == "28":
+            lockstep_phase(torch, nls, _backend, brusselator, card)
         else:
-            raise ValueError(f"--only takes phases 19 to 27, not {ph!r}")
+            raise ValueError(f"--only takes phases 19 to 28, not {ph!r}")
         emit({"phase": "only_phase", "only": ph,
               "seconds": time.perf_counter() - t0, "card": card})
 
@@ -6094,7 +6470,10 @@ def main(argv):
                                rd3d_ref)
     del csr7, rd3d_ref
 
-    # --- 28. summary -------------------------------------------------------
+    # --- 28. lockstep first-order ensembles, the AOT round trip -----------
+    lockstep_phase(torch, nls, _backend, brusselator, card)
+
+    # --- 29. summary -------------------------------------------------------
     out = []
     timing_keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
     for name in ("brusselator_jvp", "brusselator_jvp_scaled"):

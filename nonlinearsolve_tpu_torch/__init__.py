@@ -108,6 +108,7 @@ from .solvers.homotopy import (ArcLengthContinuation,
                                HomotopyPolyAlgorithm, HomotopySweep,
                                KantorovichHomotopy, SimpleHomotopySweep)
 from .solvers.refinement import RefineResult, auto_refine, refine_root
+from .utils.aot import deserialize_solver, export_solver
 from .solvers.scc import LinearSCCBlock, SCCAlg, scc_solve_up
 from .solvers.steady_state import DynamicSS, SSRootfind
 from .solvers.wrappers import (CMINPACK, KINSOL, FastLevenbergMarquardtJL,
@@ -159,7 +160,8 @@ __all__ = [
     "TaylorHomotopyContinuationJL", "TerminationCondition", "TraceAll",
     "TraceConfig", "TraceMinimal",
     "TraceWithJacobianConditionNumber", "TrustRegion", "VecJacOperator",
-    "auto_refine", "init", "pickchunksize", "polynomialize", "refine_root",
+    "auto_refine", "deserialize_solver", "export_solver", "init",
+    "pickchunksize", "polynomialize", "refine_root",
     "scc_solve_up", "solve",
     "solve_ensemble", "solve_multistart", "solve_polynomial",
 ]

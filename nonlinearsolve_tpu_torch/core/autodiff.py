@@ -50,7 +50,30 @@ def jvp(f: Callable, u, v):
 
 
 def _dtensor_jvp(f: Callable, u, v):
-    """``(f(u), J(u)·v)`` as the VJP of the VJP by ``torch.autograd``."""
+    """``(f(u), J(u)·v)`` as the VJP of the VJP by ``torch.autograd``.
+
+    On a mesh of two or more axes the VJP of the VJP runs on the state
+    and the tangent replicated over the mesh, and both results go back to
+    the state's placements (one all_gather of each a product).  Sharded
+    there, torch's DTensor takes the second derivative of a residual that
+    selects or stacks components wrongly: its ``select_backward`` rule
+    keeps the global sizes on the local shards, and the stacked axis may
+    be given a shard (ROADMAP C.5)."""
+    mesh = u.device_mesh
+    if mesh.ndim > 1:
+        from torch.distributed.tensor import DTensor, Replicate
+        rep = [Replicate()] * mesh.ndim
+        fu, jv = _reverse_jvp(
+            f, u.redistribute(mesh, rep),
+            v.redistribute(mesh, rep) if isinstance(v, DTensor) else v)
+        if fu.dim() != u.dim():
+            return fu, jv
+        return (fu.redistribute(mesh, u.placements),
+                jv.redistribute(mesh, u.placements))
+    return _reverse_jvp(f, u, v)
+
+
+def _reverse_jvp(f: Callable, u, v):
     with torch.enable_grad():
         x = u.detach().requires_grad_(True)
         fu = f(x)

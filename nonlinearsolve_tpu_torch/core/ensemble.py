@@ -4,13 +4,23 @@
 The JAX package ``vmap``s the whole solver over a leading trajectory axis
 of ``u0`` and / or ``p``.  Here:
 
-- the simple tier and the bracketing tier run the batch as one lockstep
-  loop on the device (``solvers/simple.py``, ``solvers/bracketing.py``);
-- every other algorithm (the first-order and quasi-Newton engines, the
-  polyalgorithms) solves trajectory by trajectory and stacks the fields on
-  a leading axis.  A vmapped ``while_loop`` freezes a finished lane, so
-  each trajectory's result there is its lone solve's, which is what this
-  gives.  Batched engines of that kind are ROADMAP A.29.
+- the simple tier, the bracketing tier, the first-order engines on a
+  dense Jacobian (NewtonRaphson with or without BackTracking, TrustRegion
+  under the simple and Fan schemes, LevenbergMarquardt), Broyden,
+  Klement and the ladders of them (the default one among them) run the
+  batch as one lockstep loop on the device (``solvers/simple.py``,
+  ``solvers/bracketing.py``, ``solvers/first_order_lockstep.py``);
+- every other algorithm (Krylov or sparse linear solves, forcing,
+  PseudoTransient, the other radius schemes and line searches, DFSane,
+  Anderson, LimitedMemoryBroyden, the ladders that hold them) and every
+  option the batch does not take (``_lone_options``) solve trajectory by
+  trajectory and stack the fields on a leading axis.  A vmapped
+  ``while_loop`` freezes a finished lane, so each trajectory's result
+  there is its lone solve's, which is what this gives.
+
+``sol.counters["ensemble_route"]`` says which ran: ``"lockstep"`` or
+``"lone"``.  Each row of a lockstep batch equals its lone solve bit for
+bit on the CPU.
 
 With ``mesh=`` the batch's rows are split over a mesh axis: each rank
 solves its rows as above, and the fields come back as DTensors.
@@ -134,8 +144,6 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
         raise ValueError("solve_ensemble needs u0s and/or ps batches")
     if mesh is not None:
         return _solve_sharded(prob, alg, u0s, ps, mesh, batch_axis, kwargs)
-    if u0s is None and ps is None:
-        raise ValueError("solve_ensemble needs u0s and/or ps batches")
     merged = {**prob.kwargs, **kwargs}
     check_kwargs(merged)
     if isinstance(prob, IntervalNonlinearProblem):
@@ -144,8 +152,11 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
                                 alg, **merged)
     if alg is None:
         alg = _default_algorithm(prob)
-    if is_simple_alg(alg) and not _lone_options(prob, merged):
-        return _solve_simple_batch(prob, alg, u0s, ps, **merged)
+    if not _lone_options(prob, merged) and (
+            is_simple_alg(alg) or _lockstep_batch(prob, alg, u0s, ps)):
+        sol = _solve_lockstep(prob, alg, u0s, ps, **merged)
+        if sol is not None:
+            return sol
 
     B = _first_leaf(u0s if u0s is not None else ps).shape[0]
     sols = [solve_nonlinear(
@@ -163,7 +174,8 @@ def solve_ensemble(prob, alg=None, *, u0s=None, ps=None, mesh=None,
                         for k in ("nf", "njacs", "nfactors", "nsolve",
                                   "nsteps")]),
         counters={"host_syncs": sum(s.counters["host_syncs"]
-                                    for s in sols)})
+                                    for s in sols),
+                  "ensemble_route": "lone"})
 
 
 def _solve_sharded(prob, alg, u0s, ps, mesh, batch_axis, kwargs):
@@ -213,8 +225,8 @@ def _solve_sharded(prob, alg, u0s, ps, mesh, batch_axis, kwargs):
 
 def _lone_options(prob, merged) -> bool:
     """Options the lockstep batch does not take (bounds, conditioning,
-    traces, messages, timers): with them, a simple batch is solved
-    trajectory by trajectory, each lone solve giving the batch's row."""
+    traces, messages, timers): with them, a batch is solved trajectory by
+    trajectory, each lone solve giving the batch's row."""
     return (getattr(prob, "lb", None) is not None
             or getattr(prob, "ub", None) is not None
             or any(merged.get(k) for k in (
@@ -222,16 +234,52 @@ def _lone_options(prob, merged) -> bool:
                 "store_trace", "trace_level", "verbose", "time_phases")))
 
 
+def _batched_of(f, u0):
+    """The residual of a whole batch of flat rows, when ``f`` carries one
+    (``f.batched``: a loaded batched program, ``utils/aot.py``) and the
+    state is one tensor; else None."""
+    batched = getattr(f, "batched", None)
+    if batched is None or not isinstance(u0, torch.Tensor):
+        return None
+    shape = tuple(u0.shape)
+
+    def rows(X, p):
+        B = X.shape[0]
+        return batched(X.reshape((B,) + shape), p).reshape(B, -1)
+    return rows
+
+
 def _first_leaf(tree):
     return tree_leaves(tree)[0]
 
 
-def _solve_simple_batch(prob, alg, u0s, ps, *, abstol=None, reltol=None,
-                        maxiters=1000, termination_condition=None,
-                        alias_u0=False, **_off) -> NonlinearSolution:
-    """The batch as one lockstep run of the simple tier (``_off``: options
-    that are unset, see ``_lone_options``)."""
-    from ..solvers.simple import BatchedResidual, run_simple_batched
+def _lockstep_batch(prob, alg, u0s, ps) -> bool:
+    """True when ``alg`` runs as a lockstep batch of the first-order
+    engines (``solvers/first_order_lockstep.py``): a real state, a dense
+    Jacobian (no sparsity pattern), and no parameter that carries a
+    gradient (the implicit-function rule is the lone solve's).  A
+    non-square residual is found later (``_solve_lockstep``)."""
+    from ..solvers.first_order_lockstep import lockstep_supported
+    f = prob.f
+    if (not lockstep_supported(alg) or f.sparsity is not None
+            or f.jac_prototype is not None):
+        return False
+    leaves = [v for t in (prob.u0, prob.p, u0s, ps)
+              for v in tree_leaves(t) if isinstance(v, torch.Tensor)]
+    return all(not v.is_complex() and not v.requires_grad for v in leaves)
+
+
+def _solve_lockstep(prob, alg, u0s, ps, *, abstol=None, reltol=None,
+                    maxiters=1000, termination_condition=None,
+                    alias_u0=False, **_off) -> Optional[NonlinearSolution]:
+    """The batch as one lockstep run: the simple tier's engines, or the
+    first-order and quasi-Newton engines and their ladders on a square
+    residual (None for any other residual: the caller solves it
+    trajectory by trajectory).
+    ``_off``: options that are unset, see ``_lone_options``."""
+    from ..solvers.first_order_lockstep import run_lockstep
+    from ..solvers.simple import (BatchedResidual, is_simple_alg,
+                                  run_simple_batched)
 
     from .solve import state_device
     dev = state_device(prob.u0, prob.p)
@@ -256,25 +304,30 @@ def _solve_simple_batch(prob, alg, u0s, ps, *, abstol=None, reltol=None,
         def jac1(v, p):
             return f.jac(unravel(v), p).reshape(-1, v.shape[0])
 
+    simple = is_simple_alg(alg)
     with torch.no_grad():
         first = P if pdim is None else _row(P, slice(0, 1))
         fu_first = torch.func.vmap(f1, in_dims=(0, pdim))(X0[:1], first)
+        if not simple and fu_first[0].numel() != X0.shape[1]:
+            return None
         npdt = _backend.np_dtype(X0.dtype)
         is_lsq = prob.is_least_squares
         if termination_condition is None:
-            termination_condition = default_termination_mode(is_lsq,
-                                                             "simple")
+            termination_condition = default_termination_mode(
+                is_lsq, "simple" if simple else "regular")
         res = BatchedResidual(f1=f1, p=P, pdim=pdim,
                               n_out=fu_first[0].numel(), jac1=jac1,
-                              is_least_squares=is_lsq)
+                              is_least_squares=is_lsq,
+                              batched=_batched_of(f.f, prob.u0))
         syncs0 = _backend.HOST_SYNCS["n"]
-        final = run_simple_batched(
-            alg, res, termination_condition, X0,
-            npdt(get_tolerance(abstol, npdt)),
-            npdt(get_tolerance(reltol, npdt)), int(maxiters))
+        run = run_simple_batched if simple else run_lockstep
+        final = run(alg, res, termination_condition, X0,
+                    npdt(get_tolerance(abstol, npdt)),
+                    npdt(get_tolerance(reltol, npdt)), int(maxiters))
     return NonlinearSolution(
         u=torch.func.vmap(unravel)(final.u),
         resid=torch.func.vmap(out["unravel"])(final.fu),
         retcode=final.retcode,
         stats=final.stats,
-        counters={"host_syncs": _backend.HOST_SYNCS["n"] - syncs0})
+        counters={"host_syncs": _backend.HOST_SYNCS["n"] - syncs0,
+                  "ensemble_route": "lockstep"})

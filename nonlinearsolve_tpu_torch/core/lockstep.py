@@ -41,3 +41,44 @@ def select_rows(mask, new, old):
                                 getattr(old, f.name))
             for f in dataclasses.fields(new)})
     return new
+
+
+def rows_matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A[i] @ x[i]`` for each row: ``A`` (B, m, n), ``x`` (B, n) ->
+    (B, m), rounded as the lone engines' matrix-vector product.  On the
+    CPU each row's product is that product itself (the BLAS's gemv sums
+    in an order that no batched product of torch reproduces); on the card
+    it is one batched product."""
+    if A.device.type == "cpu":
+        return torch.stack([a @ v for a, v in zip(A, x)])
+    return torch.matmul(A, x[..., None])[..., 0]
+
+
+def rows_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.dot(a[i], b[i])`` for each row, rounded as the lone
+    engines' ``torch.dot`` (the BLAS's ddot on the CPU, as
+    ``rows_matvec``); one reduction on the card."""
+    if a.device.type == "cpu":
+        return torch.stack([torch.dot(x, y) for x, y in zip(a, b)])
+    return (a * b).sum(-1)
+
+
+def rows_vecmat(x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """``x[i] @ A[i]`` for each row (a row vector times a matrix), rounded
+    as the lone engines' product, as ``rows_matvec``."""
+    if A.device.type == "cpu":
+        return torch.stack([v @ a for v, a in zip(x, A)])
+    return torch.matmul(x[..., None, :], A)[..., 0, :]
+
+
+def pow_as_host(x: torch.Tensor, exponent: float) -> torch.Tensor:
+    """``x ** exponent`` rounded as the C library's ``pow``, which the lone
+    engines' host scalars (numpy) take.  On the CPU torch's vectorized
+    power rounds otherwise; on a strided view it takes the element loop,
+    which calls ``pow``.  That is torch's internal choice, not a promise:
+    a torch upgrade must re-check it
+    (``tests/test_torch_ensemble_lockstep.py``
+    ``test_pow_as_host_rounds_as_the_c_library``).  On the card it is the device's ``pow``."""
+    if x.device.type == "cpu":
+        return torch.stack([x, x], -1)[..., 0] ** exponent
+    return x ** exponent

@@ -127,7 +127,7 @@ def _nan_unless(x: torch.Tensor, good: torch.Tensor) -> torch.Tensor:
 # the dense methods
 # ---------------------------------------------------------------------------
 
-def _lstsq(A: torch.Tensor, b: torch.Tensor, factors=None):
+def _lstsq(A: torch.Tensor, b: torch.Tensor, factors=None, matvec=None):
     """Least squares by the SVD, ``jnp.linalg.lstsq(A, b, rcond=None)``
     step for step: singular values below ``eps · max(m, n) · s_max`` are
     dropped, so rank-deficient systems get the minimum-norm solution.
@@ -135,7 +135,10 @@ def _lstsq(A: torch.Tensor, b: torch.Tensor, factors=None):
     each matrix solved on its own: the finite guard and the cutoff are per
     matrix.  ``factors``: the ``(U, S, Vh)`` of ``A`` from an earlier call,
     to solve another right-hand side without a second SVD (the same result
-    as recomputing it).  Returns ``(x, factors)``."""
+    as recomputing it).  ``matvec(M, v)``: the product of a batch of
+    matrices with a batch of vectors ``b`` (``core.lockstep.rows_matvec``,
+    which rounds each row as a lone solve does); batched ``@`` when
+    omitted.  Returns ``(x, factors)``."""
     m, n = A.shape[-2:]
     vec = b.dim() == A.dim() - 1
     B = b[..., None] if vec else b
@@ -154,6 +157,8 @@ def _lstsq(A: torch.Tensor, b: torch.Tensor, factors=None):
                                         device=S.device) * S[..., :1])
     safe_s = torch.where(mask, S, torch.ones_like(S)).to(A.dtype)
     s_inv = torch.where(mask, 1 / safe_s, torch.zeros_like(safe_s))[..., None]
+    if matvec is not None and vec:
+        return matvec(Vh.mH, s_inv[..., 0] * matvec(U.mH, b)), factors
     uTb = U.mH @ B
     x = Vh.mH @ (s_inv * uTb)
     return (x[..., 0] if vec else x), factors

@@ -38,6 +38,7 @@ from ..core.returncode import ReturnCode
 from ..core.solution import NLStats
 from ..ops.linear_solve import _lstsq, solve_dense_batched
 from ..utils import ordering
+from ..utils.pytree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +130,10 @@ class BatchedResidual:
     """The residual of a batch of flat rows.  ``f1(u, p) -> fu``: one row
     (n,) -> (m,); ``p`` is shared by the rows (``pdim`` None) or holds one
     parameter a row along its first axis (``pdim`` 0).  ``jac1(u, p) ->
-    (m, n)``: the analytic Jacobian of one row, or None (forward AD)."""
+    (m, n)``: the analytic Jacobian of one row, or None (forward AD).
+    ``batched(X, p) -> (B, m)``: the residual of all rows at once (a
+    loaded ``torch.export`` program of the batched residual,
+    ``utils/aot.py``), which then takes the place of ``vmap(f1)``."""
 
     f1: Callable
     p: Any
@@ -137,8 +141,11 @@ class BatchedResidual:
     n_out: int
     jac1: Optional[Callable] = None
     is_least_squares: bool = False
+    batched: Optional[Callable] = None
 
     def __call__(self, X):
+        if self.batched is not None:
+            return self.batched(X, self.p)
         return torch.func.vmap(self.f1, in_dims=(0, self.pdim))(X, self.p)
 
     def jac(self, X):
@@ -148,6 +155,21 @@ class BatchedResidual:
         return torch.func.vmap(self.jac1, in_dims=(0, self.pdim))(X, self.p)
 
     def jacfwd(self, X):
+        if self.batched is not None:
+            # the JVPs on the unit tangents, as one batch of n·B rows: row
+            # k·B + i is row i with tangent e_k
+            B, n = X.shape
+            eye = torch.eye(n, dtype=X.dtype, device=X.device)
+            tile = lambda v: v.repeat((n,) + (1,) * (v.dim() - 1))  # noqa
+            p = self.p if self.pdim is None else tree_map(tile, self.p)
+            # torch.autograd's forward mode: torch.func's jvp meets an
+            # internal assert in a program with a symbolic batch
+            from torch.autograd import forward_ad
+            with forward_ad.dual_level():
+                out = self.batched(forward_ad.make_dual(
+                    tile(X), eye.repeat_interleave(B, 0)), p)
+                cols = forward_ad.unpack_dual(out).tangent
+            return cols.reshape(n, B, -1).permute(1, 2, 0)
         return torch.func.vmap(jacfwd(self.f1),
                                in_dims=(0, self.pdim))(X, self.p)
 

@@ -18,13 +18,13 @@ the JAX package's results computed in the parent and saved in DIR as
   single-device roots (worlds 2 and 4);
 - the 2×2 mesh Brusselator with per-component multigrid
   (``:126-168``) within 1e-5 of the JAX package's single-device root
-  (world 4).
+  (world 4), with K1's J·v and, through ``distributed_solve``, with the
+  reverse-over-reverse J·v, which equals the unsharded J·v within 1e-12
+  there (ROADMAP C.5); on one mesh axis that J·v still fails inside
+  torch's DTensor, which the world-2 worker holds as a witness (C.6).
 
 Sizes are cut for the CPU's time: shape 4 to an 8² grid (the dryrun's
-16²), the config-5 shape to 32² (its 128²).  The 2×2 mesh's J·v is the
-analytic one (K1's plain version): the reverse-over-reverse J·v through
-``torch.stack`` on a state sharded on two mesh axes fails in torch's
-DTensor (ROADMAP C.5), which the world-4 worker holds as a witness.
+16²), the config-5 shape to 32² (its 128²).
 """
 
 import os
@@ -222,9 +222,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run_workers(world, ref_dir, limit_s=240.0):
+def _run_workers(world, ref_dir, deadline):
     """Run ``world`` gloo workers on a free local port; their return codes
-    and outputs.  Every worker is killed at the deadline."""
+    and outputs.  Every worker is killed at ``deadline`` (a
+    ``time.monotonic()`` value)."""
     port = str(_free_port())
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "PYTHONPATH": repo + os.pathsep
@@ -234,7 +235,6 @@ def _run_workers(world, ref_dir, limit_s=240.0):
          str(world), port, ref_dir], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
-    deadline = time.monotonic() + limit_s
     outs = []
     try:
         for p in procs:
@@ -254,8 +254,11 @@ def _run_workers(world, ref_dir, limit_s=240.0):
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_gloo_workers_match_jax(world, jax_references):
-    for _ in range(3):      # another process may take the free port first
-        rcs, outs = _run_workers(world, jax_references)
+    # another process may take the free port first: up to three tries,
+    # all within one deadline
+    deadline = time.monotonic() + 240.0
+    for _ in range(3):
+        rcs, outs = _run_workers(world, jax_references, deadline)
         if not any("ddress already in use" in out for out in outs):
             break
     for r, (rc, out) in enumerate(zip(rcs, outs)):
@@ -322,7 +325,8 @@ def _check_mesh_2x2(ref):
     from nonlinearsolve_tpu_torch.models import brusselator
     from nonlinearsolve_tpu_torch.ops.multigrid import \
         multigrid_preconditioner
-    from nonlinearsolve_tpu_torch.parallel import create_mesh
+    from nonlinearsolve_tpu_torch.parallel import (create_mesh,
+                                                   distributed_solve)
     from torch.distributed.tensor import Shard, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -349,17 +353,46 @@ def _check_mesh_2x2(ref):
     assert list(sol.u.placements) == placements
     np.testing.assert_allclose(sol.u.full_tensor().numpy(), ref["mesh2x2"],
                                rtol=0, atol=1e-5)
-    # ROADMAP C.5's witness: the AD J·v through torch.stack on this mesh
-    v = distribute_tensor(torch.ones_like(u0), mesh2, placements,
-                          src_data_rank=None)
+    # ROADMAP C.5 (repaired): the AD J·v through torch.stack on this mesh
+    # equals the unsharded one, and a distributed_solve with it converges
+    f = lambda U: brusselator.brusselator_2d(U, p)   # noqa: E731
+    t = torch.randn(u0.shape, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(5))
+    v = distribute_tensor(t, mesh2, placements, src_data_rank=None)
+    with implicit_replication():
+        fu, jv = jvp(f, u0s, v)
+    assert list(jv.placements) == placements
+    want = torch.func.jvp(f, (u0,), (t,))[1]
+    err = (jv.full_tensor() - want).abs().max() / want.abs().max()
+    assert float(err) <= 1e-12, float(err)
+    assert torch.equal(fu.full_tensor(), f(u0))
+    sol_ad = distributed_solve(brusselator.problem(u0, p, kernel_jvp=False),
+                               alg, mesh2, abstol=1e-6, maxiters=200)
+    assert sol_ad.retcode == tnls.ReturnCode.Success
+    np.testing.assert_allclose(sol_ad.u.full_tensor().numpy(),
+                               ref["mesh2x2"], rtol=0, atol=1e-5)
+
+
+def _check_one_axis_stack_witness(mesh):
+    """ROADMAP C.6's witness: on a one-axis mesh the AD J·v of a residual
+    that selects and stacks its components (``brusselator_2d``) fails
+    inside torch's DTensor (``select_backward`` keeps the global sizes on
+    the local shards).  A torch that fixes it fails this check."""
+    from nonlinearsolve_tpu_torch.core.autodiff import jvp
+    from nonlinearsolve_tpu_torch.models import brusselator
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    u0 = brusselator.init_u0(16, device="cpu")
+    p = brusselator.default_p(16, device="cpu")
+    us = distribute_tensor(u0, mesh, [Shard(0)], src_data_rank=None)
     with implicit_replication():
         try:
-            jvp(lambda U: brusselator.brusselator_2d(U, p), u0s, v)
+            jvp(lambda U: brusselator.brusselator_2d(U, p), us, us)
         except (IndexError, RuntimeError):
-            pass
-        else:
-            raise AssertionError("C.5 is repaired: the 2×2 mesh can take "
-                                 "the AD J·v now")
+            return
+    raise AssertionError("C.6 is repaired: the one-axis mesh takes the AD "
+                         "J·v of brusselator_2d now")
 
 
 def _check_dryrun_shape4(mesh, ref):
@@ -445,6 +478,8 @@ def _worker(rank, world, port, ref_dir):
         if world in (2, 4):
             _check_dryrun_shape4(mesh, ref)
             _check_config5(mesh, ref)
+        if world == 2:
+            _check_one_axis_stack_witness(mesh)
         if world == 4:
             _check_mesh_2x2(ref)
     finally:

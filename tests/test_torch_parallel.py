@@ -231,9 +231,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run_workers(world, ref_dir, limit_s=120.0):
+def _run_workers(world, ref_dir, deadline):
     """Run ``world`` gloo workers on a free local port; their return codes
-    and outputs.  Every worker is killed at the deadline."""
+    and outputs.  Every worker is killed at ``deadline`` (a
+    ``time.monotonic()`` value)."""
     port = str(_free_port())
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "PYTHONPATH": repo + os.pathsep
@@ -243,7 +244,6 @@ def _run_workers(world, ref_dir, limit_s=120.0):
          str(world), port, ref_dir], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
-    deadline = time.monotonic() + limit_s
     outs = []
     try:
         for p in procs:
@@ -263,8 +263,11 @@ def _run_workers(world, ref_dir, limit_s=120.0):
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_gloo_workers_match_jax(world, jax_references):
-    for _ in range(3):      # another process may take the free port first
-        rcs, outs = _run_workers(world, jax_references)
+    # another process may take the free port first: up to three tries,
+    # all within one deadline
+    deadline = time.monotonic() + 120.0
+    for _ in range(3):
+        rcs, outs = _run_workers(world, jax_references, deadline)
         if not any("ddress already in use" in out for out in outs):
             break
     for r, (rc, out) in enumerate(zip(rcs, outs)):
