@@ -428,7 +428,16 @@ result line.
    DTensor with Shard(0); wall and idle share.  (e)
    ``solve_ensemble(mesh=)`` of phase 22's problem-9 batch (262,144
    starts, SimpleNewtonRaphson): every row bit for bit the unsharded
-   ensemble's;
+   ensemble's.  (f) ``distributed_solve`` of the 512² f32 flagship
+   residual (phase 4's algorithm, abstol 5) with the autodiff J·v under
+   Shard(0) and Shard(1): the retcode and nsteps of the unsharded solve
+   with the same (reverse-over-reverse) J·v, roots within 1e-4 rel-inf of
+   it, ``sol.u`` in the requested placement, the unsharded solve with the
+   forward-mode J·v beside them; walls, host reads, ``_backend.COLLECTIVES``,
+   DTensor's collectives in one J·v and the idle share.  At world size 1
+   every shard is the whole grid: this holds the port's DTensor rules
+   (``parallel/dtensor_rules.py``) to the card's torch, not a shard's
+   sizes (the gloo tests do that);
 28. lockstep first-order ensembles and the AOT round trip, f64, counters
    at 0 just before each run (``--only 28`` runs it alone).  (a) The
    23-problem #9 (n = 10) from 65,536 seeded starts under NewtonRaphson,
@@ -4951,6 +4960,11 @@ def slice18_phase(torch, nls, _backend, brusselator, spmv,
               "seconds": e_wall, "card": card})
         if not same:
             failed.append("(e) solve_ensemble(mesh=)")
+        del got, ref, U0
+
+        failed += _flagship_sharded_phase(torch, nls, _backend, brusselator,
+                                          fft_poisson_preconditioner, mesh,
+                                          card)
     finally:
         dist.destroy_process_group()
     emit({"phase": "slice18_timing",
@@ -4958,6 +4972,99 @@ def slice18_phase(torch, nls, _backend, brusselator, spmv,
     if failed:
         raise AssertionError(f"phase 27 failed: {failed}")
     return k5_rec
+
+
+def _flagship_sharded_phase(torch, nls, _backend, brusselator,
+                            fft_poisson_preconditioner, mesh, card):
+    """Phase 27 (f): ``distributed_solve`` of the flagship's residual at
+    512² f32 (phase 4's Newton–GMRES(8) with the FFT preconditioner,
+    abstol 5) with the autodiff J·v (``kernel_jvp=False``), the state's
+    rows and then its columns sharded, against the unsharded solve whose
+    J·v is the same reverse-over-reverse product (``autodiff._reverse_jvp``
+    as the problem's ``jvp``): equal retcode and nsteps, roots within 1e-4
+    rel-inf, ``sol.u`` a DTensor in the requested placement.  The
+    unsharded solve with the forward-mode J·v is recorded beside them: its
+    product rounds otherwise, and at the f32 floor Newton's path parts
+    from it (13 steps against 6 on the CPU).  Returns the failed checks."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from nonlinearsolve_tpu_torch.core import autodiff
+    from nonlinearsolve_tpu_torch.parallel import distributed_solve
+    N = 512
+    flag, alg, _ = flagship_setup(torch, nls, brusselator,
+                                  fft_poisson_preconditioner, N)
+    f2 = brusselator.brusselator_2d
+    prob = brusselator.problem(flag.u0, flag.p, kernel_jvp=False)
+    prob_rev = nls.NonlinearProblem(nls.NonlinearFunction(
+        f=f2, jvp=lambda v, u, p: autodiff._reverse_jvp(
+            lambda U: f2(U, p), u, v)[1]), flag.u0, flag.p)
+
+    def run(axis, problem=prob):
+        torch.cuda.synchronize()
+        _backend.reset_counters()
+        t0 = time.perf_counter()
+        if axis is None:
+            sol = nls.solve(problem, alg, abstol=5.0, maxiters=30)
+        else:
+            sol = distributed_solve(problem, alg, mesh, shard_axis=axis,
+                                    abstol=5.0, maxiters=30)
+        torch.cuda.synchronize()
+        u = sol.u.full_tensor() if isinstance(sol.u, DTensor) else sol.u
+        return u, sol, {
+            "wall_s": time.perf_counter() - t0, "retcode": sol.retcode.name,
+            "stats": vars(sol.stats),
+            "krylov_iters": sol.counters["krylov_iters"],
+            "jac_products": sol.counters["jvp"],
+            "host_reads": sol.counters["host_syncs"],
+            "collectives": dict(_backend.COLLECTIVES),
+            "launches": {k: v for k, v in _backend.LAUNCHES.items() if v}}
+
+    def rel(u, w):
+        return float((u - w).abs().max() / w.abs().max())
+
+    run(None)                           # warms the FFT plans
+    u_fwd, fwd, rec_fwd = run(None)
+    u_rev, rev, rec_rev = run(None, prob_rev)
+    rec_fwd["root_rel_inf_to_reverse"] = rel(u_fwd, u_rev)
+    failed = [] if fwd.retcode == rev.retcode == nls.ReturnCode.Success \
+        else ["(f) the unsharded flagship with the autodiff J·v"]
+    runs = {}
+    for axis in (0, 1):
+        u, sol, rec = run(axis)
+        rec["root_rel_inf_to_unsharded"] = rel(u, u_rev)
+        rec["root_bit_equal"] = bool(torch.equal(u, u_rev))
+        rec["placements"] = ([str(q) for q in sol.u.placements]
+                             if isinstance(sol.u, DTensor) else None)
+        us = distribute_tensor(flag.u0, mesh, [Shard(axis)],
+                               src_data_rank=None)
+        comm = CommDebugMode()
+        with implicit_replication(), comm:
+            autodiff.jvp(lambda U: f2(U, flag.p), us, us)
+        rec["dtensor_collectives_per_jvp"] = {
+            str(k): v for k, v in comm.get_comm_counts().items()}
+        runs[f"Shard({axis})"] = rec
+        if not (sol.retcode == rev.retcode
+                and sol.stats.nsteps == rev.stats.nsteps
+                and rec["root_rel_inf_to_unsharded"] <= 1e-4
+                and rec["placements"] == [str(Shard(axis))]):
+            failed.append(f"(f) the flagship residual under Shard({axis})")
+        del u, sol, us
+
+    def warm():
+        distributed_solve(prob, alg, mesh, shard_axis=0, abstol=5.0,
+                          maxiters=30)
+
+    prof = profile_device(torch, warm, host_events=False)
+    emit({"phase": "slice20_flagship_sharded", "N": N, "dtype": "float32",
+          "jvp": "autodiff (kernel_jvp=False)", "world_size": 1,
+          "unsharded_reverse": rec_rev, "unsharded_forward": rec_fwd,
+          "sharded": runs, "limit": 1e-4,
+          "note": "world size 1: each shard is the whole grid; a shard "
+                  "fault shows only at world 2 and more (gloo tests)",
+          "profile_shard0": prof, "card": card})
+    return failed
 
 
 def flagship_setup(torch, nls, brusselator, fft_poisson_preconditioner,

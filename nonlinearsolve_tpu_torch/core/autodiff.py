@@ -41,6 +41,7 @@ def jvp(f: Callable, u, v):
     (``torch.func`` would wrap them)."""
     from torch.distributed.tensor import DTensor
     if isinstance(u, DTensor):
+        from .. import parallel  # noqa: F401  (its DTensor rules)
         return _dtensor_jvp(f, u, v)
     if not forward_level_active():
         return torch.func.jvp(f, (u,), (v,))
@@ -52,13 +53,12 @@ def jvp(f: Callable, u, v):
 def _dtensor_jvp(f: Callable, u, v):
     """``(f(u), J(u)·v)`` as the VJP of the VJP by ``torch.autograd``.
 
-    On a mesh of two or more axes the VJP of the VJP runs on the state
-    and the tangent replicated over the mesh, and both results go back to
-    the state's placements (one all_gather of each a product).  Sharded
-    there, torch's DTensor takes the second derivative of a residual that
-    selects or stacks components wrongly: its ``select_backward`` rule
-    keeps the global sizes on the local shards, and the stacked axis may
-    be given a shard (ROADMAP C.5)."""
+    On one mesh axis it runs in the state's placements; a residual that
+    selects, unbinds or stacks components takes the DTensor rules that
+    ``parallel/dtensor_rules.py`` registers (ROADMAP C.6).  On a mesh of
+    two or more axes the VJP of the VJP runs on the state and the tangent
+    replicated over the mesh, and both results go back to the state's
+    placements (one all_gather of each a product; ROADMAP C.5)."""
     mesh = u.device_mesh
     if mesh.ndim > 1:
         from torch.distributed.tensor import DTensor, Replicate

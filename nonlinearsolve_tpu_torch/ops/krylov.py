@@ -86,7 +86,6 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         raise ValueError("basis_dtype narrowing stores a REAL basis; "
                          "complex systems must keep the working dtype")
     n = b.numel()
-    shape = b.shape
     dtype = b.dtype
     cplx = b.is_complex()
     npdt = np_dtype(dtype)              # H, the rotations and g
@@ -101,6 +100,7 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
     x0_is_zero = x0 is None
     x = torch.zeros_like(b) if x0 is None else x0
+    flat = _Flat(b)
     mb = M(b)
     r = mb if x0_is_zero else M(b - matvec(x))
     if x0_is_zero:
@@ -109,13 +109,13 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     else:
         b_norm, rnorm = fetch(l2(mb), l2(r))
     tol = np.maximum(rdt(rtol) * b_norm, rdt(atol))
-    V = _basis(b, m + 1, basis_dtype or dtype)
+    V = flat.basis(m + 1, basis_dtype or dtype)
     beta = rnorm           # the norm of r, known for the first cycle
     it = 0
     while rnorm > tol and it < maxiter:
         # --- one Arnoldi cycle (r is the preconditioned residual) ---
         safe_beta = rdt(1) if beta == 0 else beta
-        V[0] = (r * (rdt(1) / safe_beta)).reshape(-1)
+        V[0] = flat.flat(r * (rdt(1) / safe_beta))
         H = np.zeros((m + 1, m), npdt)
         cs = np.zeros(m, npdt)
         sn = np.zeros(m, npdt)
@@ -124,20 +124,20 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         k = 0
         done = beta <= tol
         while k < m and not done:
-            w = M(matvec(V[k].view(shape).to(dtype))).reshape(-1)
+            w = flat.flat(M(matvec(flat.shaped(V[k].to(dtype)))))
             Vk = V[: k + 1].to(dtype)
             VkH = Vk.conj() if cplx else Vk
-            hd = _replicated(VkH @ w)
-            w_norm0 = l2(w)
+            hd = flat.sum(VkH @ w)
+            w_norm0 = flat.norm(w)
             w = w - hd @ Vk
-            wn = l2(w)
+            wn = flat.norm(w)
             h_host, w_norm0, h_next = fetch(hd, w_norm0, wn)
             h = np.zeros(m + 1, npdt)
             h[: k + 1] = h_host
             if h_next < rdt(0.7071) * w_norm0:
-                hd2 = _replicated(VkH @ w)
+                hd2 = flat.sum(VkH @ w)
                 w = w - hd2 @ Vk
-                h2_host, h_next = fetch(hd2, l2(w))
+                h2_host, h_next = fetch(hd2, flat.norm(w))
                 h[: k + 1] += h2_host
             happy = h_next <= rdt(1e-14) * np.abs(g[0])
             scale = (rdt(0) if happy
@@ -173,8 +173,8 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         R[np.arange(k), np.arange(k)] = np.where(diag == 0, npdt(1), diag)
         y = _back_substitute(R, g[:k])
         if k:
-            x = x + (torch.as_tensor(y, device=b.device)
-                     @ V[:k].to(dtype)).view(shape)
+            x = x + flat.shaped(torch.as_tensor(y, device=flat.device)
+                                @ V[:k].to(dtype))
         rnorm = np.abs(g[k])
         it += k
         if rnorm > tol:
@@ -186,34 +186,66 @@ def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                         success=bool(rnorm <= tol) and bool(finite))
 
 
-def _basis(b, rows: int, dtype):
-    """The (rows, n) buffer of the Krylov basis; for a DTensor ``b``, a
-    DTensor whose columns are laid out as ``b.reshape(-1)``'s entries."""
-    from torch.distributed.tensor import DTensor, Shard
-    from torch.distributed.tensor import empty as dempty
-    n = b.numel()
-    if not isinstance(b, DTensor):
-        return torch.empty((rows, n), dtype=dtype, device=b.device)
-    from torch.distributed.tensor.placement_types import _StridedShard
-    flat = b.reshape(-1)
-    # a state sharded on several axes flattens to strided shards: keep
-    # their split factors one dimension down
-    placements = [
-        _StridedShard(p.dim + 1, split_factor=p.split_factor)
-        if isinstance(p, _StridedShard)
-        else Shard(p.dim + 1) if isinstance(p, Shard) else p
-        for p in flat.placements]
-    return dempty((rows, n), dtype=dtype, device_mesh=flat.device_mesh,
-                  placements=placements)
+class _Flat:
+    """GMRES's view of the state as one vector of its n entries.  A plain
+    tensor is flattened (``reshape(-1)``) and its basis is (rows, n).  A
+    DTensor is kept as this rank's shard: the basis holds the local
+    shard's entries, flattened, as a plain (rows, n_local) tensor, a dot
+    product or a norm is the local one summed over the mesh dimensions
+    that shard the state (``all_reduce``, as DTensor sums its partial
+    results), and ``shaped`` puts a local vector back in the state's
+    placements.  So no DTensor is ever flattened: torch 2.11's DTensor
+    refuses to flatten a state sharded past its first dimension
+    (``distributed_solve``'s ``shard_axis=1``)."""
 
+    def __init__(self, b):
+        from torch.distributed.tensor import DTensor
+        self.shape = b.shape
+        self.dtensor = isinstance(b, DTensor)
+        self.device = (b.to_local() if self.dtensor else b).device
+        if not self.dtensor:
+            return
+        self.mesh, self.placements = b.device_mesh, tuple(b.placements)
+        self.local_shape = b.to_local().shape
+        self.stride = b.stride()
+        self.groups = [self.mesh.get_group(i)
+                       for i, p in enumerate(self.placements)
+                       if p.is_shard() and self.mesh.size(i) > 1]
 
-def _replicated(t):
-    """A DTensor reduced over the mesh (``Vₖᴴ·w`` on a sharded basis) made
-    whole on every rank; any other tensor as it is."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(t, DTensor):
+    def basis(self, rows: int, dtype) -> torch.Tensor:
+        n = self.local_shape.numel() if self.dtensor else self.shape.numel()
+        return torch.empty((rows, n), dtype=dtype, device=self.device)
+
+    def flat(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.dtensor:
+            return t.reshape(-1)
+        if tuple(t.placements) != self.placements:
+            t = t.redistribute(self.mesh, self.placements)
+        return t.to_local().reshape(-1)
+
+    def shaped(self, v: torch.Tensor) -> torch.Tensor:
+        if not self.dtensor:
+            return v.view(self.shape)
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(v.view(self.local_shape), self.mesh,
+                                  self.placements, run_check=False,
+                                  shape=self.shape, stride=self.stride)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The local partial sums ``t`` summed over the shards."""
+        if self.dtensor:
+            import torch.distributed as dist
+            for group in self.groups:
+                dist.all_reduce(t, group=group)
         return t
-    return t.redistribute(placements=[Replicate()] * t.device_mesh.ndim)
+
+    def norm(self, w: torch.Tensor) -> torch.Tensor:
+        """‖w‖₂ of a flat vector: over the shards, the local norms' squares
+        summed, then the square root, as DTensor reduces a norm."""
+        local = torch.linalg.vector_norm(w)
+        if not (self.dtensor and self.groups):
+            return local
+        return self.sum(local ** 2) ** 0.5
 
 
 def _short_setup(b, x0, maxiter, rtol, atol, M):

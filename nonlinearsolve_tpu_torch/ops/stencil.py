@@ -61,8 +61,9 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 def _periodic_lap(w):
-    return (torch.roll(w, 1, 0) + torch.roll(w, -1, 0)
-            + torch.roll(w, 1, 1) + torch.roll(w, -1, 1) - 4.0 * w)
+    roll = _backend.roll            # torch.roll; a DTensor's as two slices
+    return (roll(w, 1, 0) + roll(w, -1, 0)
+            + roll(w, 1, 1) + roll(w, -1, 1) - 4.0 * w)
 
 
 def _scalars(p, dtype):

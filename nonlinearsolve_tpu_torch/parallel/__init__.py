@@ -3,7 +3,10 @@
 ordinary solve on a DTensor state), the explicit per-shard tier with ring
 halo exchanges (the z-sharded 3D stencil on K11), the row-partitioned CSR
 matvec with K5 on each shard (``sparse_dist.py``), the global dot and the
-weak-scaling reports."""
+weak-scaling reports.  Importing it registers the port's DTensor
+sharding rules (``dtensor_rules.py``, ROADMAP C.6)."""
+
+from . import dtensor_rules  # noqa: F401  (registers the rules)
 
 from .mesh import create_mesh, replicated, row_sharding
 from .distributed import (distributed_solve, halo_exchange,

@@ -20,8 +20,12 @@ the JAX package's results computed in the parent and saved in DIR as
   (``:126-168``) within 1e-5 of the JAX package's single-device root
   (world 4), with K1's J·v and, through ``distributed_solve``, with the
   reverse-over-reverse J·v, which equals the unsharded J·v within 1e-12
-  there (ROADMAP C.5); on one mesh axis that J·v still fails inside
-  torch's DTensor, which the world-2 worker holds as a witness (C.6).
+  there (ROADMAP C.5);
+- the same Brusselator through ``distributed_solve`` with the AD J·v on
+  the one-axis mesh, rows or columns sharded (worlds 2 and 4): Success
+  within 1e-5 of that root, with the unsharded solve's NLStats, the J·v
+  within 1e-12 of the unsharded one (C.6, repaired by
+  ``parallel/dtensor_rules.py``).
 
 Sizes are cut for the CPU's time: shape 4 to an 8² grid (the dryrun's
 16²), the config-5 shape to 32² (its 128²).
@@ -319,18 +323,15 @@ def _check_distributed_solve(mesh, ref):
         [int(getattr(plain.stats, k)) for k in ("nf", "nsteps")]
 
 
-def _check_mesh_2x2(ref):
+def _brusselator_16():
+    """The 16² Brusselator of ``__graft_entry__.py``'s 2D-mesh shape: its
+    state, parameters and the per-component multigrid-preconditioned
+    Newton–GMRES(30)."""
     import nonlinearsolve_tpu_torch as tnls
-    from nonlinearsolve_tpu_torch.core.autodiff import jvp
     from nonlinearsolve_tpu_torch.models import brusselator
     from nonlinearsolve_tpu_torch.ops.multigrid import \
         multigrid_preconditioner
-    from nonlinearsolve_tpu_torch.parallel import (create_mesh,
-                                                   distributed_solve)
-    from torch.distributed.tensor import Shard, distribute_tensor
-    from torch.distributed.tensor.experimental import implicit_replication
 
-    mesh2 = create_mesh((2, 2), ("x", "y"))
     N2 = 16
     u0 = brusselator.init_u0(N2, device="cpu")
     p = brusselator.default_p(N2, device="cpu")
@@ -345,6 +346,41 @@ def _check_mesh_2x2(ref):
         linsolve=tnls.LinearSolver(method="gmres", restart=30,
                                    krylov_maxiter=400, precond_fn=pm),
         forcing=tnls.EisenstatWalkerForcing(eta_max=1e-2))
+    return u0, p, alg
+
+
+def _ad_jvp_error(mesh, placements, u0, p):
+    """The AD J·v of ``brusselator_2d`` at ``u0`` in ``placements`` against
+    the unsharded ``torch.func.jvp``: its relative error, after checking
+    that the J·v comes back in ``placements`` and the residual equals the
+    unsharded one."""
+    from nonlinearsolve_tpu_torch.core.autodiff import jvp
+    from nonlinearsolve_tpu_torch.models import brusselator
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    f = lambda U: brusselator.brusselator_2d(U, p)   # noqa: E731
+    u0s = distribute_tensor(u0, mesh, placements, src_data_rank=None)
+    t = torch.randn(u0.shape, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(5))
+    v = distribute_tensor(t, mesh, placements, src_data_rank=None)
+    with implicit_replication():
+        fu, jv = jvp(f, u0s, v)
+    assert list(jv.placements) == placements
+    assert torch.equal(fu.full_tensor(), f(u0))
+    want = torch.func.jvp(f, (u0,), (t,))[1]
+    return float((jv.full_tensor() - want).abs().max() / want.abs().max())
+
+
+def _check_mesh_2x2(ref):
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.models import brusselator
+    from nonlinearsolve_tpu_torch.parallel import (create_mesh,
+                                                   distributed_solve)
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    mesh2 = create_mesh((2, 2), ("x", "y"))
+    u0, p, alg = _brusselator_16()
     placements = [Shard(0), Shard(1)]
     u0s = distribute_tensor(u0, mesh2, placements, src_data_rank=None)
     sol = tnls.solve(brusselator.problem(u0s, p, kernel_jvp=True), alg,
@@ -355,17 +391,8 @@ def _check_mesh_2x2(ref):
                                rtol=0, atol=1e-5)
     # ROADMAP C.5 (repaired): the AD J·v through torch.stack on this mesh
     # equals the unsharded one, and a distributed_solve with it converges
-    f = lambda U: brusselator.brusselator_2d(U, p)   # noqa: E731
-    t = torch.randn(u0.shape, dtype=torch.float64,
-                    generator=torch.Generator().manual_seed(5))
-    v = distribute_tensor(t, mesh2, placements, src_data_rank=None)
-    with implicit_replication():
-        fu, jv = jvp(f, u0s, v)
-    assert list(jv.placements) == placements
-    want = torch.func.jvp(f, (u0,), (t,))[1]
-    err = (jv.full_tensor() - want).abs().max() / want.abs().max()
-    assert float(err) <= 1e-12, float(err)
-    assert torch.equal(fu.full_tensor(), f(u0))
+    err = _ad_jvp_error(mesh2, placements, u0, p)
+    assert err <= 1e-12, err
     sol_ad = distributed_solve(brusselator.problem(u0, p, kernel_jvp=False),
                                alg, mesh2, abstol=1e-6, maxiters=200)
     assert sol_ad.retcode == tnls.ReturnCode.Success
@@ -373,26 +400,36 @@ def _check_mesh_2x2(ref):
                                ref["mesh2x2"], rtol=0, atol=1e-5)
 
 
-def _check_one_axis_stack_witness(mesh):
-    """ROADMAP C.6's witness: on a one-axis mesh the AD J·v of a residual
-    that selects and stacks its components (``brusselator_2d``) fails
-    inside torch's DTensor (``select_backward`` keeps the global sizes on
-    the local shards).  A torch that fixes it fails this check."""
-    from nonlinearsolve_tpu_torch.core.autodiff import jvp
-    from nonlinearsolve_tpu_torch.models import brusselator
-    from torch.distributed.tensor import Shard, distribute_tensor
-    from torch.distributed.tensor.experimental import implicit_replication
+def _check_one_axis_flagship(mesh, ref):
+    """ROADMAP C.6 (repaired): on a one-axis mesh, ``distributed_solve`` of
+    the Brusselator with the AD J·v (its residual selects and stacks its
+    components) with the state's rows and with its columns sharded.  Each
+    ends Success with ``sol.u`` in the requested placement, within 1e-5 of
+    the JAX package's root and with the NLStats of the unsharded solve; its
+    J·v is within 1e-12 of the unsharded J·v."""
+    import dataclasses
 
-    u0 = brusselator.init_u0(16, device="cpu")
-    p = brusselator.default_p(16, device="cpu")
-    us = distribute_tensor(u0, mesh, [Shard(0)], src_data_rank=None)
-    with implicit_replication():
-        try:
-            jvp(lambda U: brusselator.brusselator_2d(U, p), us, us)
-        except (IndexError, RuntimeError):
-            return
-    raise AssertionError("C.6 is repaired: the one-axis mesh takes the AD "
-                         "J·v of brusselator_2d now")
+    import nonlinearsolve_tpu_torch as tnls
+    from nonlinearsolve_tpu_torch.models import brusselator
+    from nonlinearsolve_tpu_torch.parallel import distributed_solve
+    from torch.distributed.tensor import DTensor, Shard
+
+    u0, p, alg = _brusselator_16()
+    prob = brusselator.problem(u0, p, kernel_jvp=False)
+    plain = tnls.solve(prob, alg, abstol=1e-6, maxiters=200)
+    assert plain.retcode == tnls.ReturnCode.Success
+    for axis in (0, 1):
+        err = _ad_jvp_error(mesh, [Shard(axis)], u0, p)
+        assert err <= 1e-12, (axis, err)
+        sol = distributed_solve(prob, alg, mesh, shard_axis=axis,
+                                abstol=1e-6, maxiters=200)
+        assert sol.retcode == tnls.ReturnCode.Success, (axis, sol.retcode)
+        assert isinstance(sol.u, DTensor)
+        assert list(sol.u.placements) == [Shard(axis)]
+        np.testing.assert_allclose(sol.u.full_tensor().numpy(),
+                                   ref["mesh2x2"], rtol=0, atol=1e-5)
+        assert dataclasses.asdict(sol.stats) == \
+            dataclasses.asdict(plain.stats), (axis, sol.stats, plain.stats)
 
 
 def _check_dryrun_shape4(mesh, ref):
@@ -478,8 +515,7 @@ def _worker(rank, world, port, ref_dir):
         if world in (2, 4):
             _check_dryrun_shape4(mesh, ref)
             _check_config5(mesh, ref)
-        if world == 2:
-            _check_one_axis_stack_witness(mesh)
+            _check_one_axis_flagship(mesh, ref)
         if world == 4:
             _check_mesh_2x2(ref)
     finally:
