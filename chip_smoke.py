@@ -13,8 +13,9 @@ result line.
 
 1. device: the card's name, and its name and power limit as nvidia-smi
    gives them (on a line of their own);
-2. build: nvcc of every kernel source and g++ of ``csrc/sparsetools.cpp``,
-   all started together, each timed;
+2. build: nvcc of every kernel source (and of ``bench/rd3d_designs.cu``,
+   K9-K11's first design) and g++ of ``csrc/sparsetools.cpp``, all started
+   together, each timed;
 3. kernels: K1 (brusselator_jvp) and K2 (brusselator_jvp_scaled, planar
    and interleaved) on the card against their plain PyTorch versions —
    N=512 and N=2048, f32 and f64, K2's max equal to max|out| of its own
@@ -74,8 +75,11 @@ result line.
    on) and K10 (rd3d_jvp_scaled: bz 4 and 8) on the card against their
    plain versions — 256³ and (40, 72, 100) (ny, nx not multiples of a
    warp), f32 and f64, seeded on the card by a torch.Generator, and a NaN
-   that must come out of K10's absmax; the 256³ cases timed as above, in
-   the configurations the 3D path runs (K9 bz=4 double-buffered, K10 bz=8);
+   that must come out of K10's absmax; each bit for bit the first design
+   of the same kernels (``bench/rd3d_designs.cu``: one thread a column) at
+   every bz, K10's max too; the 256³ cases timed as above, in the
+   configurations the 3D path runs (K9 bz=4 double-buffered, K10 bz=8),
+   the first design timed beside each in turns (new, first, first, new);
 9. 3D chain (counters at 0 just before, read just after): the chained,
    normalised matvec of examples/07_3d_reaction_diffusion_tpu.py:82-117 at
    256³ f32 (K10, the scale kept on the device), K10 launches = steps;
@@ -138,7 +142,9 @@ result line.
    planes: bit-equal to K9 on the whole grid at 256³ (4 and 8 slabs) and
    (40, 72, 100) (4 slabs, bz 5), f32 and f64; against its plain version
    at TOL, f32 and f64, on a 64-plane shard and on the whole 256³ grid as
-   one shard (there also bit-equal to K9); timed at f32 on both;
+   one shard (there also bit-equal to K9); every slab and shard bit for
+   bit the first design's; timed at f32 on both, the first design beside
+   it in turns;
 16. the distributed entry point (counters at 0 just before, read just
    after): NCCL at world size 1 (``init_process_group`` with a HashStore),
    ``parallel.scaling.weak_scaling_report([1], base_n=256, n_matvecs=50,
@@ -437,7 +443,11 @@ result line.
    DTensor's collectives in one J·v and the idle share.  At world size 1
    every shard is the whole grid: this holds the port's DTensor rules
    (``parallel/dtensor_rules.py``) to the card's torch, not a shard's
-   sizes (the gloo tests do that);
+   sizes (the gloo tests do that).  (g) The residual idioms of ROADMAP
+   C.10 (``torch.roll``, ``index_select``, ``X[..., idx]``) on a (64, 64,
+   2) f64 state under Shard(0) and Shard(1): the AD J·v within 1e-12 of
+   ``torch.func.jvp`` unsharded, in the state's placements, and which
+   rules this torch takes from the port;
 28. lockstep first-order ensembles and the AOT round trip, f64, counters
    at 0 just before each run (``--only 28`` runs it alone).  (a) The
    23-problem #9 (n = 10) from 65,536 seeded starts under NewtonRaphson,
@@ -467,7 +477,10 @@ result line.
    ``export_solver`` of NewtonRaphson on the N = 32 dense Brusselator,
    ``deserialize_solver``, a call on the card with a fresh p: bit for
    bit ``solve``'s; the ``batch="b"`` artifact at two batch sizes, each
-   row within 1e-12 of its lone solve;
+   row within 1e-12 of its lone solve.  (d) Templates that carry more
+   than the residual, N = 32 f64 on a fresh p: the Jacobian written out
+   (``jac``), Newton–GMRES(8) with the FFT preconditioner's factory, and
+   a dict state; each loaded solve bit for bit ``solve``'s, Success;
 29. the kernels line (each SpMV kernel's row with its reverse rule's
    numbers from 23 (c), K1, K4 and the selection with their launches
    in phase 26, and K5's row with its launches and time on the sharded
@@ -1004,6 +1017,79 @@ def rd3d_bound_ms(name, numel, dtype, itemsize):
     return roofline_ms(nbytes, FLOPS_PER_POINT[name] * numel, dtype)
 
 
+DESIGNS_3D = "nonlinearsolve_tpu_torch/bench/rd3d_designs.cu"
+
+
+def build_rd3d_designs(_backend):
+    """nvcc of ``bench/rd3d_designs.cu`` (K9-K11's first design, one thread
+    a column) with the package's flags, into the package's build
+    directory."""
+    from pathlib import Path
+    here = Path(os.path.dirname(os.path.abspath(__file__)))
+    return _backend.compile_shared(here / DESIGNS_3D, "rd3d_designs", "nvcc",
+                                   _backend._find_nvcc(), _backend.NVCC_FLAGS)
+
+
+class ColumnRd3d:
+    """K9-K11's first design, called on the wrappers' own arguments
+    (``ops/stencil3d.py`` ``_scalar_args``, the periodic halo planes) and
+    counted nowhere: the yardstick the redesign is held to bit for bit and
+    timed beside."""
+
+    def __init__(self, torch, _backend, stencil3d, so):
+        import ctypes
+        self.torch, self._backend, self.s3 = torch, _backend, stencil3d
+        self.lib = ctypes.CDLL(str(so))
+        for name, argtypes in stencil3d._SIGNATURES.items():
+            fn = getattr(self.lib, "column_" + name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def _check(self, rc, what):
+        if rc != 0:
+            raise RuntimeError(f"column {what}: CUDA launch failed ({rc})")
+
+    def jvp(self, u, t, D, bz, lo=None, hi=None, n_global=None):
+        """K9 (``lo``/``hi`` None: the periodic planes) or K11."""
+        b, s3 = self._backend, self.s3
+        dtype, shape, d, h2 = s3._scalar_args(u, t, D, n_global)
+        if lo is None:
+            lo, hi = s3._halo_planes(t, shape)
+        out = self.torch.empty_like(u)
+        rc = getattr(self.lib, f"column_rd3d_jvp_{s3._SUFFIX[dtype]}")(
+            b.ptr(u), b.ptr(t), b.ptr(lo), b.ptr(hi), b.ptr(d), h2,
+            b.ptr(out), shape[0], shape[1], shape[2], bz,
+            b.stream_handle(u))
+        self._check(rc, "rd3d_jvp")
+        return out
+
+    def scaled(self, u, t, D, inv_scale, bz):
+        """K10."""
+        from nonlinearsolve_tpu_torch.ops.stencil import _inv_scale_tensor
+        b, s3 = self._backend, self.s3
+        dtype, shape, d, h2 = s3._scalar_args(u, t, D)
+        inv = _inv_scale_tensor(inv_scale, dtype, u.device)
+        lo, hi = s3._halo_planes(t, shape)
+        out = self.torch.empty_like(u)
+        mx = self.torch.zeros((), dtype=dtype, device=u.device)
+        rc = getattr(self.lib, f"column_rd3d_jvp_scaled_{s3._SUFFIX[dtype]}")(
+            b.ptr(u), b.ptr(t), b.ptr(lo), b.ptr(hi), b.ptr(d), h2,
+            b.ptr(inv), b.ptr(out), b.ptr(mx), shape[0], shape[1], shape[2],
+            bz, b.stream_handle(u))
+        self._check(rc, "rd3d_jvp_scaled")
+        return out, mx
+
+
+def side_by_side_ms(torch, new, old, **kw):
+    """CUDA-event times of ``new`` and ``old`` in turns (new, old, old,
+    new), each ``graph_time_ms``: ([new readings], [old readings])."""
+    a = [graph_time_ms(torch, new, **kw)]
+    b = [graph_time_ms(torch, old, **kw)]
+    b.append(graph_time_ms(torch, old, **kw))
+    a.append(graph_time_ms(torch, new, **kw))
+    return a, b
+
+
 def bit_equal(torch, a, b):
     """Equal bit for bit (so -0 is not +0); a NaN matches any NaN."""
     ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
@@ -1163,15 +1249,17 @@ def k2_side_by_side_check(torch, stencil, inputs, rng, replays=100):
         raise AssertionError(f"K2 graphs side by side: {rec}")
 
 
-def k11_kernel_checks(torch, dev, stencil3d):
+def k11_kernel_checks(torch, dev, stencil3d, column):
     """K11 on z-slabs at 256³ (S = 4 and 8 slabs, bz 8) and on (40, 72,
     100) (S = 4, bz 5), f32 and f64: each slab given its neighbours' planes
     and h of the whole grid; the slabs together must be bit-equal to K9 on
-    the whole grid.  Then K11 against its plain version (TOL), f32 and f64,
-    on a 64-plane shard of the 256³ grid and on the whole 256³ grid as one
-    shard (the weak-scaling report's shard at world size 1; there also
-    bit-equal to K9), and timed at f32 on both.  Returns the f32 timing
-    records by shard."""
+    the whole grid, and each slab to the first design (``column``) on the
+    same slab.  Then K11 against its plain version (TOL) and bit for bit
+    against the first design, f32 and f64, on a 64-plane shard of the 256³
+    grid and on the whole 256³ grid as one shard (the weak-scaling report's
+    shard at world size 1; there also bit-equal to K9), and timed at f32
+    on both, the first design beside it in the same call.  Returns the f32
+    timing records by shard."""
     gen = torch.Generator(device=dev).manual_seed(4)
     records = {}
     for shape, slabs, bz in (((256, 256, 256), (4, 8), 8),
@@ -1183,22 +1271,26 @@ def k11_kernel_checks(torch, dev, stencil3d):
             t = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
             D = torch.tensor(0.01, dtype=dtype, device=dev)
             whole = stencil3d.rd3d_jvp_blocked(u, t, D, bz=bz)
-            equal = {}
+            equal, first = {}, {}
             for S in slabs:
                 nz = shape[0] // S
-                parts = []
+                parts, same = [], True
                 for s in range(S):
                     z = slice(s * nz, (s + 1) * nz)
                     lo = t[(s * nz - 1) % shape[0]][None].contiguous()
                     hi = t[((s + 1) * nz) % shape[0]][None].contiguous()
+                    us, ts = u[z].contiguous(), t[z].contiguous()
                     parts.append(stencil3d.rd3d_jvp_blocked_halo(
-                        u[z].contiguous(), t[z].contiguous(), lo, hi, D,
-                        bz=bz, n_global=shape[0]))
+                        us, ts, lo, hi, D, bz=bz, n_global=shape[0]))
+                    same = same and bit_equal(torch, parts[-1], column.jvp(
+                        us, ts, D, bz, lo, hi, shape[0]))
                 equal[f"S={S}"] = bool(torch.equal(torch.cat(parts), whole))
+                first[f"S={S}"] = same
                 del parts
             rec = {"phase": "kernel_check_k11_shards", "shape": list(shape),
                    "dtype": dname, "bz": bz, "bit_equal_to_k9": equal,
-                   "ok": all(equal.values())}
+                   "bit_equal_to_first_design": first,
+                   "ok": all(equal.values()) and all(first.values())}
             if shape[0] == 256:
                 # K11 against its plain version on a 64-plane shard (given
                 # its neighbours' planes) and on the whole grid as one shard
@@ -1220,7 +1312,11 @@ def k11_kernel_checks(torch, dev, stencil3d):
                     abs_err, rel = rel_err(got, ref)
                     check = {"shape": list(a.shape), "max_abs_err": abs_err,
                              "rel_err": rel, "tolerance": TOL[dname],
-                             "ok": rel <= TOL[dname]}
+                             "bit_equal_to_first_design": bit_equal(
+                                 torch, got, column.jvp(a, b, D, 8, la, hb,
+                                                        256))}
+                    check["ok"] = (rel <= TOL[dname]
+                                   and check["bit_equal_to_first_design"])
                     if name == "whole_256":
                         check["bit_equal_to_k9"] = bool(torch.equal(got,
                                                                     whole))
@@ -1230,9 +1326,11 @@ def k11_kernel_checks(torch, dev, stencil3d):
                     del got, ref
                     if dtype != torch.float32:
                         continue
-                    ms = graph_time_ms(
+                    ms_new, ms_first = side_by_side_ms(
                         torch, lambda: stencil3d.rd3d_jvp_blocked_halo(
-                            a, b, la, hb, D, bz=8, n_global=256))
+                            a, b, la, hb, D, bz=8, n_global=256),
+                        lambda: column.jvp(a, b, D, 8, la, hb, 256))
+                    ms = sum(ms_new) / 2
                     plain_ms = graph_time_ms(
                         torch, lambda: stencil3d.rd3d_jvp_blocked_halo_plain(
                             a, b, la, hb, D, 256), calls=5, replays=10)
@@ -1244,6 +1342,10 @@ def k11_kernel_checks(torch, dev, stencil3d):
                         "phase": "kernel_time_k11", "case": name,
                         "shape": list(a.shape), "dtype": dname,
                         "max_abs_err": abs_err, "ms": ms,
+                        "ms_readings": ms_new,
+                        "first_design_ms_readings": ms_first,
+                        "first_design_share_of_bound":
+                            bms / (sum(ms_first) / 2),
                         "plain_ms": plain_ms, "bound_ms": bms,
                         "bound_by": by, "share_of_bound": bms / ms}
                     emit(records[name])
@@ -1638,11 +1740,13 @@ def bsr_kernel_checks(torch, dev, spmv, Jb):
     return records
 
 
-def rd3d_kernel_checks(torch, dev, stencil3d):
+def rd3d_kernel_checks(torch, dev, stencil3d, column):
     """K9 and K10 against their plain versions at RD3D_SHAPES, f32 and f64,
     every bz / double_buffer the wrappers take on the 3D paths, and a NaN
-    in the tangent; the 256³ cases timed.  Returns the 256³ f32 records
-    by kernel."""
+    in the tangent; and bit for bit against their first design
+    (``column``, ``bench/rd3d_designs.cu``) at each bz, K10's max too.  The
+    256³ cases timed, the first design beside them in the same call.
+    Returns the 256³ f32 records by kernel."""
     gen = torch.Generator(device=dev).manual_seed(3)
     summary = {}
     for shape in RD3D_SHAPES:
@@ -1655,30 +1759,39 @@ def rd3d_kernel_checks(torch, dev, stencil3d):
             inv = torch.tensor(0.5, dtype=dtype, device=dev)
             ref = stencil3d.rd3d_jvp_blocked_plain(u, t, D)
             ref_s, m_ref = stencil3d.rd3d_jvp_scaled_plain(u, t, D, inv)
-            errs = {}
+            errs, same = {}, {}
             for bz in (4, 8):
                 for db in (False, True):
-                    errs[f"rd3d_jvp bz={bz} db={db}"] = rel_err(
-                        stencil3d.rd3d_jvp_blocked(u, t, D, bz=bz,
-                                                   double_buffer=db), ref)
+                    got = stencil3d.rd3d_jvp_blocked(u, t, D, bz=bz,
+                                                     double_buffer=db)
+                    errs[f"rd3d_jvp bz={bz} db={db}"] = rel_err(got, ref)
+                    same[f"rd3d_jvp bz={bz} db={db}"] = bit_equal(
+                        torch, got, column.jvp(u, t, D, bz))
                 out, m = stencil3d.rd3d_jvp_scaled(u, t, D, inv, bz=bz)
                 errs[f"rd3d_jvp_scaled bz={bz}"] = rel_err(out, ref_s)
                 errs[f"rd3d_jvp_scaled bz={bz} absmax"] = rel_err(m, m_ref)
+                out_c, m_c = column.scaled(u, t, D, inv, bz)
+                same[f"rd3d_jvp_scaled bz={bz}"] = (
+                    bit_equal(torch, out, out_c) and bit_equal(torch, m, m_c))
+                del got, out, out_c
             tn = t.clone()
             tn[shape[0] // 2, 7, 11] = float("nan")
             m_nan = stencil3d.rd3d_jvp_scaled(u, tn, D, inv, bz=4)[1]
             torch.cuda.synchronize()
             nan_ok = bool(torch.isnan(m_nan))
-            ok = nan_ok and all(e[1] <= TOL[dname] for e in errs.values())
+            ok = (nan_ok and all(e[1] <= TOL[dname] for e in errs.values())
+                  and all(same.values()))
             rec = {"phase": "kernel_check_3d", "shape": list(shape),
                    "dtype": dname, "tolerance": TOL[dname],
                    "rel_err": {k: e[1] for k, e in errs.items()},
                    "max_abs_err": max(e[0] for e in errs.values()),
+                   "bit_equal_to_first_design": same,
                    "nan_absmax": float(m_nan), "ok": ok}
             emit(rec)
             if not ok:
                 raise AssertionError(f"K9/K10 {shape} {dname} disagree with "
-                                     f"their plain versions: {rec}")
+                                     f"their plain versions or their first "
+                                     f"design: {rec}")
             if shape != RD3D_SHAPES[0]:
                 continue
             cases = {
@@ -1686,14 +1799,17 @@ def rd3d_kernel_checks(torch, dev, stencil3d):
                     "bz=4 double_buffer=True (the 3D solve's)",
                     lambda: stencil3d.rd3d_jvp_blocked(u, t, D, bz=4,
                                                        double_buffer=True),
+                    lambda: column.jvp(u, t, D, 4),
                     lambda: stencil3d.rd3d_jvp_blocked_plain(u, t, D)),
                 "rd3d_jvp_scaled": (
                     "bz=8 (the 3D chain's)",
                     lambda: stencil3d.rd3d_jvp_scaled(u, t, D, inv, bz=8),
+                    lambda: column.scaled(u, t, D, inv, 8),
                     lambda: stencil3d.rd3d_jvp_scaled_plain(u, t, D, inv)),
             }
-            for name, (config, kern, plain) in cases.items():
-                ms = graph_time_ms(torch, kern)
+            for name, (config, kern, first, plain) in cases.items():
+                ms_new, ms_first = side_by_side_ms(torch, kern, first)
+                ms = sum(ms_new) / 2
                 plain_ms = graph_time_ms(torch, plain, calls=5, replays=10)
                 bms, by = rd3d_bound_ms(name, u.numel(), dname,
                                         u.element_size())
@@ -1702,6 +1818,10 @@ def rd3d_kernel_checks(torch, dev, stencil3d):
                 timing = {"phase": "kernel_time_3d", "case": name,
                           "config": config, "shape": list(shape),
                           "dtype": dname, "max_abs_err": abs_err, "ms": ms,
+                          "ms_readings": ms_new,
+                          "first_design_ms_readings": ms_first,
+                          "first_design_share_of_bound":
+                              bms / (sum(ms_first) / 2),
                           "plain_ms": plain_ms, "bound_ms": bms,
                           "bound_by": by, "share_of_bound": bms / ms,
                           "gb_per_s": 3 * u.numel() * u.element_size()
@@ -4965,6 +5085,7 @@ def slice18_phase(torch, nls, _backend, brusselator, spmv,
         failed += _flagship_sharded_phase(torch, nls, _backend, brusselator,
                                           fft_poisson_preconditioner, mesh,
                                           card)
+        failed += _dtensor_idioms_phase(torch, mesh, card)
     finally:
         dist.destroy_process_group()
     emit({"phase": "slice18_timing",
@@ -4972,6 +5093,73 @@ def slice18_phase(torch, nls, _backend, brusselator, spmv,
     if failed:
         raise AssertionError(f"phase 27 failed: {failed}")
     return k5_rec
+
+
+def _dtensor_idioms_phase(torch, mesh, card):
+    """Phase 27 (g): the residual idioms of ROADMAP C.10 (``torch.roll``,
+    ``index_select``, ``X[..., idx]``) on a (64, 64, 2) f64 state under
+    ``Shard(0)`` and ``Shard(1)`` (world size 1, NCCL): the AD J·v
+    (``core.autodiff.jvp``, the VJP of the VJP on the DTensor) within
+    1e-12 of ``torch.func.jvp`` on the whole tensor, in the state's
+    placements, the residual equal; and which of the rules this torch
+    takes from ``parallel/dtensor_rules.py``.  Returns the failed
+    checks."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from nonlinearsolve_tpu_torch.core import autodiff
+    from nonlinearsolve_tpu_torch.parallel import dtensor_rules
+    aten = torch.ops.aten
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    X = torch.rand((64, 64, 2), generator=g, dtype=torch.float64,
+                   device=dev) + 0.5
+    T = torch.randn((64, 64, 2), generator=g, dtype=torch.float64,
+                    device=dev)
+    swap = torch.tensor([1, 0], device=dev)
+    idioms = {
+        "torch_roll": lambda U: U * torch.roll(U, 1, 0)
+        - torch.roll(U, -1, 1),
+        "index_select": lambda U: U * U.index_select(-1, swap),
+        "index_tensor": lambda U: U * U[..., swap],
+    }
+    prop = DTensor._op_dispatcher.sharding_propagator
+    port = {str(op): dtensor_rules.__name__ in getattr(
+        getattr(fn, "func", fn), "__module__", "")
+        for op in (aten.roll.default, aten.index_put.default,
+                   aten.index_add.default)
+        for fn in [prop.op_single_dim_strategy_funcs.get(op)
+                   or prop.op_strategy_funcs.get(op)] if fn is not None}
+    rows, failed = {}, []
+    for name, f in idioms.items():
+        for axis in (0, 1):
+            key = f"{name} Shard({axis})"
+            try:
+                xs = distribute_tensor(X, mesh, [Shard(axis)],
+                                       src_data_rank=None)
+                ts = distribute_tensor(T, mesh, [Shard(axis)],
+                                       src_data_rank=None)
+                with implicit_replication():
+                    fu, jv = autodiff.jvp(f, xs, ts)
+                want_fu, want = torch.func.jvp(f, (X,), (T,))
+                err = float((jv.full_tensor() - want).abs().max()
+                            / want.abs().max())
+                rows[key] = {"rel_err": err,
+                             "placements": [str(q) for q in jv.placements],
+                             "fu_equal": bool(torch.equal(fu.full_tensor(),
+                                                          want_fu))}
+                ok = (err <= 1e-12 and rows[key]["fu_equal"]
+                      and rows[key]["placements"] == [str(Shard(axis))])
+            except (RuntimeError, NotImplementedError, IndexError) as e:
+                rows[key] = {"error": f"{type(e).__name__}: "
+                                      f"{str(e).splitlines()[0]}"}
+                ok = False
+            if not ok:
+                failed.append(f"(g) {key}")
+    emit({"phase": "slice21_dtensor_idioms", "world_size": 1,
+          "torch": torch.__version__, "port_rules": port, "cases": rows,
+          "limit": 1e-12, "ok": not failed, "card": card})
+    return failed
 
 
 def _flagship_sharded_phase(torch, nls, _backend, brusselator,
@@ -5300,6 +5488,100 @@ def _lockstep_run(torch, nls, _backend, name, make, base, card, u0s=None,
     return out, ok, sol
 
 
+def _brusselator_jac(torch, N, dev):
+    """The N² Brusselator's Jacobian written out, ``jac(U, p)`` -> (2N²,
+    2N²) dense: the periodic 5-point Laplacian times α/dx² on each
+    component plus the 2×2 reaction block of each point, its 12 nonzeros
+    a point put once each (no accumulation, so no order of sums)."""
+    import numpy as np
+    k = np.arange(N * N * 2).reshape(N, N, 2)
+    nb = [np.roll(k, s, a) for s, a in ((1, 0), (-1, 0), (1, 1), (-1, 1))]
+    rows = np.concatenate([k.ravel()] * 4 + [k.ravel(), k[..., 0].ravel(),
+                                             k[..., 1].ravel()])
+    cols = np.concatenate([b.ravel() for b in nb]
+                          + [k.ravel(), k[..., 1].ravel(),
+                             k[..., 0].ravel()])
+    rows = torch.tensor(rows, device=dev)
+    cols = torch.tensor(cols, device=dev)
+    n = 2 * N * N
+
+    def jac(U, p):
+        A, B, alpha = p[0], p[1], p[2] / p[3] ** 2
+        u, v = U[..., 0], U[..., 1]
+        uv = u * v
+        diag = torch.stack([2.0 * uv - (A + 1.0) - 4.0 * alpha,
+                            -(u * u) - 4.0 * alpha], -1)
+        side = alpha * torch.ones(4 * n, dtype=U.dtype, device=U.device)
+        vals = torch.cat([side, diag.reshape(-1), (u * u).reshape(-1),
+                          (A - 2.0 * uv).reshape(-1)])
+        J = torch.zeros((n, n), dtype=U.dtype, device=U.device)
+        return J.index_put((rows, cols), vals)
+    return jac
+
+
+def _aot_carried_phase(torch, nls, brusselator, card):
+    """Phase 28 (d): templates that carry more than the residual (ROADMAP
+    C.8) round-tripped on the card at N = 32, f64: the Brusselator with
+    its Jacobian written out (``jac``), Newton–GMRES(8) with the FFT
+    Poisson preconditioner made by its factory (crossing as the factory's
+    call), and the state as a dict of its two components.  Each loaded
+    solve bit for bit the in-process solve, retcode and NLStats equal, on
+    a fresh p.  Returns the failed checks."""
+    from nonlinearsolve_tpu_torch.ops.preconditioners import (
+        fft_poisson_preconditioner)
+    dev, f64, N = torch.device("cuda"), torch.float64, 32
+    base = brusselator.make_problem(N, f64, device=dev)
+    f2 = brusselator.brusselator_2d
+    p2 = base.p.clone()
+    p2[0] = 3.1
+
+    def dict_f(d, p):
+        out = f2(torch.stack([d["u"], d["v"]], -1), p)
+        return {"u": out[..., 0], "v": out[..., 1]}
+
+    pm = fft_poisson_preconditioner((N, N), alpha=10.0, h=1.0 / (N - 1),
+                                    shift=3.0, n_components=2)
+    gmres = nls.NewtonRaphson(linsolve=nls.LinearSolver(
+        method="gmres", restart=8, krylov_maxiter=200, precond_fn=pm))
+    cases = {
+        "jac": (nls.NonlinearProblem(nls.NonlinearFunction(
+            f2, jac=_brusselator_jac(torch, N, dev)), base.u0, base.p),
+            nls.NewtonRaphson(), base.u0),
+        "fft_factory": (nls.NonlinearProblem(f2, base.u0, base.p), gmres,
+                        base.u0),
+        "dict_state": (nls.NonlinearProblem(dict_f, {
+            "u": base.u0[..., 0].clone(), "v": base.u0[..., 1].clone()},
+            base.p), nls.NewtonRaphson(), {"u": base.u0[..., 0].clone(),
+                                           "v": base.u0[..., 1].clone()}),
+    }
+    rows, failed = {}, []
+    for name, (prob, alg, u0) in cases.items():
+        t0 = time.perf_counter()
+        data = nls.export_solver(prob, alg, abstol=1e-10)
+        export_s = time.perf_counter() - t0
+        got = nls.deserialize_solver(data)(u0, p2)
+        ref = nls.solve(prob.remake(u0=u0, p=p2), alg, abstol=1e-10)
+        torch.cuda.synchronize()
+        gu = got.u if isinstance(got.u, dict) else {"u": got.u}
+        ru = ref.u if isinstance(ref.u, dict) else {"u": ref.u}
+        same = (gu.keys() == ru.keys()
+                and all(bit_equal(torch, gu[k], ru[k]) for k in gu)
+                and int(got.retcode) == int(ref.retcode)
+                and _stats_dict(got.stats) == _stats_dict(ref.stats))
+        rows[name] = {"artifact_bytes": len(data), "export_s": export_s,
+                      "retcode": int(got.retcode),
+                      "stats": _stats_dict(got.stats),
+                      "on_card": all(v.device.type == "cuda"
+                                     for v in gu.values()),
+                      "bit_equal_to_solve": same}
+        if not (same and rows[name]["on_card"]
+                and got.retcode == nls.ReturnCode.Success):
+            failed.append(f"(d) {name}")
+    emit({"phase": "slice21_aot_carried", "N": N, "dtype": "float64",
+          "cases": rows, "ok": not failed, "card": card})
+    return failed
+
+
 def lockstep_phase(torch, nls, _backend, brusselator, card):
     """Phase 28 (see the module docstring)."""
     import numpy as np
@@ -5407,6 +5689,7 @@ def lockstep_phase(torch, nls, _backend, brusselator, card):
           "batched": batches, "ok": ok, "card": card})
     if not ok:
         failed.append("(c)")
+    failed += _aot_carried_phase(torch, nls, brusselator, card)
     emit({"phase": "lockstep_done",
           "phase_seconds": time.perf_counter() - t_phase, "card": card})
     if failed:
@@ -5532,6 +5815,7 @@ def main(argv):
     builds = {"stencil": lambda: _backend.build("stencil"),
               "spmv": lambda: _backend.build("spmv"),
               "stencil3d": lambda: _backend.build("stencil3d"),
+              "rd3d_designs": lambda: build_rd3d_designs(_backend),
               "sparsetools": native.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(timed_build, b) for k, b in builds.items()}
@@ -5540,6 +5824,7 @@ def main(argv):
     spmv._lib()
     stencil3d._lib()
     native.get_lib()
+    column = ColumnRd3d(torch, _backend, stencil3d, built["rd3d_designs"][0])
     build_s = time.perf_counter() - t0
     for name, (so, secs) in built.items():
         ptxas = [ln.strip() for ln in _backend.BUILD_LOGS.get(name, "")
@@ -5921,7 +6206,7 @@ def main(argv):
     del cprob, csol, back
 
     # --- 8. 3D kernels against their plain versions -------------------------
-    rd3d_summary = rd3d_kernel_checks(torch, dev, stencil3d)
+    rd3d_summary = rd3d_kernel_checks(torch, dev, stencil3d, column)
 
     # --- 9. 3D chain: the example's chained normalised matvec, 256³ f32 -----
     N3 = 256
@@ -6428,7 +6713,7 @@ def main(argv):
     emit(basis_rec)
 
     # --- 15. K11 on z-slabs against K9 on the whole grid ---------------------
-    k11_summary = k11_kernel_checks(torch, dev, stencil3d)
+    k11_summary = k11_kernel_checks(torch, dev, stencil3d, column)
 
     # --- 16. the distributed entry point: NCCL at world size 1, 256³ --------
     import torch.distributed as dist

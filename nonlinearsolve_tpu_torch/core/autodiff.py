@@ -53,15 +53,17 @@ def jvp(f: Callable, u, v):
 def _dtensor_jvp(f: Callable, u, v):
     """``(f(u), J(u)·v)`` as the VJP of the VJP by ``torch.autograd``.
 
-    On one mesh axis it runs in the state's placements; a residual that
-    selects, unbinds or stacks components takes the DTensor rules that
-    ``parallel/dtensor_rules.py`` registers (ROADMAP C.6).  On a mesh of
-    two or more axes the VJP of the VJP runs on the state and the tangent
-    replicated over the mesh, and both results go back to the state's
-    placements (one all_gather of each a product; ROADMAP C.5)."""
+    On one mesh axis it runs in the state's placements, and a residual
+    shaped like the state comes back in them with its J·v; a residual
+    that selects, unbinds, stacks, rolls or indexes components takes the
+    DTensor rules that ``parallel/dtensor_rules.py`` registers (ROADMAP
+    C.6, C.10).  On a mesh of two or more axes the VJP of the VJP runs on
+    the state and the tangent replicated over the mesh, and both results
+    go back to the state's placements (one all_gather of each a product;
+    ROADMAP C.5)."""
+    from torch.distributed.tensor import DTensor, Replicate
     mesh = u.device_mesh
     if mesh.ndim > 1:
-        from torch.distributed.tensor import DTensor, Replicate
         rep = [Replicate()] * mesh.ndim
         fu, jv = _reverse_jvp(
             f, u.redistribute(mesh, rep),
@@ -70,7 +72,14 @@ def _dtensor_jvp(f: Callable, u, v):
             return fu, jv
         return (fu.redistribute(mesh, u.placements),
                 jv.redistribute(mesh, u.placements))
-    return _reverse_jvp(f, u, v)
+    fu, jv = _reverse_jvp(f, u, v)
+    if (isinstance(fu, DTensor) and isinstance(jv, DTensor)
+            and fu.shape == u.shape):
+        # on one rank DTensor's costs tie, and torch 2.11 may leave the
+        # residual and the J·v replicated there (no data moves)
+        fu, jv = (x if x.placements == u.placements
+                  else x.redistribute(mesh, u.placements) for x in (fu, jv))
+    return fu, jv
 
 
 def _reverse_jvp(f: Callable, u, v):

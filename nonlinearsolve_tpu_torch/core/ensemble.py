@@ -234,10 +234,10 @@ def _lone_options(prob, merged) -> bool:
                 "store_trace", "trace_level", "verbose", "time_phases")))
 
 
-def _batched_of(f, u0):
-    """The residual of a whole batch of flat rows, when ``f`` carries one
-    (``f.batched``: a loaded batched program, ``utils/aot.py``) and the
-    state is one tensor; else None."""
+def _batched_of(f, u0, jacobian=False):
+    """The residual (``jacobian``: the analytic Jacobian) of a whole batch
+    of flat rows, when ``f`` carries one (``f.batched``: a loaded batched
+    program, ``utils/aot.py``) and the state is one tensor; else None."""
     batched = getattr(f, "batched", None)
     if batched is None or not isinstance(u0, torch.Tensor):
         return None
@@ -245,7 +245,9 @@ def _batched_of(f, u0):
 
     def rows(X, p):
         B = X.shape[0]
-        return batched(X.reshape((B,) + shape), p).reshape(B, -1)
+        out = batched(X.reshape((B,) + shape), p)
+        return out.reshape(B, -1, X.shape[1]) if jacobian else out.reshape(
+            B, -1)
     return rows
 
 
@@ -318,7 +320,10 @@ def _solve_lockstep(prob, alg, u0s, ps, *, abstol=None, reltol=None,
         res = BatchedResidual(f1=f1, p=P, pdim=pdim,
                               n_out=fu_first[0].numel(), jac1=jac1,
                               is_least_squares=is_lsq,
-                              batched=_batched_of(f.f, prob.u0))
+                              batched=_batched_of(f.f, prob.u0),
+                              jac_batched=(None if jac1 is None else
+                                           _batched_of(f.jac, prob.u0,
+                                                       jacobian=True)))
         syncs0 = _backend.HOST_SYNCS["n"]
         run = run_simple_batched if simple else run_lockstep
         final = run(alg, res, termination_condition, X0,

@@ -29,6 +29,8 @@ class NonlinearFunction:
       ``CSR`` pattern, a COO ``(rows, cols)`` tuple or a dense mask), for
       colored sparse-AD Jacobians
     - ``colorvec``: a precomputed column coloring of that pattern
+    - ``resid_prototype``: a prototype of the residual; carried, read by
+      no solver (as in the JAX package)
     - ``initialization_data``: an ``InitializationData`` whose sub-problem
       is solved before the main solve
     """
@@ -40,6 +42,7 @@ class NonlinearFunction:
     jac_prototype: Any = None
     sparsity: Any = None
     colorvec: Any = None
+    resid_prototype: Any = None
     initialization_data: Any = None
 
     def __call__(self, u, p=None):

@@ -14,7 +14,9 @@ the FFT preconditioner does not apply.
 this is plain torch on the input's device, in the JAX package's order of
 operations, so f64 results equal its to rounding.  A DTensor input (a state
 sharded on a mesh) is gathered once an application and the V-cycle runs
-whole on every rank, each keeping its shard of the result.
+whole on every rank, each keeping its shard of the result.  The factory is
+tagged with ``utils/aot.py``'s ``carried_factory``, so a solver holding
+its product crosses ``export_solver`` as the call that made it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .. import _backend
+from ..utils.aot import carried_factory
 
 
 def _lap(u, bc: str):
@@ -60,6 +63,7 @@ def _prolong(u):
     return u
 
 
+@carried_factory
 def multigrid_preconditioner(grid_shape: Sequence[int], alpha, h, *,
                              c=None, bc: str = "periodic",
                              levels: int = None, nu: int = 2,

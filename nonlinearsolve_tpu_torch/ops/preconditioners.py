@@ -3,6 +3,10 @@
 ``fft_poisson_symbol`` and ``fft_poisson_preconditioner``).  Each returns a
 ``v -> M⁻¹ v`` callable for ``LinearSolver(precond_fn=...)``.
 
+Every factory here is tagged with ``utils/aot.py``'s ``carried_factory``:
+what it returns carries the call that made it, so a solver holding it
+crosses ``export_solver`` as that call.
+
 ``jacobi_preconditioner`` divides by a diagonal (zeros taken as 1);
 ``block_jacobi_preconditioner`` inverts the (n_blocks, b, b) diagonal blocks
 in one batched ``torch.linalg.inv`` (the JAX package's ``jnp.linalg.inv``)
@@ -36,14 +40,17 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .. import _backend
+from ..utils.aot import carried_factory
 
 
+@carried_factory
 def jacobi_preconditioner(diag):
     """``v ↦ v / diag``, with a zero of ``diag`` taken as 1."""
     safe = torch.where(diag == 0, torch.ones_like(diag), diag)
     return lambda v: v / safe
 
 
+@carried_factory
 def block_jacobi_preconditioner(blocks):
     """``blocks`` (n_blocks, b, b): the dense diagonal blocks, inverted once
     in a batch; ``v`` (n_blocks·b entries, any shape) is multiplied
@@ -75,6 +82,7 @@ def fft_poisson_symbol(shape: Sequence[int], alpha, h, shift=1.0,
     return (alpha / (h * h)) * sym - shift
 
 
+@carried_factory
 def fft_poisson_preconditioner(grid_shape: Sequence[int], alpha, h, *,
                                shift=1.0, n_components: int = 1,
                                component_axis: int = -1):
@@ -198,6 +206,7 @@ def _dft_apply(xr, xi, mats, axes, inverse=False, precision="highest"):
     return (xr * scale, xi * scale) if inverse else (xr, xi)
 
 
+@carried_factory
 def mxu_poisson_preconditioner(grid_shape: Sequence[int], alpha, h, *,
                                shift=1.0, n_components: int = 1,
                                precision="high"):
@@ -258,6 +267,7 @@ def _make_mxu_apply(grid_shape, n_components, prec, mats, inv_sym32):
     return apply
 
 
+@carried_factory
 def hybrid_poisson_preconditioner(grid_shape: Sequence[int], alpha, h, *,
                                   shift=1.0, n_components: int = 1,
                                   switch_abs, loose_precision=None):

@@ -11,13 +11,15 @@ K11 ``rd3d_jvp_blocked_halo(u, t, lo, hi, D, bz=, n_global=)`` replaces
 and ``hi`` (each (1, ny, nx)) were received from the neighbouring ranks,
 with h = 1/n_global.  All are CUDA C++ for ``sm_90a`` in
 ``csrc/stencil3d.cu``; that file's header says what bounds them on the H100
-(bytes: at f32 256³ about 201 MB of HBM traffic per call) and what the
-simple design does about it.
+(bytes: at f32 256³ about 201 MB of HBM traffic per call) and what its
+design does about it (a block a (y, x) tile marching z, a ``cp.async``
+ring of planes in shared memory, 16-byte loads and stores).
 
 On an (nz, ny, nx) grid, periodic on every axis, with h = 1/nz:
 ``out = (D/h²)·Δt + (1 − 3u²)·t``.  ``D/h²`` is formed in the state's dtype,
 as the JAX wrappers form it.  ``bz`` must divide nz, as in the JAX package;
-it is the number of z-planes one thread of the kernel marches over.
+it is the number of z-planes one block (and each of its threads) of the
+kernel marches over; the result does not depend on it.
 ``double_buffer`` is accepted and gives the same result: its DMA pipelining
 is the TPU's and has no counterpart here.
 

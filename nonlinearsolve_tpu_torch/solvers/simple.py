@@ -133,7 +133,9 @@ class BatchedResidual:
     (m, n)``: the analytic Jacobian of one row, or None (forward AD).
     ``batched(X, p) -> (B, m)``: the residual of all rows at once (a
     loaded ``torch.export`` program of the batched residual,
-    ``utils/aot.py``), which then takes the place of ``vmap(f1)``."""
+    ``utils/aot.py``), which then takes the place of ``vmap(f1)``;
+    ``jac_batched(X, p) -> (B, m, n)`` likewise the loaded program of the
+    batched analytic Jacobian, in place of ``vmap(jac1)``."""
 
     f1: Callable
     p: Any
@@ -142,6 +144,7 @@ class BatchedResidual:
     jac1: Optional[Callable] = None
     is_least_squares: bool = False
     batched: Optional[Callable] = None
+    jac_batched: Optional[Callable] = None
 
     def __call__(self, X):
         if self.batched is not None:
@@ -152,6 +155,8 @@ class BatchedResidual:
         """The Jacobians (B, m, n): the analytic one where given."""
         if self.jac1 is None:
             return self.jacfwd(X)
+        if self.jac_batched is not None:
+            return self.jac_batched(X, self.p)
         return torch.func.vmap(self.jac1, in_dims=(0, self.pdim))(X, self.p)
 
     def jacfwd(self, X):

@@ -17,6 +17,15 @@ The reaction–diffusion J·v that ``distributed_solve``'s one-axis checks
 run (``tests/test_torch_distributed_solve.py``) takes 12 all_gathers per
 product, as before the rules.
 
+The idioms run at world 1 too (no collective there), and the roll and
+``index_put`` rules the port adds where torch lacks them (C.10: torch
+2.11 has no rule for ``aten.roll``, and its ``index_put`` rule refuses the
+``None`` entries of ``X[..., idx]``'s VJP and of ``index_select``'s, which
+reaches ``index_put`` through ``aten.index_add``'s decomposition) are held
+to torch's own where this torch has them: the same single-dimension rows
+on the same arguments, and ``register()`` leaving torch's rules in
+place.
+
 This file runs itself as the worker (``python
 tests/test_torch_dtensor_rules.py --worker RANK WORLD PORT OUT``): one
 gloo launch per world size, whose rank 0 writes every case's outcome to
@@ -207,7 +216,7 @@ def outcomes(tmp_path_factory):
     one deadline."""
     deadline = time.monotonic() + 120.0
     got = {}
-    for world in (2, 4):
+    for world in (1, 2, 4):
         out = str(tmp_path_factory.mktemp(f"dtensor_rules_{world}")
                   / "results.json")
         for _ in range(3):
@@ -221,7 +230,7 @@ def outcomes(tmp_path_factory):
     return got
 
 
-@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("world", [1, 2, 4])
 @pytest.mark.parametrize("idiom", IDIOMS)
 def test_sharded_jvp_matches_unsharded(outcomes, idiom, world):
     for shard, case in outcomes[world][idiom].items():
@@ -239,6 +248,116 @@ def test_reaction_diffusion_jvp_collectives_unchanged(outcomes, world):
     case = outcomes[world]["reaction_diffusion"]
     assert case["placements"] == ["Shard(dim=0)"], case
     assert case["collectives"] == RD_GATHERS_PER_PRODUCT, case
+
+
+# ---------------------------------------------------------------------------
+# the C.10 rules against torch's own
+# ---------------------------------------------------------------------------
+
+def _meta(*shape, dtype=torch.float64):
+    from torch.distributed.tensor._dtensor_spec import TensorMeta
+    t = torch.empty(shape, dtype=dtype)
+    return TensorMeta(t.shape, t.stride(), t.dtype)
+
+
+def _rows(rows):
+    return [[repr(q) for q in row] for row in rows]
+
+
+def _torch_rule(name):
+    """torch's own single-dimension rule of this name, or None where this
+    torch has none."""
+    from torch.distributed.tensor._ops import _tensor_ops
+    return getattr(_tensor_ops, name, None)
+
+
+_ROLLS = [([0], [1]), ([1], [1]), ([-1], [1]), ([0, 1], [1, -1]), ([], [1])]
+_IDX = _meta(2, dtype=torch.int64)
+_PUTS = [((None, None, _IDX), _meta(16, 16, 2)), ((_IDX,), _meta(2, 16, 2)),
+         ((None, _IDX), _meta(16, 2, 2)), ((_IDX, None, _IDX), _meta(2, 16)),
+         ((None, None, _IDX), _meta(2)), ((None, None, _IDX), _meta(1, 16, 2))]
+
+
+@pytest.mark.parametrize("case", range(len(_ROLLS)))
+def test_roll_rule_matches_torch(case):
+    from nonlinearsolve_tpu_torch.parallel import dtensor_rules
+    own = _torch_rule("roll_single_dim_strategy")
+    if own is None:
+        pytest.skip("this torch has no roll rule to compare with")
+    dims, shifts = _ROLLS[case]
+    args = ((_meta(16, 16, 2), shifts, dims) if dims
+            else (_meta(16, 16, 2), shifts))
+    op = torch.ops.aten.roll.default
+    assert (_rows(dtensor_rules.roll_strategy(op, args, {}))
+            == _rows(own(op, args, {})))
+
+
+@pytest.mark.parametrize("case", range(len(_PUTS)))
+def test_index_put_rule_matches_torch(case):
+    from nonlinearsolve_tpu_torch.parallel import dtensor_rules
+    own = _torch_rule("index_put_single_dim_strategy")
+    if own is None:
+        pytest.skip("this torch has no single-dimension index_put rule")
+    indices, values = _PUTS[case]
+    args = (_meta(16, 16, 2), indices, values)
+    op = torch.ops.aten.index_put.default
+    assert (_rows(dtensor_rules.index_put_strategy(op, args, {}))
+            == _rows(own(op, args, {})))
+
+
+def test_register_keeps_torch_rules():
+    """A second ``register()`` changes no entry of roll's, index_put's,
+    index.Tensor's or index_add's; each is torch's own rule where torch
+    has one, else the port's: where torch has a single-dimension
+    ``index_put`` rule, ``index_add`` keeps no rule (it propagates through
+    its decomposition, as torch does), else it takes the port's."""
+    from torch.distributed.tensor import DTensor
+
+    from nonlinearsolve_tpu_torch.parallel import dtensor_rules
+    aten = torch.ops.aten
+    prop = DTensor._op_dispatcher.sharding_propagator
+    tables = (prop.op_strategy_funcs, prop.op_single_dim_strategy_funcs,
+              prop.op_to_rules)
+    ops = (aten.roll.default, aten.index_put.default,
+           aten.index_put_.default, aten._index_put_impl_.default,
+           aten.index.Tensor, aten.index_add.default,
+           aten.index_add_.default)
+    before = [[t.get(op) for t in tables] for op in ops]
+    dtensor_rules.register()
+    assert [[t.get(op) for t in tables] for op in ops] == before
+    own = _torch_rule("roll_single_dim_strategy")
+    got = prop.op_single_dim_strategy_funcs[aten.roll.default].func
+    assert got is (own if own is not None else dtensor_rules.roll_strategy)
+    own = _torch_rule("index_put_single_dim_strategy")
+    if own is not None:
+        # torch's own rules, and index_add through its decomposition
+        got = prop.op_single_dim_strategy_funcs[aten.index_put.default].func
+        assert got is own
+        assert not any(aten.index_add.default in t for t in tables)
+    else:
+        got = prop.op_strategy_funcs[aten.index_put.default]
+        assert got.__qualname__.startswith("_index_put_rule")
+        got = prop.op_single_dim_strategy_funcs[aten.index_add.default].func
+        assert got is dtensor_rules.index_add_strategy
+
+
+@pytest.mark.parametrize("dim", [0, 1, -1])
+def test_index_add_rule_is_index_put_on_its_decomposition(dim):
+    """``index_add``'s rows are torch's ``index_put`` rows on the
+    decomposition ``index_put(self, (None,) * dim + (index,), source)``,
+    where 2.13's propagation of ``index_add`` ends."""
+    from nonlinearsolve_tpu_torch.parallel import dtensor_rules
+    own = _torch_rule("index_put_single_dim_strategy")
+    if own is None:
+        pytest.skip("this torch has no single-dimension index_put rule")
+    shape = [16, 16, 2]
+    d = dim % 3
+    source = _meta(*[2 if k == d else n for k, n in enumerate(shape)])
+    args = (_meta(*shape), dim, _IDX, source)
+    put = (_meta(*shape), (None,) * d + (_IDX,), source)
+    assert (_rows(dtensor_rules.index_add_strategy(
+        torch.ops.aten.index_add.default, args, {}))
+            == _rows(own(torch.ops.aten.index_put.default, put, {})))
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
